@@ -1,0 +1,233 @@
+// Fused int8 GEMM for Hopper (sm_90a): C = A(M,K) int8 x B(K,N) int8,
+// accumulated in int32, then one per-column epilogue chosen per call.
+//
+// Replaces: dnn_inference_engine_tpu/ops/pallas_gemm.py, gemm_fused and
+// int8_gemm_fused (the pl.pallas_call sites of the weights-resident and
+// the 3-D tiled schedules). In the port it also carries every int8 conv
+// stage that the JAX plan leaves to XLA's int8 conv: the conv is an im2col
+// in PyTorch followed by this kernel.
+//
+// Epilogues (mode):
+//   0  conv order, as conv2d_w8a8 and the fold stages compute it:
+//      y = acc*scale + bias, activation, q = clip(rint(y / s_out), +-127)
+//   1  folded order, as gemm_fused(quantize_out=True) computes it (the
+//      caller folded 1/s_out into scale and bias): q = clip(rint(y))
+//   2  f32 out, y after the activation (the linear detection head)
+//   3  the raw int32 accumulator
+// Every rounding is explicit (__fmul_rn, __fadd_rn, __fdiv_rn, rintf): nvcc
+// would otherwise contract a*b+c into an FMA, which rounds once where XLA
+// and PyTorch round twice, and the int8 codes would drift by 1 LSB.
+//
+// What bounds it on an H100 (data-sheet rates of the SXM part at 700 W:
+// 1,979 int8 TOP/s, 3.35 TB/s): bytes for L2-L8 and the L14 head, whose
+// A matrix (K = 512..1152) feeds only N = 125..256 columns, 170 to 420
+// operations a byte against the card's ~590; the int8 tensor-core rate for
+// L10-L13 (K 2304..9216, N 512..1024). The design is the simple one that
+// is right first: 128x128x64 block tiles in shared memory,
+// a two-stage cp.async pipeline, and mma.sync m16n8k32 (s8 x s8 -> s32)
+// from 8 warps, each owning a 64x32 tile. wgmma, TMA and a persistent
+// schedule are later work. B arrives K-major as (N, K), so both operand
+// fragments are plain 32-bit shared-memory loads; a row stride of 80 bytes
+// keeps those loads free of bank conflicts. The M, N and K edges are
+// masked in the kernel (zero-filled tiles, guarded stores).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 64;          // bytes of K per stage
+constexpr int LDS = BK + 16;    // shared row stride in bytes
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 16 : 0;       // src-size 0 zero-fills the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// One (rows x BK) tile of a row-major (rows_total, K) int8 matrix into
+// shared memory. VEC: K % 16 == 0 and 16-byte aligned rows, so every
+// 16-byte chunk is wholly inside or wholly outside the matrix.
+template <bool VEC>
+__device__ __forceinline__ void load_tile(int8_t* sm, const int8_t* g,
+                                          int row0, int rows_total, int k0,
+                                          int K) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < (BM * BK / 16) / THREADS; ++i) {
+    int c = tid + i * THREADS;
+    int r = c / (BK / 16);
+    int kc = (c % (BK / 16)) * 16;
+    int gr = row0 + r;
+    int gk = k0 + kc;
+    int8_t* dst = sm + r * LDS + kc;
+    if (VEC) {
+      bool valid = gr < rows_total && gk < K;
+      const int8_t* src = valid ? g + static_cast<size_t>(gr) * K + gk : g;
+      cp_async16(dst, src, valid);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        bool valid = gr < rows_total && gk + b < K;
+        dst[b] = valid ? g[static_cast<size_t>(gr) * K + gk + b] : int8_t(0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int* c, unsigned a0, unsigned a1,
+                                       unsigned a2, unsigned a3, unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float epilogue_f32(int acc, float sc, float bi,
+                                              int act) {
+  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), sc), bi);
+  if (act == 1) {
+    y = y > 0.f ? y : __fmul_rn(0.1f, y);
+  } else if (act == 2) {
+    y = fmaxf(y, 0.f);
+  }
+  return y;
+}
+
+__device__ __forceinline__ int8_t to_code(float y) {
+  float q = fminf(fmaxf(rintf(y), -127.f), 127.f);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+gemm_fused_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ bias, float s_out,
+                  void* __restrict__ out, int M, int N, int K, int mode,
+                  int act) {
+  __shared__ __align__(16) int8_t As[2][BM * LDS];
+  __shared__ __align__(16) int8_t Bs[2][BN * LDS];
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp / 4;      // 2 warps along M, 64 rows each
+  const int wn = warp % 4;      // 4 warps along N, 32 columns each
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+
+  const int kt_n = (K + BK - 1) / BK;
+  load_tile<VEC>(As[0], A, m0, M, 0, K);
+  load_tile<VEC>(Bs[0], Bt, n0, N, 0, K);
+  cp_async_commit();
+
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < kt_n) {
+      load_tile<VEC>(As[s ^ 1], A, m0, M, (kt + 1) * BK, K);
+      load_tile<VEC>(Bs[s ^ 1], Bt, n0, N, (kt + 1) * BK, K);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int8_t* as = As[s];
+    const int8_t* bs = Bs[s];
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      unsigned b[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int8_t* p = bs + (wn * 32 + ni * 8 + g) * LDS + kk + t * 4;
+        b[ni][0] = *reinterpret_cast<const unsigned*>(p);
+        b[ni][1] = *reinterpret_cast<const unsigned*>(p + 16);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int8_t* p = as + (wm * 64 + mi * 16 + g) * LDS + kk + t * 4;
+        unsigned a0 = *reinterpret_cast<const unsigned*>(p);
+        unsigned a1 = *reinterpret_cast<const unsigned*>(p + 8 * LDS);
+        unsigned a2 = *reinterpret_cast<const unsigned*>(p + 16);
+        unsigned a3 = *reinterpret_cast<const unsigned*>(p + 8 * LDS + 16);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_s8(acc[mi][ni], a0, a1, a2, a3, b[ni][0], b[ni][1]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = m0 + wm * 64 + mi * 16 + g + (r >= 2 ? 8 : 0);
+        const int col = n0 + wn * 32 + ni * 8 + t * 2 + (r & 1);
+        if (row >= M || col >= N) continue;
+        const size_t o = static_cast<size_t>(row) * N + col;
+        const int a = acc[mi][ni][r];
+        if (mode == 3) {
+          static_cast<int*>(out)[o] = a;
+          continue;
+        }
+        float y = epilogue_f32(a, scale[col], bias[col], act);
+        if (mode == 2) {
+          static_cast<float*>(out)[o] = y;
+        } else {
+          if (mode == 0) y = __fdiv_rn(y, s_out);
+          static_cast<int8_t*>(out)[o] = to_code(y);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int gemm_fused_s8(const void* a, const void* bt, const void* scale,
+                             const void* bias, float s_out, void* out, int M,
+                             int N, int K, int mode, int act, int vec,
+                             void* stream) {
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* A = static_cast<const int8_t*>(a);
+  const auto* B = static_cast<const int8_t*>(bt);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  if (vec) {
+    gemm_fused_kernel<true><<<grid, THREADS, 0, st>>>(A, B, sc, bi, s_out,
+                                                      out, M, N, K, mode, act);
+  } else {
+    gemm_fused_kernel<false><<<grid, THREADS, 0, st>>>(A, B, sc, bi, s_out,
+                                                       out, M, N, K, mode, act);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,60 @@
+"""Conv -> GEMM lowering: im2col patch extraction.
+
+Counterpart of ``dnn_inference_engine_tpu/ops/conv_lowering.py``. Patches
+are ordered (kh-major, kw, cin) along K, matching a plain
+``w.reshape(kh*kw*cin, cout)`` of HWIO weights. Zero padding is exact for
+f32 and for symmetric int8 (zero-point 0).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from dnn_inference_engine_tpu_torch.ops.fused_conv import _pad_hw
+
+
+def _same_pads(h: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA 'SAME' padding (lo, hi) for one spatial dim."""
+    out = -(-h // s)
+    total = max((out - 1) * s + k - h, 0)
+    lo = total // 2
+    return lo, total - lo
+
+
+def extract_patches(x: torch.Tensor, kh: int, kw: int, stride: int,
+                    padding="SAME",
+                    out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(N,H,W,C) -> (N,Ho,Wo,kh*kw*C) patch tensor (im2col).
+
+    ``out_hw`` keeps only the first (Ho, Wo) output positions — the
+    shifted-fold stages trim their VALID conv's junk rows and columns, so
+    their patches are never built.
+    """
+    n, h, w, c = x.shape
+    if padding == "SAME":
+        ph = _same_pads(h, kh, stride)
+        pw = _same_pads(w, kw, stride)
+    elif padding == "VALID":
+        ph = pw = (0, 0)
+    else:
+        ph, pw = padding
+    xp = _pad_hw(x, ph[0], ph[1], pw[0], pw[1]) if any(ph + pw) else x
+    ho = (xp.shape[1] - kh) // stride + 1
+    wo = (xp.shape[2] - kw) // stride + 1
+    if out_hw is not None:
+        ho, wo = min(ho, out_hw[0]), min(wo, out_hw[1])
+    if kh == kw == 1 and stride == 1:
+        return xp[:, :ho, :wo]
+    pieces = [xp[:, i:i + (ho - 1) * stride + 1:stride,
+                 j:j + (wo - 1) * stride + 1:stride]
+              for i in range(kh) for j in range(kw)]
+    return torch.cat(pieces, dim=-1)
+
+
+def gemm_weights(wq: torch.Tensor) -> torch.Tensor:
+    """HWIO (kh,kw,Cin,Cout) -> the (Cout, kh*kw*Cin) K-major matrix the
+    GEMM kernel reads."""
+    kh, kw, cin, cout = wq.shape
+    return wq.reshape(kh * kw * cin, cout).T.contiguous()

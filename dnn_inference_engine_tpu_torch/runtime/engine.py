@@ -1,0 +1,164 @@
+"""Engine: the inference runtime for one model/mode/batch configuration.
+
+Counterpart of ``dnn_inference_engine_tpu/runtime/engine.py``, for the
+W8A8 fused-plan path: the forward (runtime/plan.py), the columnar
+decode and the fixpoint NMS (postprocess.py) all run on the engine's
+device. The engine runs on the card unless ``device="cpu"`` is passed;
+without a card and without that, it raises rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from dnn_inference_engine_tpu_torch.config import (
+    EngineConfig, YOLOV2_TINY_ANCHORS,
+)
+from dnn_inference_engine_tpu_torch.models import build_model
+from dnn_inference_engine_tpu_torch.models.weights import params_from_numpy
+from dnn_inference_engine_tpu_torch.postprocess import (
+    decode_yolov2_cols, device_nms_cols,
+)
+from dnn_inference_engine_tpu_torch.quant.quantize import (
+    calibrate, f32_scalar, quantize_model_params,
+)
+from dnn_inference_engine_tpu_torch.runtime.plan import (
+    build_plan, plan_forward_w8a8, plan_input_uint8_ok, prepare_plan_params,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names a device; never a silent CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                               "the plain PyTorch versions on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+class Engine:
+    """Inference engine for one model/mode/batch configuration."""
+
+    def __init__(self, config: EngineConfig, device=None):
+        if config.mode != "w8a8" or config.kernel != "auto":
+            raise NotImplementedError(
+                "only mode='w8a8' with kernel='auto' is ported; fp32 and w8 "
+                "are ROADMAP item A9")
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = build_model(config.model, num_classes=config.num_classes)
+        self.params: Optional[List[Dict]] = None       # quantized params
+        self.fp32_params: Optional[List[Dict]] = None  # kept for calibration
+        self.act_scales: Optional[List[float]] = None
+        self._plan = None
+        self._plan_params = None
+
+    # ------------------------------------------------------------------
+    # Weights
+    # ------------------------------------------------------------------
+
+    def load_weights(self, seed: int = 0,
+                     params: Optional[Sequence[Dict]] = None,
+                     act_scales: Optional[Sequence[float]] = None
+                     ) -> "Engine":
+        """Random He init from ``torch.Generator().manual_seed(seed)``, or
+        the numpy ``params`` (and calibration ``act_scales``) carried
+        across, fp32 or already quantized (models/weights.py). Weight
+        files are ROADMAP item A4."""
+        if params is None:
+            gen = torch.Generator().manual_seed(seed)
+            self.fp32_params = self.model.init_params(gen, self.device)
+            return self
+        ps, scales = params_from_numpy(params, act_scales, self.device)
+        if scales is not None:
+            self.act_scales = scales
+        if any("wq" in p for p in ps):
+            self.params = ps
+        else:
+            self.fp32_params = ps
+        return self
+
+    def prepare(self, calib_images: Optional[np.ndarray] = None) -> "Engine":
+        """Quantize, calibrate, and build the fused plan."""
+        if self.params is None:
+            if self.fp32_params is None:
+                raise RuntimeError("load_weights first")
+            self.params = quantize_model_params(self.fp32_params,
+                                                self.model.layers)
+        self._plan = build_plan(self.model, batch=self.config.batch)
+        if self._plan is None:
+            raise ValueError(f"no fused plan for {self.model.name}")
+        self._plan_params = prepare_plan_params(self.model, self.params,
+                                                self._plan)
+        if self.act_scales is None:
+            if calib_images is None:
+                # uniform-noise calibration, the same batch the JAX engine
+                # draws: fine for synthetic weights only
+                warnings.warn(
+                    "w8a8 calibration falling back to uniform noise "
+                    "(synthetic-weights mode); activation scales will not "
+                    "match natural images", stacklevel=2)
+                calib_images = np.random.default_rng(0).uniform(
+                    0, 1, (8, self.config.input_size,
+                           self.config.input_size, 3)).astype(np.float32)
+            if self.fp32_params is None:
+                raise RuntimeError("w8a8 calibration needs fp32 params")
+            self.act_scales = calibrate(self.model, self.fp32_params,
+                                        calib_images, device=self.device)
+        return self
+
+    # ------------------------------------------------------------------
+    # Forward, decode, NMS
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.uint8 and not plan_input_uint8_ok(self._plan):
+            x = x.to(torch.float32) / f32_scalar(255.0, x.device)
+        return plan_forward_w8a8(self.model, self._plan, self._plan_params,
+                                 self.act_scales, x)
+
+    @torch.no_grad()
+    def postprocess(self, heads: torch.Tensor):
+        """heads -> (boxes xyxy (B,D,4), scores (B,D), classes (B,D))."""
+        c = self.config
+        boxes, scores = decode_yolov2_cols(
+            heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
+        return device_nms_cols(boxes, scores,
+                               iou_thresh=c.nms_iou_thresh,
+                               score_thresh=c.score_thresh,
+                               topk=c.resolved_nms_topk(),
+                               max_det=c.max_detections)
+
+    def detect_fn(self):
+        """The device detect function: image batch tensor -> (boxes,
+        scores, classes) tensors on the engine's device."""
+        if self._plan is None:
+            raise RuntimeError("prepare first")
+
+        def run(x):
+            return self.postprocess(self._fwd(x))
+        return run
+
+    def _device_batch(self, images) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(images)).to(self.device)
+
+    def detect_device(self, images):
+        """Dispatch detection without waiting for the device: returns
+        device tensors (boxes, scores, classes). The NMS fixpoint syncs
+        with the host once per sweep."""
+        return self.detect_fn()(self._device_batch(images))
+
+    def detect(self, images):
+        """Image batch (N,S,S,3), uint8 or f32 in [0,1] -> numpy results."""
+        b, s, cl = self.detect_device(images)
+        return b.cpu().numpy(), s.cpu().numpy(), cl.cpu().numpy()
+
+    def classify(self, images) -> np.ndarray:
+        """Image batch -> the f32 head, as numpy."""
+        return self._fwd(self._device_batch(images)).cpu().numpy()

@@ -1,0 +1,359 @@
+"""Execution plans: the fused W8A8 stage pipeline.
+
+Counterpart of ``dnn_inference_engine_tpu/runtime/plan.py``. A plan
+rewrites the layer list into stages; folded stages absorb the following
+2x2/s2 maxpool into a channel group-max, exactly in int8. Activation
+scales follow ``Model.forward_w8a8``: each conv requantizes to the
+calibrated scale of its own output; pools preserve scale.
+
+Stage kinds ported so far, with what runs them on the card:
+
+  stem_rs      ops/fused_conv.stem_fused_k2 (kernel)
+  fold_xla     im2col + ops/gemm.gemm_fused (kernel) + group-max
+  fold_xla_k2  ops/fused_conv.shift_s2d2 (kernel) when the input is int8,
+               then im2col + gemm_fused + group-max
+  xla          im2col + gemm_fused (ops/conv.conv2d_w8a8)
+  pool         ops/pool.maxpool
+
+The strategy tables are the JAX package's pins, measured there on a TPU;
+the port uses them as its parity contract. Its own tables will come from
+sweeps on the H100 (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from dnn_inference_engine_tpu_torch.models.layers import (
+    Conv, MaxPool, Route, Shortcut,
+)
+from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
+from dnn_inference_engine_tpu_torch.ops.conv_lowering import gemm_weights
+from dnn_inference_engine_tpu_torch.ops.fused_conv import (
+    _pad_channels, _pad_hw, depth_to_space, fold_conv3x3_k2_weights,
+    fold_conv3x3_weights, group_max4, shift_s2d2, space_to_depth,
+    stem_fused_k2,
+)
+from dnn_inference_engine_tpu_torch.ops.pool import maxpool
+from dnn_inference_engine_tpu_torch.quant.quantize import (
+    dequantize, f32_scalar, quantize_act,
+)
+
+
+@dataclasses.dataclass
+class Stage:
+    kind: str                     # stem_rs | fold_xla | fold_xla_k2 | xla | pool
+    conv_li: int                  # layer index this stage implements
+    pool_li: Optional[int]        # fused following MaxPool layer (or None)
+    fold: int = 1                 # 1 (unfolded) or fold factor (+ gmax)
+    k: int = 3                    # folded kernel size (3 = SAME, 2 = shifted VALID)
+    cin_pad: int = 0              # lane-pad folded input channels to this
+    act: str = "leaky"
+    stride: int = 1
+    padding: str = "SAME"
+    s_out_is_final: bool = False
+
+
+_CONV_KINDS = {"fold_xla": "fold_xla", "fold_xla_k2": "fold_xla_k2",
+               "fold_xla_s2": "fold_xla_s2",
+               "rs": "rs", "rs2": "rs", "stem_rs": "stem_rs",
+               "stem_dg": "stem_dg",
+               "xla": "xla", "gemm": "gemm", "auto": "auto", "s0": "s0"}
+
+# Conv kinds of the JAX plan that this port does not run yet, with the
+# ROADMAP item that ports each.
+_LATER_KINDS = {
+    "rs": "B4 (conv3x3_rs)", "stem_dg": "B6 (stem_fused_dg)",
+    "fold_xla_s2": "B7 (gmax_shift_s2d2)", "s0": "B8 (stage0_fused_v2)",
+    "gemm": "A3 (the gemm/auto conv tiers, ops/dispatch.py)",
+    "auto": "A3 (the gemm/auto conv tiers, ops/dispatch.py)",
+}
+
+# The JAX package's YOLOv2-tiny pin for batch 32 (and the default for
+# batches without a pin of their own).
+_YOLOV2_STRATEGY = {
+    0: ("stem_rs", 4, {"cin_pad": 64}),
+    2: ("fold_xla", 2),     # conv2 folded f2 (chained in, no relayout)
+    4: ("fold_xla_k2", 2),  # conv3 shifted-k2 f2 (absorbs the pool)
+    6: ("xla", 1),
+    8: ("xla", 1),
+    10: ("xla", 1),
+    12: ("xla", 1),
+    13: ("xla", 1),
+    14: ("xla", 1),
+}
+
+_DEFAULT_STRATEGIES = {
+    "yolov2-tiny": _YOLOV2_STRATEGY,
+}
+
+# Per-(model, batch) pins; an exact batch match wins over the default.
+_BATCH_STRATEGIES: Dict[Tuple[str, int], Dict] = {
+    ("yolov2-tiny", 1): {
+        0: ("stem_rs", 4, {"cin_pad": 64}),
+        2: ("fold_xla", 2),
+        4: ("fold_xla", 2),
+        6: ("xla", 1), 8: ("xla", 1), 10: ("xla", 1),
+        12: ("xla", 1), 13: ("xla", 1), 14: ("xla", 1),
+    },
+    ("yolov2-tiny", 8): {
+        0: ("stem_rs", 4, {"cin_pad": 64}),
+        2: ("fold_xla", 2),
+        4: ("fold_xla", 2),
+        6: ("xla", 1),
+        8: ("fold_xla_k2", 2),
+        10: ("xla", 1),
+        12: ("xla", 1), 13: ("xla", 1), 14: ("xla", 1),
+    },
+}
+
+
+def default_strategy(model_name: str, batch: Optional[int] = None,
+                     mode: str = "w8a8") -> Dict:
+    """The pinned strategy for (model, batch): the per-batch pin when one
+    exists, else the model's default table. Only w8a8 is ported."""
+    if mode != "w8a8":
+        raise NotImplementedError("w8 plans are ROADMAP item A9")
+    if batch is not None:
+        s = _BATCH_STRATEGIES.get((model_name, batch))
+        if s is not None:
+            return s
+    return _DEFAULT_STRATEGIES.get(model_name, {})
+
+
+def _referenced_layers(model) -> Set[int]:
+    """Layer indices whose outputs are consumed out of sequence."""
+    refs: Set[int] = set()
+    for layer in model.layers:
+        if isinstance(layer, Route):
+            refs.update(layer.layers)
+        elif isinstance(layer, Shortcut):
+            refs.add(layer.frm)
+    return refs
+
+
+def build_plan(model, strategy: Optional[Dict] = None,
+               batch: Optional[int] = None,
+               mode: str = "w8a8") -> Optional[List[Stage]]:
+    """Layer-list model -> list of stages; None if the strategy cannot
+    fold where it asks to. Kinds not ported yet raise, naming their
+    ROADMAP item."""
+    if strategy is None:
+        strategy = default_strategy(model.name, batch, mode)
+    refs = _referenced_layers(model)
+    stages: List[Stage] = []
+    layers = model.layers
+    li = 0
+    while li < len(layers):
+        layer = layers[li]
+        if isinstance(layer, Conv):
+            entry = strategy.get(li, ("xla", 1))
+            kind, fold = entry[0], entry[1]
+            opts = entry[2] if len(entry) > 2 else {}
+            if kind not in _CONV_KINDS:
+                raise ValueError(
+                    f"unknown plan strategy kind {kind!r} for layer {li}; "
+                    f"valid kinds: {sorted(_CONV_KINDS)}")
+            kind = _CONV_KINDS[kind]
+            if kind in _LATER_KINDS:
+                raise NotImplementedError(
+                    f"plan stage kind {kind!r} is ROADMAP item "
+                    f"{_LATER_KINDS[kind]}")
+            pool_li = None
+            nxt = li + 1
+            if (fold > 1 and nxt < len(layers)
+                    and isinstance(layers[nxt], MaxPool)
+                    and layers[nxt].stride == 2 and layers[nxt].size == 2):
+                pool_li = nxt
+            if fold > 1 and (pool_li is None or li in refs):
+                # a fold needs the absorbable pool, and erases the conv's
+                # pre-pool output (illegal if something routes from it)
+                return None
+            stages.append(Stage(
+                kind=kind, conv_li=li, pool_li=pool_li, fold=fold,
+                k=2 if kind in ("fold_xla_k2", "stem_rs") else 3,
+                cin_pad=opts.get("cin_pad", 0), act=layer.act,
+                stride=layer.stride, padding=layer.padding,
+                s_out_is_final=(layer.act == "linear")))
+            li = (pool_li + 1) if pool_li is not None else li + 1
+        elif isinstance(layer, MaxPool):
+            stages.append(Stage(kind="pool", conv_li=li, pool_li=None))
+            li += 1
+        else:
+            raise NotImplementedError(
+                f"{type(layer).__name__} plan stages are ROADMAP item A10")
+    return stages
+
+
+def prepare_plan_params(model, qparams: Sequence[Dict],
+                        stages: Sequence[Stage]) -> List[Dict]:
+    """Pre-fold weights for folded stages (host-side, once), and store
+    each GEMM stage's K-major weight matrix ``wt`` (gemm_weights)."""
+    out: List[Dict] = []
+    for st in stages:
+        p = qparams[st.conv_li]
+        if st.fold > 1:
+            f = st.fold
+            folder = (fold_conv3x3_k2_weights if st.k == 2
+                      else fold_conv3x3_weights)
+            wq = p["wq"]
+            # pool-major group order: the fused group-max is 3 maxes over
+            # contiguous channel quarters
+            wf = folder(wq.cpu().numpy(), f, pool_major=True)
+            if st.cin_pad and wf.shape[2] < st.cin_pad:
+                # zero Cin rows match the lane-padded input's zero channels
+                wf = np.concatenate(
+                    [wf, np.zeros(wf.shape[:2]
+                                  + (st.cin_pad - wf.shape[2], wf.shape[3]),
+                                  wf.dtype)], axis=2)
+            q = {"wq": torch.as_tensor(wf, device=wq.device),
+                 "s_w": p["s_w"].repeat(f * f),
+                 "b": p["b"].repeat(f * f)}
+        else:
+            q = dict(p)
+        if st.kind != "stem_rs" and "wq" in q:
+            q["wt"] = gemm_weights(q["wq"])
+        out.append(q)
+    return out
+
+
+@torch.no_grad()
+def plan_forward_w8a8(model, stages: Sequence[Stage],
+                      plan_params: Sequence[Dict], act_scales, x,
+                      record_states: Optional[list] = None):
+    """Run the fused stage pipeline. x: (N,H,W,3) f32, or uint8 when the
+    entry stage ingests the wire format (plan_input_uint8_ok); returns
+    the f32 head.
+
+    ``record_states``: when a list, each stage's entry state
+    ``(x, cur_scale, cur_fold)`` is appended to it.
+    """
+    cur_scale = None
+    cur_fold = 1                  # s2d fold factor of the tensor in ``x``
+    for si, st in enumerate(stages):
+        if record_states is not None:
+            record_states.append((x, cur_scale, cur_fold))
+        x, cur_scale, cur_fold = _run_stage(
+            model.layers, st, plan_params[si], x, cur_scale, cur_fold,
+            act_scales)
+    if cur_fold > 1:
+        x = depth_to_space(x, cur_fold)
+    return x if cur_scale is None else dequantize(x, cur_scale)
+
+
+def plan_input_uint8_ok(stages: Sequence[Stage]) -> bool:
+    """True when the plan's entry stage consumes the uint8 wire format
+    directly (no separate /255 normalize of the batch)."""
+    st = stages[0]
+    return (st.kind in ("fold_xla", "fold_xla_k2", "stem_rs")
+            and st.fold == 4)
+
+
+def _folded_entry(st):
+    return NotImplementedError(
+        f"a {st.kind} stage that quantizes the network input needs "
+        "quant_space_to_depth4 (ROADMAP item B5)")
+
+
+def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales):
+    """One plan stage; returns (x, cur_scale, cur_fold). Scales are
+    Python floats (f32-rounded where used), as the JAX plan's
+    ``jnp.float32(act_scales[i])``."""
+    li = st.conv_li
+    s_next = act_scales[li + 1]
+    dev = x.device
+    if cur_fold > 1 and st.kind in ("pool", "fold_xla_k2"):
+        # these stages read the plain (de-folded) tensor
+        x, cur_fold = depth_to_space(x, cur_fold), 1
+    if st.kind == "pool":
+        lay = layers[li]
+        x = maxpool(x, lay.size, lay.stride, lay.padding)  # scale-preserving
+        return x, cur_scale, cur_fold
+
+    if st.kind == "stem_rs":
+        # the whole stage 0 in one kernel: quantize (uint8 wire or f32) +
+        # shifted s2d(4) + 2x2 folded conv + epilogue/requant + pool-major
+        # group-max
+        if not (cur_fold == 1 and cur_scale is None and st.fold == 4
+                and not st.s_out_is_final):
+            raise ValueError(f"stem_rs must be the entry stage: {st}")
+        s_out = f32_scalar(s_next, dev)
+        s_w = pp["s_w"]
+        if x.dtype == torch.uint8:
+            # exact uint8 ingestion: layer-0 input scale 1/255, codes
+            # v = u - 128; the offset contributes 128 * (per-channel
+            # weight row-sums), folded into the bias (same op order as
+            # the JAX plan)
+            s_in = f32_scalar(1.0 / 255.0, dev)
+            w1 = pp["wq"].reshape(-1, s_w.shape[0]).to(torch.float32).sum(0)
+            scale = (s_in * s_w) / s_out
+            bias = (pp["b"] + 128.0 * s_in * s_w * w1) / s_out
+            x = stem_fused_k2(x, pp["wq"], scale, bias, s_in, act=st.act,
+                              exact_u8=True)
+        else:
+            s_in = f32_scalar(act_scales[li], dev)
+            scale = (s_in * s_w) / s_out
+            bias = pp["b"] / s_out
+            x = stem_fused_k2(x, pp["wq"], scale, bias, act_scales[li],
+                              act=st.act)
+        return x, s_next, st.fold // 2
+
+    if st.kind == "fold_xla_k2":
+        # shifted-fold k2: a 2x2 VALID conv over the shifted s2d(f); the
+        # conv's trailing junk rows/cols are never computed (out_hw)
+        f = st.fold
+        if st.s_out_is_final:
+            raise ValueError(f"fold_xla_k2 cannot emit the head: {st}")
+        if cur_scale is None:
+            raise _folded_entry(st)
+        if f == 2 and x.dtype == torch.int8 \
+                and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+            out_hw = (x.shape[1] // 2, x.shape[2] // 2)
+            x = shift_s2d2(x)
+        else:
+            x = space_to_depth(_pad_hw(x, 1, 2 * f - 1, 1, 2 * f - 1), f)
+            out_hw = (x.shape[1] - 2, x.shape[2] - 2)
+        if st.cin_pad:
+            x = _pad_channels(x, st.cin_pad)
+        y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
+                        act=st.act, padding="VALID", s_out=s_next,
+                        wt=pp["wt"], out_hw=out_hw)
+        return group_max4(y), s_next, f // 2
+
+    if cur_scale is None:
+        if st.fold > 1:
+            raise _folded_entry(st)
+        cur_scale = act_scales[li]
+        x = quantize_act(x, cur_scale)
+    # layout: folded stages consume s2d(fold) of the plain tensor
+    need_fold = st.fold if st.fold > 1 else 1
+    if cur_fold != need_fold:
+        if cur_fold > 1:
+            x = depth_to_space(x, cur_fold)
+        if need_fold > 1:
+            x = space_to_depth(x, need_fold)
+        cur_fold = need_fold
+    if st.fold > 1 and st.cin_pad:
+        x = _pad_channels(x, st.cin_pad)
+    s_out = None if st.s_out_is_final else s_next
+
+    if st.kind == "xla":
+        x = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
+                        act=st.act, stride=st.stride, padding=st.padding,
+                        s_out=s_out, wt=pp["wt"])
+    elif st.kind == "fold_xla":
+        if s_out is None:
+            raise ValueError(f"fold_xla cannot emit the head: {st}")
+        y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
+                        act=st.act, s_out=s_out, wt=pp["wt"])
+        # pool-major group-max on the requantized int8 tensor; the
+        # surviving group order IS the fold-(f/2) layout
+        x = group_max4(y)
+        cur_fold = st.fold // 2
+    else:
+        raise ValueError(st.kind)
+    return x, s_out, cur_fold

@@ -1,0 +1,78 @@
+"""The port's Engine against the JAX Engine, end to end on the CPU.
+
+YOLOv2-tiny w8a8 at 64 px with the JAX engine's random weights and
+calibration scales carried across (models/weights.params_from_numpy).
+Detections: classes and survivor counts exact, boxes within 1e-3 px.
+The heads agree up to the single FMA rounding that XLA's jit applies to
+the f32 head on the CPU (see tests/test_torch_plan.py), which is why the
+boxes and scores get a tolerance at all.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dnn_inference_engine_tpu.config import EngineConfig as JConfig
+from dnn_inference_engine_tpu.runtime.engine import Engine as JEngine
+
+from dnn_inference_engine_tpu_torch.config import EngineConfig
+from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+
+
+def _engines(batch, score_thresh):
+    kw = dict(batch=batch, input_size=64, score_thresh=score_thresh)
+    calib = np.random.default_rng(11).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32)
+    jeng = JEngine(JConfig(mode="w8a8", kernel="auto", **kw)).load_weights(
+        key=jax.random.PRNGKey(0)).prepare(calib)
+    teng = Engine(EngineConfig(**kw), device="cpu").load_weights(
+        params=jax.tree.map(np.asarray, jeng.params),
+        act_scales=jeng.act_scales).prepare()
+    assert [s.kind for s in teng._plan] == [s.kind for s in jeng._plan]
+    return jeng, teng
+
+
+@pytest.mark.parametrize("batch,thresh", [(2, 0.02), (1, 0.3)])
+def test_detect_matches_jax_engine(batch, thresh):
+    jeng, teng = _engines(batch, thresh)
+    imgs = np.random.default_rng(12).integers(
+        0, 256, (batch, 64, 64, 3)).astype(np.uint8)
+    jb, js, jc = jeng.detect(imgs)
+    tb, ts, tc = teng.detect(imgs)
+    assert tb.shape == jb.shape and ts.shape == js.shape
+    np.testing.assert_array_equal((ts > 0).sum(axis=1), (js > 0).sum(axis=1))
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_allclose(tb, jb, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-7)
+    if thresh < 0.25:
+        assert (js > 0).sum() > 0          # the case exercises survivors
+    np.testing.assert_allclose(teng.classify(imgs),
+                               np.asarray(jeng.classify(imgs)),
+                               rtol=0, atol=1e-5)
+
+
+def test_engine_needs_a_device_or_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(EngineConfig())
+    with pytest.raises(NotImplementedError, match="A9"):
+        Engine(EngineConfig(mode="fp32"), device="cpu")
+
+
+def test_engine_seeded_init_and_calibration_on_cpu():
+    """The port's own path: seeded weights, noise calibration, detect."""
+    eng = Engine(EngineConfig(batch=1, input_size=64), device="cpu")
+    with pytest.warns(UserWarning, match="uniform noise"):
+        eng.load_weights(seed=3).prepare()
+    again = Engine(EngineConfig(batch=1, input_size=64),
+                   device="cpu").load_weights(seed=3)
+    for a, b in zip(eng.fp32_params, again.fp32_params):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+    assert len(eng.act_scales) == len(eng.model.layers) + 1
+    x = np.random.default_rng(0).uniform(0, 1, (1, 64, 64, 3)).astype(
+        np.float32)
+    b, s, c = eng.detect(x)
+    assert b.shape == (1, 128, 4) and s.shape == (1, 128)
+    assert np.isfinite(eng.classify(x)).all()

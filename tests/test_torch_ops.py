@@ -1,0 +1,338 @@
+"""The PyTorch port's ops against the JAX package, on the CPU.
+
+Same inputs, made with numpy from a seed, go through the JAX function
+(Pallas kernels in interpret mode, as the JAX package's own tests run
+them) and the port's counterpart, whose wrappers take their plain
+PyTorch versions for CPU tensors. int8 codes, int32 accumulators and the
+fold transforms must be identical; the f32 epilogue outputs too, since
+both sides round the same float32 operations in the same order.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dnn_inference_engine_tpu import config as jcfg
+from dnn_inference_engine_tpu.ops import conv as jconv
+from dnn_inference_engine_tpu.ops import pallas_conv as jpc
+from dnn_inference_engine_tpu.ops import pallas_gemm as jgemm
+from dnn_inference_engine_tpu.ops.pool import maxpool as jmaxpool
+from dnn_inference_engine_tpu.quant import quantize as jq
+
+from dnn_inference_engine_tpu_torch import config as tcfg
+from dnn_inference_engine_tpu_torch.ops import fused_conv as tfc
+from dnn_inference_engine_tpu_torch.ops import gemm as tgemm
+from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
+from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+    extract_patches, gemm_weights)
+from dnn_inference_engine_tpu_torch.ops.pool import maxpool as tmaxpool
+from dnn_inference_engine_tpu_torch.quant import quantize as tq
+
+
+def T(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def N(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def eq(got, ref):
+    got, ref = N(got), N(ref)
+    assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.fixture
+def r():
+    return np.random.default_rng(1234)
+
+
+# ---------------------------------------------------------------------------
+# config
+# ---------------------------------------------------------------------------
+
+def test_constants_match_jax():
+    for name in ("YOLOV2_TINY_ANCHORS", "YOLOV3_TINY_ANCHORS", "VOC_CLASSES",
+                 "INPUT_SIZE", "GRID_SIZE", "NUM_ANCHORS", "NUM_CLASSES",
+                 "SCORE_THRESH_VIS", "SCORE_THRESH_EVAL", "NMS_IOU_THRESH",
+                 "MAX_DETECTIONS", "NMS_TOPK", "NMS_TRUNCATION_MIN_THRESH",
+                 "QMAX", "LEAKY_SLOPE"):
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    jdef = {f.name: f.default for f in dataclasses.fields(jcfg.EngineConfig)}
+    for f in dataclasses.fields(tcfg.EngineConfig):
+        if f.name != "mode":          # the port's default is its one mode
+            assert f.default == jdef[f.name], f.name
+    for thresh in (0.005, 0.04, 0.25, 0.3):
+        for topk in (None, 16):
+            kw = dict(score_thresh=thresh, nms_topk=topk)
+            assert (tcfg.EngineConfig(**kw).resolved_nms_topk()
+                    == jcfg.EngineConfig(**kw).resolved_nms_topk())
+
+
+# ---------------------------------------------------------------------------
+# quantize
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 3, 16, 32), (1, 1, 64, 125), (40, 7)])
+def test_quantize_weights_identical(r, shape):
+    w = (r.standard_normal(shape) * 0.3).astype(np.float32)
+    w[..., 0] = 0.0                      # an all-zero channel: the 1e-12 floor
+    jwq, js = jq.quantize_weights_per_channel(jnp.asarray(w))
+    twq, ts = tq.quantize_weights_per_channel(T(w))
+    eq(twq, jwq)
+    eq(ts, js)
+
+
+@pytest.mark.parametrize("scale", [0.00787, 0.05, 1 / 255.0, 0.0123456])
+def test_quantize_act_and_dequantize_identical(r, scale):
+    x = r.uniform(-20, 20, (4, 9, 9, 8)).astype(np.float32)
+    x[0, 0, 0, :4] = np.array([0.5, 1.5, -2.5, 300.0]) * scale  # ties, clip
+    jx = jq.quantize_act(jnp.asarray(x), jnp.float32(scale))
+    tx = tq.quantize_act(T(x), scale)
+    eq(tx, jx)
+    eq(tq.dequantize(tx, scale), jq.dequantize(jx, jnp.float32(scale)))
+
+
+# ---------------------------------------------------------------------------
+# fold transforms and layouts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("pool_major", [False, True])
+def test_weight_folds_identical(r, f, pool_major):
+    w = r.integers(-127, 128, (3, 3, 5, 6)).astype(np.int8)
+    eq(tfc.fold_conv3x3_weights(w, f, pool_major),
+       jpc.fold_conv3x3_weights(w, f, pool_major))
+    eq(tfc.fold_conv3x3_k2_weights(w, f, pool_major),
+       jpc.fold_conv3x3_k2_weights(w, f, pool_major))
+
+
+@pytest.mark.parametrize("f", [2, 4])
+def test_layout_transforms_identical(r, f):
+    x = r.integers(-127, 128, (2, 16, 24, 3)).astype(np.int8)
+    s = tfc.space_to_depth(T(x), f)
+    eq(s, jpc.space_to_depth(jnp.asarray(x), f))
+    eq(tfc.depth_to_space(s, f), x)
+    eq(tfc.shift_space_to_depth(T(x), f),
+       jpc.shift_space_to_depth(jnp.asarray(x), f))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.float32])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_maxpool_identical(r, dtype, stride):
+    x = (r.integers(-128, 128, (2, 6, 8, 5)) if dtype == np.int8
+         else r.standard_normal((2, 6, 8, 5))).astype(dtype)
+    eq(tmaxpool(T(x), 2, stride), jmaxpool(jnp.asarray(x), 2, stride))
+
+
+def test_extract_patches_identical(r):
+    from dnn_inference_engine_tpu.ops.conv_lowering import (
+        extract_patches as jextract)
+    x = r.integers(-127, 128, (2, 7, 9, 4)).astype(np.int8)
+    for k, s, pad in ((3, 1, "SAME"), (3, 2, "SAME"), (2, 1, "VALID"),
+                      (1, 1, "SAME")):
+        eq(extract_patches(T(x), k, k, s, pad),
+           jextract(jnp.asarray(x), k, k, s, pad))
+
+
+# ---------------------------------------------------------------------------
+# gemm_fused (kernel 1's plain version)
+# ---------------------------------------------------------------------------
+
+def _gemm_inputs(r, m=300, k=576, n=125):
+    a = r.integers(-127, 128, (m, k)).astype(np.int8)
+    b = r.integers(-127, 128, (k, n)).astype(np.int8)
+    scale = (r.uniform(0.5, 2.0, n) * 1e-4).astype(np.float32)
+    bias = r.standard_normal(n).astype(np.float32)
+    return a, b, scale, bias
+
+
+def _assert_f32_vs_jax_gemm(got, ref, a, b, scale, bias, act):
+    """The JAX gemm_fused, run in interpret mode on the CPU, computes
+    acc*scale + bias as ONE fused multiply-add (one rounding); the port
+    rounds the multiply and the add separately, as conv2d_w8a8 — the
+    order of the slice's conv stages — does. Pin both exactly: JAX
+    against the single-rounded expression, the port against the
+    double-rounded one; the two differ by at most the product's
+    rounding plus one rounding of the result."""
+    acc = (a.astype(np.int64) @ b.astype(np.int64)).astype(np.float64)
+
+    def act_fn(y):
+        if act == "leaky":
+            return np.where(y > 0, y, np.float32(0.1) * y)
+        if act == "relu":
+            return np.maximum(y, np.float32(0))
+        return y
+    fused = (acc * scale.astype(np.float64) + bias.astype(np.float64)
+             ).astype(np.float32)
+    prod = acc.astype(np.float32) * scale
+    eq(ref, act_fn(fused))
+    eq(got, act_fn(prod + bias))
+    gap = np.abs(N(got) - N(ref))
+    assert (gap <= np.spacing(np.abs(prod)) + np.spacing(np.abs(fused))).all()
+
+
+@pytest.mark.parametrize("act", ["leaky", "linear", "relu"])
+@pytest.mark.parametrize("mode", ["f32", "quantize_out", "raw_acc"])
+def test_gemm_fused_plain_matches_jax(r, act, mode):
+    a, b, scale, bias = _gemm_inputs(r)
+    kw = {"quantize_out": mode == "quantize_out",
+          "raw_acc": mode == "raw_acc"}
+    ref = jgemm.gemm_fused(jnp.asarray(a), jnp.asarray(b), jnp.asarray(scale),
+                           jnp.asarray(bias), act=act, **kw)
+    got = tgemm.gemm_fused(T(a), T(b.T), T(scale), T(bias), act=act, **kw)
+    if mode == "f32":
+        _assert_f32_vs_jax_gemm(got, ref, a, b, scale, bias, act)
+    else:
+        eq(got, ref)
+
+
+@pytest.mark.parametrize("s_out", [None, 0.05])
+def test_int8_gemm_fused_matches_jax(r, s_out):
+    a, b, scale, bias = _gemm_inputs(r, m=200, k=512, n=256)
+    ref = jgemm.int8_gemm_fused(jnp.asarray(a), jnp.asarray(b),
+                                jnp.asarray(scale), jnp.asarray(bias),
+                                s_out=s_out)
+    got = tgemm.int8_gemm_fused(T(a), T(b.T), T(scale), T(bias), s_out=s_out)
+    if s_out is None:
+        _assert_f32_vs_jax_gemm(got, ref, a, b, scale, bias, "leaky")
+    else:
+        eq(got, ref)
+
+
+def test_gemm_conv_order_matches_jax_epilogue(r):
+    """The conv-order epilogue (s_out): conv2d_w8a8's op order on the
+    exact int32 accumulator."""
+    a, b, scale, bias = _gemm_inputs(r)
+    s_out = 0.0173
+    acc = jnp.asarray(a.astype(np.int32) @ b.astype(np.int32))
+    y = acc.astype(jnp.float32) * jnp.asarray(scale) + jnp.asarray(bias)
+    ref = jq.quantize_act(jnp.where(y > 0, y, 0.1 * y), jnp.float32(s_out))
+    got = tgemm.gemm_fused(T(a), T(b.T), T(scale), T(bias), act="leaky",
+                           s_out=s_out)
+    eq(got, ref)
+
+
+@pytest.mark.parametrize("s_out", [None, 0.031])
+@pytest.mark.parametrize("shape,k,cout,stride", [
+    ((2, 13, 13, 64), 3, 128, 1), ((2, 8, 8, 256), 1, 125, 1),
+    ((2, 9, 10, 16), 3, 32, 2)])
+def test_conv2d_w8a8_matches_jax(r, shape, k, cout, stride, s_out):
+    x = r.integers(-127, 128, shape).astype(np.int8)
+    wq = r.integers(-127, 128, (k, k, shape[-1], cout)).astype(np.int8)
+    s_w = (r.uniform(0.5, 2, cout) * 1e-3).astype(np.float32)
+    b = (r.standard_normal(cout) * 0.1).astype(np.float32)
+    s_in = 0.0421
+    act = "leaky" if s_out else "linear"
+    ref = jconv.conv2d_w8a8(jnp.asarray(x), jnp.float32(s_in),
+                            jnp.asarray(wq), jnp.asarray(s_w), jnp.asarray(b),
+                            act=act, stride=stride,
+                            s_out=None if s_out is None
+                            else jnp.float32(s_out))
+    got = conv2d_w8a8(T(x), s_in, T(wq), T(s_w), T(b), act=act,
+                      stride=stride, s_out=s_out, wt=gemm_weights(T(wq)))
+    eq(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# stem_fused_k2 (kernel 2) and shift_s2d2 (kernel 3) plain versions
+# ---------------------------------------------------------------------------
+
+def _stem_args(r, cin_pad, exact_u8):
+    w = (r.standard_normal((3, 3, 3, 16)) * 0.2).astype(np.float32)
+    wq, s_w = jq.quantize_weights_per_channel(jnp.asarray(w))
+    b = jnp.asarray(r.standard_normal(16) * 0.1, jnp.float32)
+    s_in = jnp.float32(1 / 255.0 if exact_u8 else 0.00787)
+    s_out = jnp.float32(0.05)
+    wf = jpc.fold_conv3x3_k2_weights(np.asarray(wq), 4, pool_major=True)
+    wf = np.concatenate([wf, np.zeros((2, 2, cin_pad - 48, 256), np.int8)],
+                        axis=2)
+    s_wt, bt = jnp.tile(s_w, 16), jnp.tile(b, 16)
+    scale = (s_in * s_wt) / s_out
+    if exact_u8:
+        w1 = jnp.asarray(wf.reshape(-1, 256).astype(np.float32).sum(axis=0))
+        bias = (bt + 128.0 * s_in * s_wt * w1) / s_out
+    else:
+        bias = bt / s_out
+    return wf, scale, bias, s_in
+
+
+@pytest.mark.parametrize("cin_pad", [48, 64])
+@pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
+def test_stem_fused_k2_plain_matches_jax(r, ingest, cin_pad):
+    exact = ingest == "exact_u8"
+    xu = r.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    x = xu.astype(np.float32) / 255.0 if ingest == "f32" else xu
+    wf, scale, bias, s_in = _stem_args(r, cin_pad, exact)
+    ref = jpc.stem_fused_k2(jnp.asarray(x), jnp.asarray(wf), scale, bias,
+                            s_in, exact_u8=exact)
+    got = tfc.stem_fused_k2(T(x), T(wf), T(scale), T(bias), float(s_in),
+                            exact_u8=exact)
+    assert got.shape == (2, 16, 16, 64)
+    eq(got, ref)
+
+
+@pytest.mark.parametrize("n,rows", [(32, 4), (8, 2), (4, 1), (1, 1)])
+def test_stem_band_rows_give_every_sm_two_blocks(n, rows):
+    """416 px (104 output rows) on a 132-SM card."""
+    assert tfc._stem_band_rows(n, 104, 132) == rows
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 32), (1, 10, 14, 5),
+                                   (2, 26, 26, 128)])
+def test_shift_s2d2_plain_matches_jax(r, shape):
+    x = r.integers(-127, 128, shape).astype(np.int8)
+    ref = jpc.shift_s2d2_pallas(jnp.asarray(x))
+    got = tfc.shift_s2d2(T(x))
+    eq(got, ref)
+    h, w = shape[1], shape[2]
+    eq(got[:, :h // 2 + 1], tfc.shift_space_to_depth(T(x), 2))
+
+
+def test_kernel_wrappers_refuse_bad_inputs(r):
+    a = torch.zeros((4, 8), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        tgemm.gemm_fused(a.float(), a, torch.zeros(4), torch.zeros(4))
+    with pytest.raises(ValueError):
+        tgemm.gemm_fused(a, a, torch.zeros(4), torch.zeros(4),
+                         quantize_out=True, s_out=0.1)
+    w = torch.zeros((2, 2, 64, 256), dtype=torch.int8)
+    for x, exact in ((torch.zeros((1, 8, 8, 3)), True),
+                     (torch.zeros((1, 8, 8, 3), dtype=torch.uint8), False)):
+        with pytest.raises(TypeError):
+            tfc.stem_fused_k2(x, w, torch.zeros(256), torch.zeros(256), 0.1,
+                              exact_u8=exact)
+    with pytest.raises(ValueError):
+        tfc.shift_s2d2(torch.zeros((1, 5, 4, 3), dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# the no-JAX rule
+# ---------------------------------------------------------------------------
+
+def test_port_imports_no_jax():
+    """Importing every module of the port (and chip_smoke.py) loads
+    neither jax nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys, runpy\n"
+        "import dnn_inference_engine_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k.startswith('dnn_inference_engine_tpu.')\n"
+        "       or k == 'dnn_inference_engine_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", (
+        out.stdout, out.stderr)
