@@ -53,7 +53,7 @@ LEAKY_SLOPE = 0.1
 class EngineConfig:
     """Engine configuration (the fields this port supports so far)."""
 
-    model: str = "yolov2-tiny"          # yolov2-tiny
+    model: str = "yolov2-tiny"          # yolov2-tiny | yolov3-tiny
     mode: str = "w8a8"                  # w8a8
     kernel: str = "auto"                # auto (the fused stage plan)
     batch: int = 1

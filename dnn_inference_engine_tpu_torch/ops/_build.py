@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+(with the shared ``csrc/*.cuh`` headers it includes)
 with ``nvcc`` into ``build/kernels/lib<name>.so`` at the root of the
 checkout, at first use; ``ctypes`` loads it. Nothing here runs at import
 time, so the package imports on a machine with no CUDA toolkit.
@@ -40,8 +41,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or any shared
+    header (``csrc/*.cuh``)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:

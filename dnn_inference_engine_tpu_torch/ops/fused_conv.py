@@ -2,11 +2,13 @@
 
 Counterpart of ``dnn_inference_engine_tpu/ops/pallas_conv.py``. The
 weight folds are its numpy code, copied verbatim; the layout ops are
-torch. Two of its Pallas kernels have Hopper ports here, each a wrapper
+torch. Three of its Pallas kernels have Hopper ports here, each a wrapper
 beside its plain PyTorch version:
 
 - ``stem_fused_k2`` (``csrc/stem_fused_k2.cu``): quantize + shifted
   s2d(4) + 2x2 folded int8 conv + int32 group-max + epilogue, in one pass;
+- ``stem_fused_dg`` (``csrc/stem_fused_dg.cu``): the same function in the
+  per-tap formulation, reading host-prepared K-major weight slabs;
 - ``shift_s2d2`` (``csrc/shift_s2d2.cu``, for ``shift_s2d2_pallas``):
   pad + shifted space-to-depth(2) of an int8 tensor.
 
@@ -196,24 +198,34 @@ def stem_fused_k2_plain(x, w, scale, bias, s_in, act="leaky",
     return y.reshape(n, hout, wout, go)
 
 
-def _stem_check(x, w, scale, bias, exact_u8):
+def _stem_check(x, w, scale, bias, exact_u8, name):
     if x.ndim != 4 or x.shape[3] != 3 or x.shape[1] % 8 or x.shape[2] % 8:
-        raise ValueError(f"stem_fused_k2: x must be (N,H,W,3) with H, W "
+        raise ValueError(f"{name}: x must be (N,H,W,3) with H, W "
                          f"multiples of 8, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.uint8):
-        raise TypeError(f"stem_fused_k2: x must be f32 or uint8, "
-                        f"got {x.dtype}")
+        raise TypeError(f"{name}: x must be f32 or uint8, got {x.dtype}")
     if exact_u8 != (x.dtype == torch.uint8):
         raise TypeError("uint8 input is taken with exact_u8 ingestion only "
-                        "(the plan's stem_rs stage); f32 input without it")
+                        "(the plan's stem stages); f32 input without it")
     if (w.dtype != torch.int8 or w.ndim != 4 or tuple(w.shape[:2]) != (2, 2)
             or w.shape[2] < 48 or w.shape[3] % 4):
-        raise ValueError(f"stem_fused_k2: w must be (2,2,C>=48,4*go) int8, "
+        raise ValueError(f"{name}: w must be (2,2,C>=48,4*go) int8, "
                          f"got {w.dtype} {tuple(w.shape)}")
-    for name, v in (("scale", scale), ("bias", bias)):
+    for arg, v in (("scale", scale), ("bias", bias)):
         if v.dtype != torch.float32 or tuple(v.shape) != (w.shape[3],):
-            raise ValueError(f"stem_fused_k2: {name} must be float32 "
+            raise ValueError(f"{name}: {arg} must be float32 "
                              f"({w.shape[3]},)")
+
+
+def _stem_card_check(x, w, scale, bias, name):
+    """What both stem kernels take beyond the plain contract."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if w.shape[3] != 256:
+        raise ValueError("the stem kernels are built for 16*Cout1 == 256 "
+                         f"folded outputs, got {w.shape[3]}")
+    if any(t.device != x.device for t in (w, scale, bias)):
+        raise ValueError(f"{name}: all operands on one device")
 
 
 def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -232,16 +244,10 @@ def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     row-sums into ``bias``.
     Returns (N, H/4, W/4, 4*Cout1) int8 in pool-major fold-2 layout.
     """
-    _stem_check(x, w, scale, bias, exact_u8)
+    _stem_check(x, w, scale, bias, exact_u8, "stem_fused_k2")
     if x.device.type == "cpu":
         return stem_fused_k2_plain(x, w, scale, bias, s_in, act, exact_u8)
-    if x.device.type != "cuda":
-        raise ValueError(f"stem_fused_k2: unsupported device {x.device}")
-    if w.shape[3] != 256:
-        raise ValueError("the stem kernel is built for 16*Cout1 == 256 "
-                         f"folded outputs, got {w.shape[3]}")
-    if any(t.device != x.device for t in (w, scale, bias)):
-        raise ValueError("stem_fused_k2: all operands on one device")
+    _stem_card_check(x, w, scale, bias, "stem_fused_k2")
     x, w = x.contiguous(), w.contiguous()
     # the kernel reads w in 32-bit words and x in 4-element vectors
     if w.data_ptr() % 4:
@@ -279,6 +285,82 @@ def _stem_band_rows(n: int, hout: int, sms: int) -> int:
     while rows > 1 and n * -(-hout // rows) < 2 * sms:
         rows //= 2
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Fused stem, per-tap formulation (kernel 4)
+# ---------------------------------------------------------------------------
+
+def stem_fused_dg_plain(x, w, scale, bias, s_in, act="leaky",
+                        exact_u8=False):
+    """Plain PyTorch version of ``stem_fused_dg``: four K=48 int32
+    products, one per (dh, dw) tap, accumulated; then the group-max on
+    the accumulator and the epilogue."""
+    f = 4
+    n, h, wd, _ = x.shape
+    go = int(w.shape[3]) // 4
+    hout, wout = h // f, wd // f
+    xq = _stem_quant(_pad_hw(x, 1, 2 * f - 1, 1, 2 * f - 1), s_in, exact_u8)
+    xs = space_to_depth(xq, f)                   # 48 real lanes
+    acc = sum(int32_acc_plain(xs[:, dh:dh + hout, dw:dw + wout]
+                              .reshape(-1, 48), w[dh, dw, :48].T)
+              for dh in (0, 1) for dw in (0, 1))
+    acc = group_max4(acc)
+    y = apply_activation(acc.to(torch.float32) * scale[:go] + bias[:go], act)
+    y = torch.clamp(torch.round(y), -QMAX, QMAX).to(torch.int8)
+    return y.reshape(n, hout, wout, go)
+
+
+def stem_dg_weight_slabs(w: torch.Tensor) -> torch.Tensor:
+    """(2, 2, C, 256) folded stem weights -> the (4, 256, 48) per-tap
+    slabs, K-major: the dg kernel's shared-memory layout. Rows 48.. (a
+    cin_pad) are dropped. Made once and cached on ``w`` (until ``w`` is
+    written in place)."""
+    cached = getattr(w, "_dg_slabs", None)
+    if cached is not None and cached[0] == w._version:
+        return cached[1]
+    slabs = (w[:, :, :48, :].reshape(4, 48, w.shape[3]).transpose(1, 2)
+             .contiguous())
+    w._dg_slabs = (w._version, slabs)
+    return slabs
+
+
+def stem_fused_dg(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor, s_in, act: str = "leaky",
+                  exact_u8: bool = False) -> torch.Tensor:
+    """``stem_fused_k2`` in the per-tap formulation: the same arguments
+    and the same result, bit for bit. Any cin_pad rows of ``w`` are
+    dropped (their input lanes are zero). On the card the kernel reads
+    the weights as ``stem_dg_weight_slabs(w)``."""
+    _stem_check(x, w, scale, bias, exact_u8, "stem_fused_dg")
+    if x.device.type == "cpu":
+        return stem_fused_dg_plain(x, w, scale, bias, s_in, act, exact_u8)
+    _stem_card_check(x, w, scale, bias, "stem_fused_dg")
+    slabs = stem_dg_weight_slabs(w)
+    if slabs.data_ptr() % 16:        # read by 16-byte cp.async
+        raise ValueError("stem_fused_dg: weight slabs not 16-byte aligned")
+    x = x.contiguous()
+    if x.data_ptr() % 16:            # read in 4-element vectors
+        x = x.clone()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    n, h, wd, _ = x.shape
+    out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.int8,
+                      device=x.device)
+    s = float(s_in) if not exact_u8 else 1.0
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("stem_fused_dg", "stem_fused_dg",
+                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, p])
+    err = fn(x.data_ptr(), slabs.data_ptr(), scale.data_ptr(),
+             bias.data_ptr(), s, out.data_ptr(), n, h, wd,
+             _stem_band_rows(n, h // 4, sms), int(exact_u8),
+             KERNEL_ACT_CODES[act], _build.stream_ptr(x.device))
+    stem_fused_dg.launches += 1
+    _build.check(err, "stem_fused_dg")
+    return out
+
+
+stem_fused_dg.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Head decode + NMS on the device, in the columnar layout.
 
 Counterpart of the columnar path of
-``dnn_inference_engine_tpu/postprocess.py``: ``decode_yolov2_cols``
-(boxes (N,4,M) cxcywh and scores (N,C,M), anchor-major order m =
-anchor*S*S + cell) and ``device_nms_cols`` (one class-agnostic candidate
+``dnn_inference_engine_tpu/postprocess.py``: ``decode_yolov2_cols`` and
+``decode_yolov3_cols`` (boxes (N,4,M) cxcywh and scores (N,C,M),
+anchor-major order m = anchor*S*S + cell) and ``device_nms_cols`` (one class-agnostic candidate
 top-K, one shared IoU matrix, per-class greedy suppression as a Jacobi
 fixpoint). Plain PyTorch: no Pallas kernel computes these.
 
@@ -56,6 +56,14 @@ def decode_yolov2_cols(head, anchors=YOLOV2_TINY_ANCHORS,
     """Columnar decode: (N,4,M) cxcywh + (N,C,M), anchor-major order."""
     return _decode_cols(head, anchors, num_classes, input_size,
                         anchors_in_cells=True, softmax_cls=True)
+
+
+def decode_yolov3_cols(head, anchors_px, num_classes: int = NUM_CLASSES,
+                       input_size: int = INPUT_SIZE):
+    """Columnar decode of one YOLOv3 head: anchors in pixels, sigmoid
+    class scores."""
+    return _decode_cols(head, anchors_px, num_classes, input_size,
+                        anchors_in_cells=False, softmax_cls=False)
 
 
 def _pack_bits(x: torch.Tensor) -> torch.Tensor:

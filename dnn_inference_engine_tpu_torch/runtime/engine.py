@@ -16,12 +16,12 @@ import numpy as np
 import torch
 
 from dnn_inference_engine_tpu_torch.config import (
-    EngineConfig, YOLOV2_TINY_ANCHORS,
+    EngineConfig, YOLOV2_TINY_ANCHORS, YOLOV3_TINY_ANCHORS,
 )
 from dnn_inference_engine_tpu_torch.models import build_model
 from dnn_inference_engine_tpu_torch.models.weights import params_from_numpy
 from dnn_inference_engine_tpu_torch.postprocess import (
-    decode_yolov2_cols, device_nms_cols,
+    decode_yolov2_cols, decode_yolov3_cols, device_nms_cols,
 )
 from dnn_inference_engine_tpu_torch.quant.quantize import (
     calibrate, f32_scalar, quantize_model_params,
@@ -117,18 +117,31 @@ class Engine:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
+    def _fwd(self, x: torch.Tensor):
+        """The f32 head, or the tuple of heads (YOLOv3-tiny)."""
         if x.dtype == torch.uint8 and not plan_input_uint8_ok(self._plan):
             x = x.to(torch.float32) / f32_scalar(255.0, x.device)
         return plan_forward_w8a8(self.model, self._plan, self._plan_params,
                                  self.act_scales, x)
 
     @torch.no_grad()
-    def postprocess(self, heads: torch.Tensor):
-        """heads -> (boxes xyxy (B,D,4), scores (B,D), classes (B,D))."""
+    def postprocess(self, heads):
+        """heads -> (boxes xyxy (B,D,4), scores (B,D), classes (B,D)).
+        YOLOv3-tiny's two heads decode with their anchor halves and
+        concatenate along the candidate axis, 13x13 head first (the
+        order sets the NMS tie-breaks)."""
         c = self.config
-        boxes, scores = decode_yolov2_cols(
-            heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
+        if self.model.name == "yolov3-tiny":
+            h1, h2 = heads
+            b1, s1 = decode_yolov3_cols(h1, YOLOV3_TINY_ANCHORS[3:],
+                                        c.num_classes, c.input_size)
+            b2, s2 = decode_yolov3_cols(h2, YOLOV3_TINY_ANCHORS[:3],
+                                        c.num_classes, c.input_size)
+            boxes = torch.cat([b1, b2], dim=-1)
+            scores = torch.cat([s1, s2], dim=-1)
+        else:
+            boxes, scores = decode_yolov2_cols(
+                heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
         return device_nms_cols(boxes, scores,
                                iou_thresh=c.nms_iou_thresh,
                                score_thresh=c.score_thresh,
@@ -159,6 +172,9 @@ class Engine:
         b, s, cl = self.detect_device(images)
         return b.cpu().numpy(), s.cpu().numpy(), cl.cpu().numpy()
 
-    def classify(self, images) -> np.ndarray:
-        """Image batch -> the f32 head, as numpy."""
-        return self._fwd(self._device_batch(images)).cpu().numpy()
+    def classify(self, images):
+        """Image batch -> the f32 head as numpy, or a tuple of them."""
+        heads = self._fwd(self._device_batch(images))
+        if isinstance(heads, tuple):
+            return tuple(h.cpu().numpy() for h in heads)
+        return heads.cpu().numpy()

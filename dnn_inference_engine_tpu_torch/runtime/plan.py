@@ -9,11 +9,17 @@ calibrated scale of its own output; pools preserve scale.
 Stage kinds ported so far, with what runs them on the card:
 
   stem_rs      ops/fused_conv.stem_fused_k2 (kernel)
+  stem_dg      ops/fused_conv.stem_fused_dg (kernel)
   fold_xla     im2col + ops/gemm.gemm_fused (kernel) + group-max
   fold_xla_k2  ops/fused_conv.shift_s2d2 (kernel) when the input is int8,
                then im2col + gemm_fused + group-max
   xla          im2col + gemm_fused (ops/conv.conv2d_w8a8)
   pool         ops/pool.maxpool
+  route        dequantize the saved pieces, concat, requantize
+  upsample     nearest repeat of the int8 tensor (keeps its scale)
+
+Layer outputs consumed out of sequence (route sources, the heads of a
+multi-head model) are saved de-folded with their scale.
 
 The strategy tables are the JAX package's pins, measured there on a TPU;
 the port uses them as its parity contract. Its own tables will come from
@@ -29,24 +35,28 @@ import numpy as np
 import torch
 
 from dnn_inference_engine_tpu_torch.models.layers import (
-    Conv, MaxPool, Route, Shortcut,
+    Conv, MaxPool, Route, Shortcut, Upsample,
+)
+from dnn_inference_engine_tpu_torch.models.model import (
+    _to_f32, _upsample_nearest,
 )
 from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import gemm_weights
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
     _pad_channels, _pad_hw, depth_to_space, fold_conv3x3_k2_weights,
     fold_conv3x3_weights, group_max4, shift_s2d2, space_to_depth,
-    stem_fused_k2,
+    stem_dg_weight_slabs, stem_fused_dg, stem_fused_k2,
 )
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import (
-    dequantize, f32_scalar, quantize_act,
+    f32_scalar, quantize_act,
 )
 
 
 @dataclasses.dataclass
 class Stage:
-    kind: str                     # stem_rs | fold_xla | fold_xla_k2 | xla | pool
+    kind: str                     # stem_rs | stem_dg | fold_xla | fold_xla_k2
+                                  # | xla | pool | route | upsample
     conv_li: int                  # layer index this stage implements
     pool_li: Optional[int]        # fused following MaxPool layer (or None)
     fold: int = 1                 # 1 (unfolded) or fold factor (+ gmax)
@@ -67,7 +77,7 @@ _CONV_KINDS = {"fold_xla": "fold_xla", "fold_xla_k2": "fold_xla_k2",
 # Conv kinds of the JAX plan that this port does not run yet, with the
 # ROADMAP item that ports each.
 _LATER_KINDS = {
-    "rs": "B4 (conv3x3_rs)", "stem_dg": "B6 (stem_fused_dg)",
+    "rs": "B4 (conv3x3_rs)",
     "fold_xla_s2": "B7 (gmax_shift_s2d2)", "s0": "B8 (stage0_fused_v2)",
     "gemm": "A3 (the gemm/auto conv tiers, ops/dispatch.py)",
     "auto": "A3 (the gemm/auto conv tiers, ops/dispatch.py)",
@@ -87,8 +97,28 @@ _YOLOV2_STRATEGY = {
     14: ("xla", 1),
 }
 
+# The JAX package's YOLOv3-tiny pin, measured there at batch 16; the
+# default for every batch (it has no per-batch pins).
+_YOLOV3_STRATEGY = {
+    0: ("stem_dg", 4),
+    2: ("fold_xla", 2),
+    4: ("fold_xla_k2", 2),                    # absorbs the C=64 pool
+
+    6: ("xla", 1),
+    8: ("xla", 1),
+    10: ("xla", 1),
+    12: ("xla", 1),
+    13: ("xla", 1),
+    14: ("xla", 1),
+    15: ("xla", 1),
+    17: ("xla", 1),
+    20: ("xla", 1),
+    21: ("xla", 1),
+}
+
 _DEFAULT_STRATEGIES = {
     "yolov2-tiny": _YOLOV2_STRATEGY,
+    "yolov3-tiny": _YOLOV3_STRATEGY,
 }
 
 # Per-(model, batch) pins; an exact batch match wins over the default.
@@ -133,6 +163,8 @@ def _referenced_layers(model) -> Set[int]:
             refs.update(layer.layers)
         elif isinstance(layer, Shortcut):
             refs.add(layer.frm)
+    if model.out_layers is not None:
+        refs.update(model.out_layers)
     return refs
 
 
@@ -175,13 +207,19 @@ def build_plan(model, strategy: Optional[Dict] = None,
                 return None
             stages.append(Stage(
                 kind=kind, conv_li=li, pool_li=pool_li, fold=fold,
-                k=2 if kind in ("fold_xla_k2", "stem_rs") else 3,
+                k=2 if kind in ("fold_xla_k2", "stem_rs", "stem_dg") else 3,
                 cin_pad=opts.get("cin_pad", 0), act=layer.act,
                 stride=layer.stride, padding=layer.padding,
                 s_out_is_final=(layer.act == "linear")))
             li = (pool_li + 1) if pool_li is not None else li + 1
         elif isinstance(layer, MaxPool):
             stages.append(Stage(kind="pool", conv_li=li, pool_li=None))
+            li += 1
+        elif isinstance(layer, Route):
+            stages.append(Stage(kind="route", conv_li=li, pool_li=None))
+            li += 1
+        elif isinstance(layer, Upsample):
+            stages.append(Stage(kind="upsample", conv_li=li, pool_li=None))
             li += 1
         else:
             raise NotImplementedError(
@@ -191,8 +229,9 @@ def build_plan(model, strategy: Optional[Dict] = None,
 
 def prepare_plan_params(model, qparams: Sequence[Dict],
                         stages: Sequence[Stage]) -> List[Dict]:
-    """Pre-fold weights for folded stages (host-side, once), and store
-    each GEMM stage's K-major weight matrix ``wt`` (gemm_weights)."""
+    """Pre-fold weights for folded stages (host-side, once), store each
+    GEMM stage's K-major weight matrix ``wt`` (gemm_weights), and lay out
+    the stem_dg kernel's weight slabs (cached on the folded weights)."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -215,7 +254,9 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
                  "b": p["b"].repeat(f * f)}
         else:
             q = dict(p)
-        if st.kind != "stem_rs" and "wq" in q:
+        if st.kind == "stem_dg":
+            stem_dg_weight_slabs(q["wq"])
+        elif st.kind != "stem_rs" and "wq" in q:
             q["wt"] = gemm_weights(q["wq"])
         out.append(q)
     return out
@@ -227,29 +268,39 @@ def plan_forward_w8a8(model, stages: Sequence[Stage],
                       record_states: Optional[list] = None):
     """Run the fused stage pipeline. x: (N,H,W,3) f32, or uint8 when the
     entry stage ingests the wire format (plan_input_uint8_ok); returns
-    the f32 head.
+    the f32 head, or the tuple of heads of a multi-head model.
 
     ``record_states``: when a list, each stage's entry state
-    ``(x, cur_scale, cur_fold)`` is appended to it.
+    ``(x, cur_scale, cur_fold, saved)`` is appended to it.
     """
+    refs = _referenced_layers(model)
     cur_scale = None
     cur_fold = 1                  # s2d fold factor of the tensor in ``x``
+    # saved[li] = (tensor, scale) for out-of-sequence consumers, always
+    # de-folded; scale None: the tensor is f32
+    saved: Dict[int, Tuple[torch.Tensor, Optional[float]]] = {}
     for si, st in enumerate(stages):
         if record_states is not None:
-            record_states.append((x, cur_scale, cur_fold))
+            record_states.append((x, cur_scale, cur_fold, dict(saved)))
         x, cur_scale, cur_fold = _run_stage(
             model.layers, st, plan_params[si], x, cur_scale, cur_fold,
-            act_scales)
+            act_scales, saved)
+        out_li = st.pool_li if st.pool_li is not None else st.conv_li
+        if out_li in refs:
+            t = depth_to_space(x, cur_fold) if cur_fold > 1 else x
+            saved[out_li] = (t, cur_scale)
+    if model.out_layers is not None:
+        return tuple(_to_f32(*saved[j]) for j in model.out_layers)
     if cur_fold > 1:
         x = depth_to_space(x, cur_fold)
-    return x if cur_scale is None else dequantize(x, cur_scale)
+    return _to_f32(x, cur_scale)
 
 
 def plan_input_uint8_ok(stages: Sequence[Stage]) -> bool:
     """True when the plan's entry stage consumes the uint8 wire format
     directly (no separate /255 normalize of the batch)."""
     st = stages[0]
-    return (st.kind in ("fold_xla", "fold_xla_k2", "stem_rs")
+    return (st.kind in ("fold_xla", "fold_xla_k2", "stem_rs", "stem_dg")
             and st.fold == 4)
 
 
@@ -259,28 +310,39 @@ def _folded_entry(st):
         "quant_space_to_depth4 (ROADMAP item B5)")
 
 
-def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales):
+def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
+               saved=None):
     """One plan stage; returns (x, cur_scale, cur_fold). Scales are
     Python floats (f32-rounded where used), as the JAX plan's
-    ``jnp.float32(act_scales[i])``."""
+    ``jnp.float32(act_scales[i])``. ``saved``: the de-folded outputs a
+    route stage reads (plan_forward_w8a8)."""
     li = st.conv_li
     s_next = act_scales[li + 1]
     dev = x.device
-    if cur_fold > 1 and st.kind in ("pool", "fold_xla_k2"):
+    if cur_fold > 1 and st.kind in ("pool", "fold_xla_k2", "upsample"):
         # these stages read the plain (de-folded) tensor
         x, cur_fold = depth_to_space(x, cur_fold), 1
     if st.kind == "pool":
         lay = layers[li]
         x = maxpool(x, lay.size, lay.stride, lay.padding)  # scale-preserving
         return x, cur_scale, cur_fold
+    if st.kind == "route":
+        x = torch.cat([_to_f32(*saved[j]) for j in layers[li].layers],
+                      dim=-1)
+        return quantize_act(x, s_next), s_next, 1
+    if st.kind == "upsample":
+        x = _upsample_nearest(x, layers[li].stride)        # scale-preserving
+        return x, cur_scale, cur_fold
 
-    if st.kind == "stem_rs":
+    if st.kind in ("stem_rs", "stem_dg"):
         # the whole stage 0 in one kernel: quantize (uint8 wire or f32) +
         # shifted s2d(4) + 2x2 folded conv + epilogue/requant + pool-major
-        # group-max
+        # group-max; stem_dg is the same function in the per-tap
+        # formulation
+        stem = stem_fused_dg if st.kind == "stem_dg" else stem_fused_k2
         if not (cur_fold == 1 and cur_scale is None and st.fold == 4
                 and not st.s_out_is_final):
-            raise ValueError(f"stem_rs must be the entry stage: {st}")
+            raise ValueError(f"{st.kind} must be the entry stage: {st}")
         s_out = f32_scalar(s_next, dev)
         s_w = pp["s_w"]
         if x.dtype == torch.uint8:
@@ -292,14 +354,13 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales):
             w1 = pp["wq"].reshape(-1, s_w.shape[0]).to(torch.float32).sum(0)
             scale = (s_in * s_w) / s_out
             bias = (pp["b"] + 128.0 * s_in * s_w * w1) / s_out
-            x = stem_fused_k2(x, pp["wq"], scale, bias, s_in, act=st.act,
-                              exact_u8=True)
+            x = stem(x, pp["wq"], scale, bias, s_in, act=st.act,
+                     exact_u8=True)
         else:
             s_in = f32_scalar(act_scales[li], dev)
             scale = (s_in * s_w) / s_out
             bias = pp["b"] / s_out
-            x = stem_fused_k2(x, pp["wq"], scale, bias, act_scales[li],
-                              act=st.act)
+            x = stem(x, pp["wq"], scale, bias, act_scales[li], act=st.act)
         return x, s_next, st.fold // 2
 
     if st.kind == "fold_xla_k2":

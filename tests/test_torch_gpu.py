@@ -72,6 +72,33 @@ def test_stem_kernel_matches_plain(cuda, monkeypatch, ingest, cin, rows):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
+@pytest.mark.parametrize("cin", [48, 64])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("batch", [1, 2, 16])
+def test_stem_dg_kernel_matches_plain(cuda, monkeypatch, batch, rows, cin,
+                                      ingest):
+    """Every band height at batches 1, 2 and 16, on 56 px rows (14 output
+    rows: the last band of 4 is partial); equal to the k2 kernel too."""
+    monkeypatch.setattr(fc, "_stem_band_rows", lambda n, hout, sms: rows)
+    g = torch.Generator(device=cuda).manual_seed(batch * 100 + cin)
+    w = _i8(g, cuda, 2, 2, cin, 256)
+    scale = torch.rand(256, generator=g, device=cuda) * 1e-2
+    bias = torch.randn(256, generator=g, device=cuda)
+    xu = torch.randint(0, 256, (batch, 56, 72, 3), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    x = xu.float() / 255.0 if ingest == "f32" else xu
+    exact = ingest == "exact_u8"
+    before = fc.stem_fused_dg.launches
+    got = fc.stem_fused_dg(x, w, scale, bias, 0.0123, exact_u8=exact)
+    assert fc.stem_fused_dg.launches == before + 1
+    ref = fc.stem_fused_dg_plain(x, w, scale, bias, 0.0123, exact_u8=exact)
+    k2 = fc.stem_fused_k2(x, w, scale, bias, 0.0123, exact_u8=exact)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got, k2)
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 16, 32), (1, 10, 14, 5),
                                    (3, 26, 26, 128)])
 def test_shift_s2d2_kernel_matches_plain(cuda, shape):
@@ -93,6 +120,28 @@ def test_engine_card_matches_cpu(cuda):
     imgs = np.random.default_rng(0).integers(
         0, 256, (2, 64, 64, 3)).astype(np.uint8)
     np.testing.assert_array_equal(gpu.classify(imgs), cpu.classify(imgs))
+    bg, sg, cg = gpu.detect(imgs)
+    bc, sc, cc = cpu.detect(imgs)
+    np.testing.assert_array_equal(cg, cc)
+    np.testing.assert_array_equal((sg > 0).sum(1), (sc > 0).sum(1))
+    np.testing.assert_allclose(bg, bc, rtol=0, atol=1e-3)
+
+
+def test_yolov3_engine_card_matches_cpu(cuda):
+    """YOLOv3-tiny at 64 px: both heads identical, detections equal."""
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    cfg = EngineConfig(model="yolov3-tiny", batch=2, input_size=64,
+                       score_thresh=0.02)
+    gpu = Engine(cfg).load_weights(seed=0).prepare()
+    params = [{k: v.cpu().numpy() for k, v in p.items()} for p in gpu.params]
+    cpu = Engine(cfg, device="cpu").load_weights(
+        params=params, act_scales=gpu.act_scales).prepare()
+    assert gpu._plan[0].kind == "stem_dg"
+    imgs = np.random.default_rng(0).integers(
+        0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    for hg, hc in zip(gpu.classify(imgs), cpu.classify(imgs), strict=True):
+        np.testing.assert_array_equal(hg, hc)
     bg, sg, cg = gpu.detect(imgs)
     bc, sc, cc = cpu.detect(imgs)
     np.testing.assert_array_equal(cg, cc)

@@ -241,7 +241,8 @@ def test_conv2d_w8a8_matches_jax(r, shape, k, cout, stride, s_out):
 
 
 # ---------------------------------------------------------------------------
-# stem_fused_k2 (kernel 2) and shift_s2d2 (kernel 3) plain versions
+# stem_fused_k2 (kernel 2), shift_s2d2 (kernel 3) and stem_fused_dg
+# (kernel 4) plain versions
 # ---------------------------------------------------------------------------
 
 def _stem_args(r, cin_pad, exact_u8):
@@ -278,6 +279,38 @@ def test_stem_fused_k2_plain_matches_jax(r, ingest, cin_pad):
     eq(got, ref)
 
 
+@pytest.mark.parametrize("cin_pad", [48, 64])
+@pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
+def test_stem_fused_dg_plain_matches_jax(r, ingest, cin_pad):
+    """The per-tap formulation against the JAX stem_fused_dg (Pallas, in
+    interpret mode), bit for bit; and against the port's own k2 stem."""
+    exact = ingest == "exact_u8"
+    xu = r.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    x = xu.astype(np.float32) / 255.0 if ingest == "f32" else xu
+    wf, scale, bias, s_in = _stem_args(r, cin_pad, exact)
+    ref = jpc.stem_fused_dg(jnp.asarray(x), jnp.asarray(wf), scale, bias,
+                            s_in, exact_u8=exact)
+    args = (T(x), T(wf), T(scale), T(bias), float(s_in))
+    got = tfc.stem_fused_dg(*args, exact_u8=exact)
+    assert got.shape == (2, 16, 16, 64)
+    eq(got, ref)
+    eq(got, tfc.stem_fused_k2(*args, exact_u8=exact))
+
+
+def test_stem_dg_weight_slabs_layout_and_cache(r):
+    """slabs[2*dh+dw, o, l] == w[dh, dw, l, o] for the 48 real lanes; the
+    cin_pad rows are dropped; the cache follows in-place writes."""
+    w = T(r.integers(-127, 128, (2, 2, 64, 256)).astype(np.int8))
+    s = tfc.stem_dg_weight_slabs(w)
+    assert tuple(s.shape) == (4, 256, 48) and s.is_contiguous()
+    want = w.numpy()[:, :, :48, :].reshape(4, 48, 256).transpose(0, 2, 1)
+    eq(s, want)
+    assert tfc.stem_dg_weight_slabs(w) is s
+    w[1, 0, 5, 7] = 0 if int(w[1, 0, 5, 7]) else 1
+    s2 = tfc.stem_dg_weight_slabs(w)
+    assert s2 is not s and int(s2[2, 7, 5]) == int(w[1, 0, 5, 7])
+
+
 @pytest.mark.parametrize("n,rows", [(32, 4), (8, 2), (4, 1), (1, 1)])
 def test_stem_band_rows_give_every_sm_two_blocks(n, rows):
     """416 px (104 output rows) on a 132-SM card."""
@@ -305,9 +338,10 @@ def test_kernel_wrappers_refuse_bad_inputs(r):
     w = torch.zeros((2, 2, 64, 256), dtype=torch.int8)
     for x, exact in ((torch.zeros((1, 8, 8, 3)), True),
                      (torch.zeros((1, 8, 8, 3), dtype=torch.uint8), False)):
-        with pytest.raises(TypeError):
-            tfc.stem_fused_k2(x, w, torch.zeros(256), torch.zeros(256), 0.1,
-                              exact_u8=exact)
+        for stem in (tfc.stem_fused_k2, tfc.stem_fused_dg):
+            with pytest.raises(TypeError):
+                stem(x, w, torch.zeros(256), torch.zeros(256), 0.1,
+                     exact_u8=exact)
     with pytest.raises(ValueError):
         tfc.shift_s2d2(torch.zeros((1, 5, 4, 3), dtype=torch.int8))
 

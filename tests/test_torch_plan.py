@@ -130,11 +130,16 @@ def _plans(nets, pin):
 
 def test_strategy_tables_match_jax():
     assert tplan._YOLOV2_STRATEGY == jplan._YOLOV2_STRATEGY
+    assert tplan._YOLOV3_STRATEGY == jplan._YOLOV3_STRATEGY
     for key in (("yolov2-tiny", 1), ("yolov2-tiny", 8)):
         assert tplan._BATCH_STRATEGIES[key] == jplan._BATCH_STRATEGIES[key]
     for batch in (None, 1, 2, 8, 32):
         assert (tplan.default_strategy("yolov2-tiny", batch)
                 == jplan.default_strategy("yolov2-tiny", batch))
+    for batch in (1, 2, 16):
+        assert (tplan.default_strategy("yolov3-tiny", batch)
+                == jplan.default_strategy("yolov3-tiny", batch)
+                == jplan._YOLOV3_STRATEGY)
 
 
 @pytest.mark.parametrize("pin", ["b32", "b1", "b8"])
@@ -199,11 +204,21 @@ def test_generic_forward_w8a8_matches_jax(nets):
 
 
 @pytest.mark.parametrize("entry,item", [
-    (("stem_dg", 4), "B6"), (("rs2", 2), "B4"), (("fold_xla_s2", 2), "B7"),
+    (("auto", 1), "A3"), (("rs2", 2), "B4"), (("fold_xla_s2", 2), "B7"),
     (("s0", 4), "B8"), (("gemm", 1), "A3")])
 def test_unported_kinds_raise_with_roadmap_item(entry, item):
     with pytest.raises(NotImplementedError, match=item):
         tplan.build_plan(tyolo(), {0: entry})
+
+
+def test_unported_model_raises_with_roadmap_item():
+    """ResNet-18 (shortcut, global average pool, dense) is still to
+    come; an unknown name lists the ported models."""
+    from dnn_inference_engine_tpu_torch.models import build_model
+    with pytest.raises(NotImplementedError, match="A10"):
+        build_model("resnet18")
+    with pytest.raises(ValueError, match="yolov3-tiny"):
+        build_model("yolov4")
 
 
 def test_folded_entry_stage_raises():

@@ -86,6 +86,24 @@ def test_decode_cols_matches_jax():
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("s,anchors", [(13, slice(3, None)),
+                                       (26, slice(None, 3))])
+def test_decode_yolov3_cols_matches_jax(s, anchors):
+    """Each YOLOv3 head with its half of the pixel anchors (sigmoid class
+    scores, no softmax)."""
+    from dnn_inference_engine_tpu.config import YOLOV3_TINY_ANCHORS
+    head = (np.random.default_rng(s).standard_normal((2, s, s, 75))
+            * 2).astype(np.float32)
+    anc = YOLOV3_TINY_ANCHORS[anchors]
+    jb, js = jpost.decode_yolov3_cols(jnp.asarray(head), anc)
+    tb, ts = tpost.decode_yolov3_cols(torch.from_numpy(head), anc)
+    assert tuple(tb.shape) == (2, 4, 3 * s * s)
+    assert tuple(ts.shape) == (2, 20, 3 * s * s)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-12)
+
+
 @pytest.mark.parametrize("topk", [845, 64])
 def test_nms_on_jax_decode_matches_jax(topk):
     """Fed JAX's decoded boxes: uncapped and top-K-capped pools."""
