@@ -59,6 +59,10 @@ class EngineConfig:
     batch: int = 1
     input_size: int = INPUT_SIZE
     num_classes: int = NUM_CLASSES
+    # Plan strategy: path to a `cli plan-sweep` artifact (or a bare
+    # {layer: [kind, fold, opts?]} JSON object); Engine.prepare then uses
+    # it instead of the pinned table.
+    strategy: Optional[str] = None
 
     score_thresh: float = SCORE_THRESH_VIS
     nms_iou_thresh: float = NMS_IOU_THRESH

@@ -14,9 +14,9 @@
 //      caller folded 1/s_out into scale and bias): q = clip(rint(y))
 //   2  f32 out, y after the activation (the linear detection head)
 //   3  the raw int32 accumulator
-// Every rounding is explicit (__fmul_rn, __fadd_rn, __fdiv_rn, rintf): nvcc
-// would otherwise contract a*b+c into an FMA, which rounds once where XLA
-// and PyTorch round twice, and the int8 codes would drift by 1 LSB.
+// Every rounding is explicit (__fmul_rn, __fadd_rn, __fdiv_rn, rintf; the
+// shared helpers are in mma_s8.cuh): nvcc would otherwise contract a*b+c
+// into an FMA, and the int8 codes would drift by 1 LSB.
 //
 // What bounds it on an H100 (data-sheet rates of the SXM part at 700 W:
 // 1,979 int8 TOP/s, 3.35 TB/s): bytes for L2-L8 and the L14 head, whose
@@ -34,30 +34,22 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_s8.cuh"
+
 namespace {
+
+using s8mma::cp_async16;
+using s8mma::cp_async_commit;
+using s8mma::cp_async_wait;
+using s8mma::epilogue_f32;
+using s8mma::mma_s8;
+using s8mma::to_code;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
 constexpr int BK = 64;          // bytes of K per stage
 constexpr int LDS = BK + 16;    // shared row stride in bytes
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;       // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // One (rows x BK) tile of a row-major (rows_total, K) int8 matrix into
 // shared memory. VEC: K % 16 == 0 and 16-byte aligned rows, so every
@@ -87,32 +79,6 @@ __device__ __forceinline__ void load_tile(int8_t* sm, const int8_t* g,
       }
     }
   }
-}
-
-__device__ __forceinline__ void mma_s8(int* c, unsigned a0, unsigned a1,
-                                       unsigned a2, unsigned a3, unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float epilogue_f32(int acc, float sc, float bi,
-                                              int act) {
-  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), sc), bi);
-  if (act == 1) {
-    y = y > 0.f ? y : __fmul_rn(0.1f, y);
-  } else if (act == 2) {
-    y = fmaxf(y, 0.f);
-  }
-  return y;
-}
-
-__device__ __forceinline__ int8_t to_code(float y) {
-  float q = fminf(fmaxf(rintf(y), -127.f), 127.f);
-  return static_cast<int8_t>(static_cast<int>(q));
 }
 
 template <bool VEC>

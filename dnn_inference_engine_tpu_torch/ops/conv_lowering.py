@@ -1,4 +1,4 @@
-"""Conv -> GEMM lowering: im2col patch extraction.
+"""Conv -> GEMM lowering: im2col patch extraction and the gemm conv tier.
 
 Counterpart of ``dnn_inference_engine_tpu/ops/conv_lowering.py``. Patches
 are ordered (kh-major, kw, cin) along K, matching a plain
@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 import torch
 
 from dnn_inference_engine_tpu_torch.ops.fused_conv import _pad_hw
+from dnn_inference_engine_tpu_torch.ops.gemm import int8_gemm_fused
+from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
 
 
 def _same_pads(h: int, k: int, s: int) -> Tuple[int, int]:
@@ -58,3 +60,28 @@ def gemm_weights(wq: torch.Tensor) -> torch.Tensor:
     GEMM kernel reads."""
     kh, kw, cin, cout = wq.shape
     return wq.reshape(kh * kw * cin, cout).T.contiguous()
+
+
+def conv2d_w8a8_gemm(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
+                     s_w: torch.Tensor, b: torch.Tensor, act: str = "leaky",
+                     stride: int = 1, padding="SAME",
+                     s_out: Optional[Scale] = None,
+                     wt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gemm conv tier: counterpart of the JAX package's
+    ``conv_lowering.conv2d_w8a8_pallas``. im2col, then ``int8_gemm_fused``
+    (the gemm_fused kernel on the card), which folds 1/s_out into scale
+    and bias — the folded order, not ``conv2d_w8a8``'s conv order; f32
+    output without ``s_out``. ``wt``: the precomputed
+    ``gemm_weights(wq)``."""
+    kh, kw, _, cout = wq.shape
+    patches = extract_patches(xq, kh, kw, stride, padding)
+    n, ho, wo, k = patches.shape
+    if wt is None:
+        wt = gemm_weights(wq)
+    dev = xq.device
+    if s_out is not None:
+        s_out = f32_scalar(s_out, dev)     # 1/s_out in float32, as jnp
+    out = int8_gemm_fused(patches.reshape(n * ho * wo, k), wt,
+                          f32_scalar(s_in, dev) * s_w, b, act=act,
+                          s_out=s_out)
+    return out.reshape(n, ho, wo, cout)

@@ -1,8 +1,9 @@
-"""Space-to-depth fold transforms, the fused stem and the shifted s2d(2).
+"""Space-to-depth fold transforms, the fused stems, the relayouts and the
+implicit-im2col int8 conv.
 
 Counterpart of ``dnn_inference_engine_tpu/ops/pallas_conv.py``. The
 weight folds are its numpy code, copied verbatim; the layout ops are
-torch. Three of its Pallas kernels have Hopper ports here, each a wrapper
+torch. Six of its Pallas kernels have Hopper ports here, each a wrapper
 beside its plain PyTorch version:
 
 - ``stem_fused_k2`` (``csrc/stem_fused_k2.cu``): quantize + shifted
@@ -10,7 +11,13 @@ beside its plain PyTorch version:
 - ``stem_fused_dg`` (``csrc/stem_fused_dg.cu``): the same function in the
   per-tap formulation, reading host-prepared K-major weight slabs;
 - ``shift_s2d2`` (``csrc/shift_s2d2.cu``, for ``shift_s2d2_pallas``):
-  pad + shifted space-to-depth(2) of an int8 tensor.
+  pad + shifted space-to-depth(2) of an int8 tensor;
+- ``quant_space_to_depth4`` (``csrc/quant_space_to_depth4.cu``):
+  quantize (uint8 wire or f32) + space-to-depth(4), optional lane pad;
+- ``gmax_shift_s2d2`` (``csrc/gmax_shift_s2d2.cu``): pool-major
+  group-max + shifted space-to-depth(2);
+- ``conv3x3_rs`` (``csrc/conv3x3_rs.cu``): implicit-im2col k x k int8
+  conv with a fused epilogue, group-max and s2d(2) output.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches the kernel or raises.
@@ -154,6 +161,27 @@ def fold_conv3x3_k2_weights(w: np.ndarray, f: int,
                                    g * cout:(g + 1) * cout] \
                                     = w[dh + 1, dw + 1]
     return wf
+
+
+def fold_group_pool_channels(y: torch.Tensor, f: int,
+                             cout: int) -> torch.Tensor:
+    """Pool a fold-f layer's output (groups r*f+s, not pool-major) by the
+    original 2x2/s2 maxpool: (..., f*f*cout) -> (..., (f/2)^2*cout) in
+    fold-(f/2) layout."""
+    fo = f // 2
+    lead = y.shape[:-1]
+    y = y.reshape(*lead, fo, 2, fo, 2, cout)
+    y = torch.amax(y, dim=(-4, -2))
+    return y.reshape(*lead, fo * fo * cout)
+
+
+def folded_stage_params(wq: np.ndarray, s_w: np.ndarray, b: np.ndarray,
+                        f: int):
+    """Fold a quantized conv's params: weights fold; per-channel scale and
+    bias tile across the f^2 position groups."""
+    wf = fold_conv3x3_weights(np.asarray(wq), f)
+    reps = f * f
+    return wf, np.tile(np.asarray(s_w), reps), np.tile(np.asarray(b), reps)
 
 
 def group_max4(y: torch.Tensor) -> torch.Tensor:
@@ -412,3 +440,276 @@ def shift_s2d2(x: torch.Tensor) -> torch.Tensor:
 
 
 shift_s2d2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused quantize + space-to-depth(4) (kernel 5)
+# ---------------------------------------------------------------------------
+
+def quant_space_to_depth4_plain(x, s_in, pad_to=0, pad_hw=(0, 0, 0, 0)):
+    """Plain PyTorch version of ``quant_space_to_depth4`` (same
+    arguments): pad, normalize uint8 by /255, quantize, fold, lane-pad."""
+    if any(pad_hw):
+        x = _pad_hw(x, *pad_hw)
+    if x.dtype == torch.uint8:
+        x = x.to(torch.float32) / f32_scalar(255.0, x.device)
+    s = f32_scalar(s_in, x.device)
+    xq = torch.clamp(torch.round(x / s), -QMAX, QMAX).to(torch.int8)
+    return _pad_channels(space_to_depth(xq, 4), max(pad_to, 48))
+
+
+def quant_space_to_depth4(x: torch.Tensor, s_in, pad_to: int = 0,
+                          pad_hw=(0, 0, 0, 0)) -> torch.Tensor:
+    """Fused quantize + space_to_depth(4): (N,H,W,3) uint8 or f32 ->
+    (N,H/4,W/4,max(48,pad_to)) int8, lanes 48.. zero.
+
+    uint8 input is the serving wire format: v = u / 255 first, then the
+    division by ``s_in`` (two correctly rounded divisions, as the JAX
+    kernel and ``quantize_act``). ``pad_hw`` = (top, bottom, left, right):
+    the result equals ``quant_space_to_depth4(_pad_hw(x, *pad_hw), ...)``,
+    but the card kernel reads zeros outside ``x`` instead of making the
+    padded copy. The padded H and W must be multiples of 8."""
+    top, bottom, left, right = pad_hw
+    if (x.ndim != 4 or x.shape[3] != 3 or (x.shape[1] + top + bottom) % 8
+            or (x.shape[2] + left + right) % 8 or min(pad_hw) < 0):
+        raise ValueError("quant_space_to_depth4: need (N,H,W,3) with padded "
+                         f"H, W multiples of 8, got {tuple(x.shape)} "
+                         f"padded by {pad_hw}")
+    if x.dtype not in (torch.float32, torch.uint8):
+        raise TypeError("quant_space_to_depth4: x must be f32 or uint8, "
+                        f"got {x.dtype}")
+    if x.device.type == "cpu":
+        return quant_space_to_depth4_plain(x, s_in, pad_to, pad_hw)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_space_to_depth4: unsupported device "
+                         f"{x.device}")
+    c_out = max(pad_to, 48)
+    if c_out % 16:
+        raise ValueError("quant_space_to_depth4: the kernel writes 16-byte "
+                         f"chunks, pad_to must be a multiple of 16, got "
+                         f"{pad_to}")
+    x = x.contiguous()
+    n, h, wd, _ = x.shape
+    hp, wp = h + top + bottom, wd + left + right
+    out = torch.empty((n, hp // 4, wp // 4, c_out), dtype=torch.int8,
+                      device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("quant_space_to_depth4", "quant_space_to_depth4",
+                         [p, ctypes.c_float, p, i, i, i, i, i, i, i, i, i, p])
+    err = fn(x.data_ptr(), float(s_in), out.data_ptr(), n, h, wd, top, left,
+             hp, wp, c_out, int(x.dtype == torch.uint8),
+             _build.stream_ptr(x.device))
+    quant_space_to_depth4.launches += 1
+    _build.check(err, "quant_space_to_depth4")
+    return out
+
+
+quant_space_to_depth4.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused group-max + shifted space-to-depth(2) (kernel 6)
+# ---------------------------------------------------------------------------
+
+def gmax_shift_s2d2_plain(y: torch.Tensor, go: int) -> torch.Tensor:
+    """Plain PyTorch version of ``gmax_shift_s2d2``."""
+    return shift_s2d2_plain(group_max4(y))
+
+
+def gmax_shift_s2d2(y: torch.Tensor, go: int) -> torch.Tensor:
+    """Pool-major group-max + SHIFTED space_to_depth(2), one pass:
+    (N, H, W, 4*go) int8, the pre-group-max output of a fold-2 stage ->
+    (N, roundup(H/2+1, 8), W/2+1, 4*go) with
+    out[n, i, j, (2p+q)*go + c] = max_k y[n, 2i+p-1, 2j+q-1, k*go+c],
+    zero where that pixel lies outside y; rows past H/2+1 are zero.
+    Rows [:H/2+1] equal ``shift_space_to_depth(group_max4(y), 2)``."""
+    if (y.ndim != 4 or y.dtype != torch.int8 or y.shape[3] != 4 * go
+            or y.shape[1] % 2 or y.shape[2] % 2):
+        raise ValueError(f"gmax_shift_s2d2: need (N,H,W,4*go) int8 with even "
+                         f"H, W; got {y.dtype} {tuple(y.shape)}, go={go}")
+    if y.device.type == "cpu":
+        return gmax_shift_s2d2_plain(y, go)
+    if y.device.type != "cuda":
+        raise ValueError(f"gmax_shift_s2d2: unsupported device {y.device}")
+    y = y.contiguous()
+    n, h, wd, c = y.shape
+    hout_p, _, wout = shift_s2d2_shape(h, wd)
+    out = torch.empty((n, hout_p, wout, c), dtype=torch.int8, device=y.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("gmax_shift_s2d2", "gmax_shift_s2d2",
+                         [p, p, i, i, i, i, i, p])
+    vec = int(go % 16 == 0 and y.data_ptr() % 16 == 0)
+    err = fn(y.data_ptr(), out.data_ptr(), n, h, wd, go, vec,
+             _build.stream_ptr(y.device))
+    gmax_shift_s2d2.launches += 1
+    _build.check(err, "gmax_shift_s2d2")
+    return out
+
+
+gmax_shift_s2d2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Implicit-im2col int8 conv (kernel 7)
+# ---------------------------------------------------------------------------
+
+def _rs_pool_groups(pool, cout: int):
+    """(kind, f, co, output channels) of a conv3x3_rs pool argument."""
+    if pool is None or pool == "pool2":
+        return pool, 0, 0, cout
+    if not (isinstance(pool, tuple) and len(pool) == 3
+            and pool[0] in ("gmax", "gmaxm")):
+        raise ValueError(f"conv3x3_rs: pool must be None, 'pool2' or "
+                         f"('gmax'|'gmaxm', f, co), got {pool!r}")
+    kind, f, co = pool
+    if f % 2 or f * f * co != cout:
+        raise ValueError(f"conv3x3_rs: pool {pool!r} needs f*f*co == Cout "
+                         f"({cout}) with f even")
+    return kind, f, co, (f // 2) ** 2 * co
+
+
+def _rs_check(x, w, scale, bias, pool, ksize, s2d_out):
+    if ksize not in (2, 3):
+        raise ValueError(f"conv3x3_rs: ksize must be 2 or 3, got {ksize}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or x.ndim != 4:
+        raise TypeError(f"conv3x3_rs takes int8 x (N,H,W,Cin) and w, got "
+                        f"{x.dtype} {tuple(x.shape)} and {w.dtype}")
+    if tuple(w.shape[:3]) != (ksize, ksize, x.shape[3]) or w.ndim != 4:
+        raise ValueError(f"conv3x3_rs: w must be ({ksize},{ksize},"
+                         f"{x.shape[3]},Cout), got {tuple(w.shape)}")
+    cout = int(w.shape[3])
+    for arg, v in (("scale", scale), ("bias", bias)):
+        if v.dtype != torch.float32 or tuple(v.shape) != (cout,):
+            raise ValueError(f"conv3x3_rs: {arg} must be float32 ({cout},)")
+    kind, _, _, cg = _rs_pool_groups(pool, cout)
+    ho = x.shape[1] - (ksize == 2)
+    if kind == "pool2" and (ho % 2 or s2d_out):
+        raise ValueError("conv3x3_rs: 'pool2' needs an even output height "
+                         "and no s2d_out")
+    if s2d_out and ho % 2:
+        raise ValueError("conv3x3_rs: s2d_out needs an even output height")
+    return kind, cg
+
+
+def conv3x3_rs_plain(x, w, scale, bias, act="leaky", quantize_out=True,
+                     pool=None, ksize=3, s2d_out=False):
+    """Plain PyTorch version of ``conv3x3_rs`` (same arguments)."""
+    kind, cg = _rs_check(x, w, scale, bias, pool, ksize, s2d_out)
+    n, h, wd, cin = x.shape
+    cout = int(w.shape[3])
+    ho, wo = (h, wd) if ksize == 3 else (h - 1, wd - 1)
+    xp = _pad_hw(x, 1, 1, 1, 1) if ksize == 3 else x
+    a = torch.cat([xp[:, dh:dh + ho, dw:dw + wo]
+                   for dh in range(ksize) for dw in range(ksize)], dim=-1)
+    k = ksize * ksize * cin
+    acc = int32_acc_plain(a.reshape(-1, k), w.reshape(k, cout).T)
+    if kind == "gmaxm" and quantize_out:
+        # group-max on the int32 accumulator: the epilogue is monotone and
+        # its params are the same in every pool group
+        acc, scale, bias, kind = (group_max4(acc), scale[:cg], bias[:cg],
+                                  "done")
+    y = apply_activation(acc.to(torch.float32) * scale + bias, act)
+    if quantize_out:
+        y = torch.clamp(torch.round(y), -QMAX, QMAX)
+    if kind == "gmaxm":
+        y = group_max4(y)
+    elif kind == "gmax":
+        y = fold_group_pool_channels(y, pool[1], pool[2])
+    y = y.reshape(n, ho, wo, y.shape[-1])
+    if kind == "pool2":
+        y = y[:, :, :wo // 2 * 2].reshape(n, ho // 2, 2, wo // 2, 2, cg)
+        y = torch.amax(y, dim=(2, 4))
+    elif s2d_out:
+        y = space_to_depth(y[:, :, :wo // 2 * 2], 2)
+    return y.to(torch.int8) if quantize_out else y
+
+
+def rs_weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(k, k, Cin, Cout) weights -> the (Cout, k*k*Cin) K-major matrix the
+    conv3x3_rs kernel reads. Made once and cached on ``w`` (until ``w`` is
+    written in place)."""
+    cached = getattr(w, "_rs_wt", None)
+    if cached is not None and cached[0] == w._version:
+        return cached[1]
+    kh, kw, cin, cout = w.shape
+    wt = w.reshape(kh * kw * cin, cout).T.contiguous()
+    w._rs_wt = (w._version, wt)
+    return wt
+
+
+def conv3x3_rs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor, act: str = "leaky",
+               quantize_out: bool = True, pool=None, ksize: int = 3,
+               s2d_out: bool = False) -> torch.Tensor:
+    """Fused int8 conv (+ pool): the implicit-im2col conv of the ``rs``
+    plan stages.
+
+    x: (N, H, W, Cin) int8; w: (k, k, Cin, Cout) int8.
+    ksize=3: 3x3/s1/SAME conv; ksize=2: 2x2/s1/VALID conv over a shifted
+    fold (output spatial = input - 1).
+    y = act(acc * scale + bias) with scale and bias already folding
+    1/s_out (the folded order); ``quantize_out``: clip(round(y)) int8,
+    else f32.
+    pool: None -> (N,Ho,Wo,Cout); 'pool2' -> the 2x2/s2 maxpool
+    (N,Ho/2,Wo//2,Cout); ('gmax'|'gmaxm', f, co) -> the group-max of a
+    fold-f output (plain or pool-major groups), (N,Ho,Wo,(f/2)^2*co).
+    'gmaxm' with ``quantize_out`` takes the max on the int32 accumulator
+    and the epilogue with scale[:go], bias[:go].
+    s2d_out: the output in space_to_depth(2) layout (odd trailing column
+    dropped).
+
+    The card kernel takes pool None and 'gmaxm', with Cin % 16 == 0; the
+    plain version covers the whole contract.
+    """
+    kind, cg = _rs_check(x, w, scale, bias, pool, ksize, s2d_out)
+    if x.device.type == "cpu":
+        return conv3x3_rs_plain(x, w, scale, bias, act, quantize_out, pool,
+                                ksize, s2d_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_rs: unsupported device {x.device}")
+    if any(t.device != x.device for t in (w, scale, bias)):
+        raise ValueError("conv3x3_rs: all operands on one device")
+    if kind not in (None, "gmaxm"):
+        raise ValueError(f"conv3x3_rs: the card kernel takes pool None or "
+                         f"'gmaxm', not {pool!r} (ROADMAP B4)")
+    n, h, wd, cin = x.shape
+    if cin % 16:
+        raise ValueError(f"conv3x3_rs: the card kernel reads 16-byte chunks, "
+                         f"Cin must be a multiple of 16, got {cin}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    wt = rs_weight_matrix(w)
+    scale, bias = scale.contiguous(), bias.contiguous()
+    ho, wo = (h, wd) if ksize == 3 else (h - 1, wd - 1)
+    shape = ((n, ho // 2, wo // 2, 4 * cg) if s2d_out else (n, ho, wo, cg))
+    out = torch.empty(shape, device=x.device,
+                      dtype=torch.int8 if quantize_out else torch.float32)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("conv3x3_rs", "conv3x3_rs",
+                         [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p])
+    err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), n, h, wd, cin, int(w.shape[3]), ksize,
+             cg if kind == "gmaxm" else 0, int(quantize_out),
+             KERNEL_ACT_CODES[act], int(s2d_out), _build.stream_ptr(x.device))
+    conv3x3_rs.launches += 1
+    _build.check(err, "conv3x3_rs")
+    return out
+
+
+conv3x3_rs.launches = 0
+
+
+def conv2d_w8a8_rs(xq, s_in, wq, s_w, b, act="leaky", s_out=None,
+                   pool=None):
+    """W8A8 3x3 SAME conv (+ fused pool) through ``conv3x3_rs``, with
+    1/s_out folded into scale and bias (the folded order); f32 output
+    without ``s_out``."""
+    dev = xq.device
+    scale = f32_scalar(s_in, dev) * s_w
+    bias = b.to(torch.float32)
+    if s_out is not None:
+        so = f32_scalar(s_out, dev)
+        scale, bias = scale / so, bias / so
+    return conv3x3_rs(xq, wq, scale, bias, act=act,
+                      quantize_out=s_out is not None, pool=pool)

@@ -127,7 +127,9 @@ gemm_fused.launches = 0
 def int8_gemm_fused(a_q, bt_q, scale, bias, act="leaky", s_out=None):
     """Quantized GEMM with ``int8_gemm_fused``'s contract: with ``s_out``
     the output is requantized to int8 by folding 1/s_out into scale and
-    bias (the folded order); without it the output is f32."""
+    bias (the folded order); without it the output is f32. ``s_out`` is a
+    Python float, or a float32 tensor on the data's device (then 1/s_out
+    is a float32 division, as for a ``jnp.float32``)."""
     if s_out is not None:
         inv = 1.0 / s_out
         return gemm_fused(a_q, bt_q, scale * inv, bias * inv, act=act,

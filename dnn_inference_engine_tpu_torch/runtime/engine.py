@@ -27,8 +27,10 @@ from dnn_inference_engine_tpu_torch.quant.quantize import (
     calibrate, f32_scalar, quantize_model_params,
 )
 from dnn_inference_engine_tpu_torch.runtime.plan import (
-    build_plan, plan_forward_w8a8, plan_input_uint8_ok, prepare_plan_params,
+    plan_forward_w8a8, plan_input_uint8_ok, plan_or_reason,
+    prepare_plan_params,
 )
+from dnn_inference_engine_tpu_torch.runtime.plan_sweep import load_strategy
 
 
 def resolve_device(device=None) -> torch.device:
@@ -84,15 +86,25 @@ class Engine:
         return self
 
     def prepare(self, calib_images: Optional[np.ndarray] = None) -> "Engine":
-        """Quantize, calibrate, and build the fused plan."""
+        """Quantize, calibrate, and build the fused plan: from the
+        strategy file ``config.strategy`` when one is set, else from the
+        pinned table."""
         if self.params is None:
             if self.fp32_params is None:
                 raise RuntimeError("load_weights first")
             self.params = quantize_model_params(self.fp32_params,
                                                 self.model.layers)
-        self._plan = build_plan(self.model, batch=self.config.batch)
+        path = self.config.strategy
+        strategy = load_strategy(path) if path else None
+        self._plan, why = plan_or_reason(self.model, strategy,
+                                         batch=self.config.batch)
         if self._plan is None:
-            raise ValueError(f"no fused plan for {self.model.name}")
+            # the JAX engine falls back to its generic dispatch forward
+            # here; the port has none yet
+            raise ValueError(
+                f"no fused plan for {self.model.name} under "
+                f"{path or 'the pinned strategy'}: {why}; the generic "
+                "kernel='auto' forward is ROADMAP item A3")
         self._plan_params = prepare_plan_params(self.model, self.params,
                                                 self._plan)
         if self.act_scales is None:

@@ -6,24 +6,42 @@ rewrites the layer list into stages; folded stages absorb the following
 scales follow ``Model.forward_w8a8``: each conv requantizes to the
 calibrated scale of its own output; pools preserve scale.
 
-Stage kinds ported so far, with what runs them on the card:
+Stage kinds, with what runs them on the card:
 
   stem_rs      ops/fused_conv.stem_fused_k2 (kernel)
   stem_dg      ops/fused_conv.stem_fused_dg (kernel)
-  fold_xla     im2col + ops/gemm.gemm_fused (kernel) + group-max
-  fold_xla_k2  ops/fused_conv.shift_s2d2 (kernel) when the input is int8,
-               then im2col + gemm_fused + group-max
-  xla          im2col + gemm_fused (ops/conv.conv2d_w8a8)
+  fold_xla     im2col + ops/gemm.gemm_fused (kernel) + group-max; as the
+               entry stage (f=4, k=3) the input goes through
+               ops/fused_conv.quant_space_to_depth4 (kernel)
+  fold_xla_k2  the shifted k=2 fold: its input from shift_s2d2 (kernel)
+               when int8, from quant_space_to_depth4 (kernel) as the f=4
+               entry, or read as a fold_xla_s2 emitted it; then im2col +
+               gemm_fused + group-max
+  fold_xla_s2  im2col + gemm_fused, then ops/fused_conv.gmax_shift_s2d2
+               (kernel): the shifted fold-2 layout for a fold_xla_k2 f=2
+               consumer (cur_fold holds the sentinel -(H/2))
+  rs, rs2      ops/fused_conv.conv3x3_rs (kernel): implicit-im2col k=3
+               (rs) or shifted k=2 (rs2) folded conv with the group-max on
+               the int32 accumulator; scale and bias fold 1/s_out
+  xla          im2col + gemm_fused in conv order (ops/conv.conv2d_w8a8)
+  gemm         im2col + gemm_fused in the folded order
+               (ops/conv_lowering.conv2d_w8a8_gemm)
+  auto         xla or gemm per layer shape (ops/dispatch.py)
   pool         ops/pool.maxpool
   route        dequantize the saved pieces, concat, requantize
   upsample     nearest repeat of the int8 tensor (keeps its scale)
+
+``s0`` (the shape-specialized stage-0 kernel) is ROADMAP item B8; away
+from the one shape it was written for it degrades to ``fold_xla``, as in
+the JAX plan.
 
 Layer outputs consumed out of sequence (route sources, the heads of a
 multi-head model) are saved de-folded with their scale.
 
 The strategy tables are the JAX package's pins, measured there on a TPU;
-the port uses them as its parity contract. Its own tables will come from
-sweeps on the H100 (ROADMAP).
+the port uses them as its parity contract. A strategy file measured by
+the port's sweep (runtime/plan_sweep.py) replaces them through
+``EngineConfig.strategy``; the port's own pins await adoption (ROADMAP).
 """
 
 from __future__ import annotations
@@ -41,11 +59,15 @@ from dnn_inference_engine_tpu_torch.models.model import (
     _to_f32, _upsample_nearest,
 )
 from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
-from dnn_inference_engine_tpu_torch.ops.conv_lowering import gemm_weights
+from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+    conv2d_w8a8_gemm, gemm_weights)
+from dnn_inference_engine_tpu_torch.ops.dispatch import conv2d_w8a8_dispatch
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
-    _pad_channels, _pad_hw, depth_to_space, fold_conv3x3_k2_weights,
-    fold_conv3x3_weights, group_max4, shift_s2d2, space_to_depth,
-    stem_dg_weight_slabs, stem_fused_dg, stem_fused_k2,
+    _pad_channels, _pad_hw, _round_up, conv3x3_rs, depth_to_space,
+    fold_conv3x3_k2_weights, fold_conv3x3_weights, gmax_shift_s2d2,
+    group_max4, quant_space_to_depth4, rs_weight_matrix, shift_s2d2,
+    shift_space_to_depth, space_to_depth, stem_dg_weight_slabs,
+    stem_fused_dg, stem_fused_k2,
 )
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import (
@@ -55,12 +77,14 @@ from dnn_inference_engine_tpu_torch.quant.quantize import (
 
 @dataclasses.dataclass
 class Stage:
-    kind: str                     # stem_rs | stem_dg | fold_xla | fold_xla_k2
-                                  # | xla | pool | route | upsample
+    kind: str                     # conv kinds: stem_rs | stem_dg | fold_xla
+                                  # | fold_xla_k2 | fold_xla_s2 | rs | xla
+                                  # | gemm | auto; pool | route | upsample
     conv_li: int                  # layer index this stage implements
     pool_li: Optional[int]        # fused following MaxPool layer (or None)
     fold: int = 1                 # 1 (unfolded) or fold factor (+ gmax)
     k: int = 3                    # folded kernel size (3 = SAME, 2 = shifted VALID)
+    s2d_out: bool = False         # the rs kernel emits the s2d(2) layout
     cin_pad: int = 0              # lane-pad folded input channels to this
     act: str = "leaky"
     stride: int = 1
@@ -76,12 +100,7 @@ _CONV_KINDS = {"fold_xla": "fold_xla", "fold_xla_k2": "fold_xla_k2",
 
 # Conv kinds of the JAX plan that this port does not run yet, with the
 # ROADMAP item that ports each.
-_LATER_KINDS = {
-    "rs": "B4 (conv3x3_rs)",
-    "fold_xla_s2": "B7 (gmax_shift_s2d2)", "s0": "B8 (stage0_fused_v2)",
-    "gemm": "A3 (the gemm/auto conv tiers, ops/dispatch.py)",
-    "auto": "A3 (the gemm/auto conv tiers, ops/dispatch.py)",
-}
+_LATER_KINDS = {"s0": "B8 (stage0_fused_v2)"}
 
 # The JAX package's YOLOv2-tiny pin for batch 32 (and the default for
 # batches without a pin of their own).
@@ -171,9 +190,18 @@ def _referenced_layers(model) -> Set[int]:
 def build_plan(model, strategy: Optional[Dict] = None,
                batch: Optional[int] = None,
                mode: str = "w8a8") -> Optional[List[Stage]]:
-    """Layer-list model -> list of stages; None if the strategy cannot
-    fold where it asks to. Kinds not ported yet raise, naming their
-    ROADMAP item."""
+    """Layer-list model -> list of stages; None where the JAX plan gives
+    None (a fold without its pool, a fold of a referenced output, a chain
+    the fold states cannot follow). Kinds not ported yet raise, naming
+    their ROADMAP item."""
+    return plan_or_reason(model, strategy, batch, mode)[0]
+
+
+def plan_or_reason(model, strategy: Optional[Dict] = None,
+                   batch: Optional[int] = None, mode: str = "w8a8"
+                   ) -> Tuple[Optional[List[Stage]], str]:
+    """``build_plan`` with the reason for a None: (stages, "") or
+    (None, what makes which layer illegal)."""
     if strategy is None:
         strategy = default_strategy(model.name, batch, mode)
     refs = _referenced_layers(model)
@@ -190,24 +218,34 @@ def build_plan(model, strategy: Optional[Dict] = None,
                 raise ValueError(
                     f"unknown plan strategy kind {kind!r} for layer {li}; "
                     f"valid kinds: {sorted(_CONV_KINDS)}")
-            kind = _CONV_KINDS[kind]
-            if kind in _LATER_KINDS:
+            if kind == "s0" and not (
+                    li == 0 and model.in_ch == 3 and model.input_size == 416
+                    and layer.ksize == 3 and layer.out_ch == 16
+                    and layer.stride == 1):
+                kind = "fold_xla"   # shape-specialized kernel; degrade
+            if _CONV_KINDS[kind] in _LATER_KINDS:
                 raise NotImplementedError(
                     f"plan stage kind {kind!r} is ROADMAP item "
-                    f"{_LATER_KINDS[kind]}")
+                    f"{_LATER_KINDS[_CONV_KINDS[kind]]}")
             pool_li = None
             nxt = li + 1
             if (fold > 1 and nxt < len(layers)
                     and isinstance(layers[nxt], MaxPool)
                     and layers[nxt].stride == 2 and layers[nxt].size == 2):
                 pool_li = nxt
-            if fold > 1 and (pool_li is None or li in refs):
-                # a fold needs the absorbable pool, and erases the conv's
-                # pre-pool output (illegal if something routes from it)
-                return None
+            if fold > 1 and pool_li is None:
+                return None, (f"layer {li}: {kind}:{fold} folds a 2x2/s2 "
+                              "maxpool and none follows")
+            if fold > 1 and li in refs:
+                # a fold erases the conv's pre-pool output
+                return None, (f"layer {li}: {kind}:{fold} would fold away "
+                              "an output that a later layer reads")
             stages.append(Stage(
-                kind=kind, conv_li=li, pool_li=pool_li, fold=fold,
-                k=2 if kind in ("fold_xla_k2", "stem_rs", "stem_dg") else 3,
+                kind=_CONV_KINDS[kind], conv_li=li, pool_li=pool_li,
+                fold=fold,
+                k=2 if kind in ("rs2", "fold_xla_k2", "stem_rs", "stem_dg")
+                else 3,
+                s2d_out=opts.get("s2d_out", False),
                 cin_pad=opts.get("cin_pad", 0), act=layer.act,
                 stride=layer.stride, padding=layer.padding,
                 s_out_is_final=(layer.act == "linear")))
@@ -224,14 +262,41 @@ def build_plan(model, strategy: Optional[Dict] = None,
         else:
             raise NotImplementedError(
                 f"{type(layer).__name__} plan stages are ROADMAP item A10")
-    return stages
+    # fold_xla_s2 emits the SHIFTED fold-2 layout; only a fold_xla_k2 f=2
+    # stage right after it can read that
+    for i, st in enumerate(stages):
+        if st.kind == "fold_xla_s2":
+            nxt = stages[i + 1] if i + 1 < len(stages) else None
+            if (st.fold != 2 or st.pool_li in refs or nxt is None
+                    or nxt.kind != "fold_xla_k2" or nxt.fold != 2):
+                return None, (f"layer {st.conv_li}: fold_xla_s2 must be "
+                              "fold 2 and feed a fold_xla_k2:2 stage")
+    # follow the fold state _run_stage tracks (-2: the shifted layout)
+    cur = 1
+    for st in stages:
+        if cur == -2 and st.kind != "fold_xla_k2":
+            return None, (f"layer {st.conv_li}: only fold_xla_k2 reads the "
+                          "shifted fold-2 layout of a fold_xla_s2")
+        if st.kind in ("stem_rs", "stem_dg", "fold_xla_k2", "fold_xla"):
+            cur = st.fold // 2
+        elif st.kind == "fold_xla_s2":
+            cur = -2
+        elif st.kind == "rs":
+            cur = ((st.fold // 2) * (2 if st.s2d_out else 1)
+                   if st.fold > 1 else 1)
+        else:
+            cur = 1
+    if cur == -2:
+        return None, "the plan ends in the shifted fold-2 layout"
+    return stages, ""
 
 
 def prepare_plan_params(model, qparams: Sequence[Dict],
                         stages: Sequence[Stage]) -> List[Dict]:
     """Pre-fold weights for folded stages (host-side, once), store each
     GEMM stage's K-major weight matrix ``wt`` (gemm_weights), and lay out
-    the stem_dg kernel's weight slabs (cached on the folded weights)."""
+    the stem_dg kernel's weight slabs and the rs kernel's K-major matrix
+    (each cached on the folded weights)."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -256,6 +321,8 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
             q = dict(p)
         if st.kind == "stem_dg":
             stem_dg_weight_slabs(q["wq"])
+        elif st.kind == "rs":
+            rs_weight_matrix(q["wq"])
         elif st.kind != "stem_rs" and "wq" in q:
             q["wt"] = gemm_weights(q["wq"])
         out.append(q)
@@ -304,10 +371,67 @@ def plan_input_uint8_ok(stages: Sequence[Stage]) -> bool:
             and st.fold == 4)
 
 
-def _folded_entry(st):
-    return NotImplementedError(
-        f"a {st.kind} stage that quantizes the network input needs "
-        "quant_space_to_depth4 (ROADMAP item B5)")
+def _defold(x, cur_fold):
+    """The plain (de-folded) tensor and fold 1."""
+    if cur_fold < 1:
+        raise ValueError("the shifted fold-2 state (negative sentinel) must "
+                         "feed a fold_xla_k2 f=2 stage")
+    return (depth_to_space(x, cur_fold), 1) if cur_fold > 1 else (x, 1)
+
+
+def _entry_u8_to_f32(x):
+    """The /255 normalize of a uint8 batch that no fused entry takes."""
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) / f32_scalar(255.0, x.device)
+    return x
+
+
+def _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales):
+    """The shifted-fold k2 stage: a 2x2 VALID conv over the shifted s2d(f)
+    of the input (padded 1 top/left, 2f-1 bottom/right), trimmed to the
+    conv's real rows and columns (out_hw), then the pool-major
+    group-max."""
+    li, f = st.conv_li, st.fold
+    s_next = act_scales[li + 1]
+    if st.s_out_is_final:
+        raise ValueError(f"fold_xla_k2 cannot emit the head: {st}")
+    if cur_fold > 1:
+        x, cur_fold = _defold(x, cur_fold)
+    out_hw = None
+    pad = (1, 2 * f - 1, 1, 2 * f - 1)
+    if cur_fold < 0:
+        # a fold_xla_s2 producer emitted the shifted fold-2 layout; the
+        # sentinel's magnitude is its true output row count H/2
+        ho = -cur_fold
+        if f != 2 or x.shape[1] != _round_up(ho + 1, 8):
+            raise ValueError(f"shifted fold-2 payload {tuple(x.shape)} does "
+                             f"not match the producer's {ho} rows: {st}")
+        out_hw = (ho, x.shape[2] - 1)
+    elif cur_scale is None:
+        # the entry stage: quantize the network input
+        cur_scale = act_scales[li]
+        fused_ok = (f == 4 and x.shape[-1] == 3
+                    and (x.shape[1] + 2 * f) % 8 == 0
+                    and (x.shape[2] + 2 * f) % 8 == 0)
+        if fused_ok:
+            # uint8 wire or f32; reads the zero border from the bounds
+            x = quant_space_to_depth4(x, cur_scale, pad_to=st.cin_pad,
+                                      pad_hw=pad)
+        else:
+            x = quantize_act(_entry_u8_to_f32(x), cur_scale)
+            x = space_to_depth(_pad_hw(x, *pad), f)
+    elif (f == 2 and x.dtype == torch.int8 and x.shape[1] % 2 == 0
+          and x.shape[2] % 2 == 0):
+        out_hw = (x.shape[1] // 2, x.shape[2] // 2)
+        x = shift_s2d2(x)
+    else:
+        x = space_to_depth(_pad_hw(x, *pad), f)
+    if st.cin_pad:
+        x = _pad_channels(x, st.cin_pad)
+    y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
+                    padding="VALID", s_out=s_next, wt=pp["wt"],
+                    out_hw=out_hw or (x.shape[1] - 2, x.shape[2] - 2))
+    return group_max4(y), s_next, f // 2
 
 
 def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
@@ -319,10 +443,8 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
     li = st.conv_li
     s_next = act_scales[li + 1]
     dev = x.device
-    if cur_fold > 1 and st.kind in ("pool", "fold_xla_k2", "upsample"):
-        # these stages read the plain (de-folded) tensor
-        x, cur_fold = depth_to_space(x, cur_fold), 1
     if st.kind == "pool":
+        x, cur_fold = _defold(x, cur_fold)
         lay = layers[li]
         x = maxpool(x, lay.size, lay.stride, lay.padding)  # scale-preserving
         return x, cur_scale, cur_fold
@@ -331,6 +453,7 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
                       dim=-1)
         return quantize_act(x, s_next), s_next, 1
     if st.kind == "upsample":
+        x, cur_fold = _defold(x, cur_fold)
         x = _upsample_nearest(x, layers[li].stride)        # scale-preserving
         return x, cur_scale, cur_fold
 
@@ -364,57 +487,61 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
         return x, s_next, st.fold // 2
 
     if st.kind == "fold_xla_k2":
-        # shifted-fold k2: a 2x2 VALID conv over the shifted s2d(f); the
-        # conv's trailing junk rows/cols are never computed (out_hw)
-        f = st.fold
-        if st.s_out_is_final:
-            raise ValueError(f"fold_xla_k2 cannot emit the head: {st}")
-        if cur_scale is None:
-            raise _folded_entry(st)
-        if f == 2 and x.dtype == torch.int8 \
-                and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
-            out_hw = (x.shape[1] // 2, x.shape[2] // 2)
-            x = shift_s2d2(x)
-        else:
-            x = space_to_depth(_pad_hw(x, 1, 2 * f - 1, 1, 2 * f - 1), f)
-            out_hw = (x.shape[1] - 2, x.shape[2] - 2)
-        if st.cin_pad:
-            x = _pad_channels(x, st.cin_pad)
-        y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
-                        act=st.act, padding="VALID", s_out=s_next,
-                        wt=pp["wt"], out_hw=out_hw)
-        return group_max4(y), s_next, f // 2
+        return _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales)
 
     if cur_scale is None:
-        if st.fold > 1:
-            raise _folded_entry(st)
+        # the entry stage quantizes the network input
         cur_scale = act_scales[li]
-        x = quantize_act(x, cur_scale)
-    # layout: folded stages consume s2d(fold) of the plain tensor
-    need_fold = st.fold if st.fold > 1 else 1
-    if cur_fold != need_fold:
-        if cur_fold > 1:
-            x = depth_to_space(x, cur_fold)
-        if need_fold > 1:
-            x = space_to_depth(x, need_fold)
-        cur_fold = need_fold
+        if (st.fold == 4 and st.k == 3 and cur_fold == 1
+                and x.shape[-1] == 3 and x.shape[1] % 8 == 0
+                and x.shape[2] % 8 == 0):
+            # fused quantize + s2d(4), uint8 wire or f32, lane-padded
+            x = quant_space_to_depth4(x, cur_scale, pad_to=st.cin_pad)
+            cur_fold = 4
+        else:
+            x = quantize_act(_entry_u8_to_f32(x), cur_scale)
+    # layout: folded stages consume s2d(fold) of the plain tensor; the k=2
+    # formulation consumes the SHIFTED fold (never chained)
+    if st.fold > 1 and st.k == 2:
+        x, cur_fold = _defold(x, cur_fold)
+        x, cur_fold = shift_space_to_depth(x, st.fold), st.fold
+    elif cur_fold != st.fold:
+        x, cur_fold = _defold(x, cur_fold)
+        if st.fold > 1:
+            x, cur_fold = space_to_depth(x, st.fold), st.fold
     if st.fold > 1 and st.cin_pad:
         x = _pad_channels(x, st.cin_pad)
     s_out = None if st.s_out_is_final else s_next
 
-    if st.kind == "xla":
-        x = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
-                        act=st.act, stride=st.stride, padding=st.padding,
-                        s_out=s_out, wt=pp["wt"])
-    elif st.kind == "fold_xla":
-        if s_out is None:
-            raise ValueError(f"fold_xla cannot emit the head: {st}")
-        y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
-                        act=st.act, s_out=s_out, wt=pp["wt"])
-        # pool-major group-max on the requantized int8 tensor; the
-        # surviving group order IS the fold-(f/2) layout
-        x = group_max4(y)
-        cur_fold = st.fold // 2
-    else:
+    if st.kind in ("xla", "gemm", "auto"):
+        conv = {"xla": conv2d_w8a8, "gemm": conv2d_w8a8_gemm,
+                "auto": conv2d_w8a8_dispatch}[st.kind]
+        x = conv(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
+                 stride=st.stride, padding=st.padding, s_out=s_out,
+                 wt=pp["wt"])
+        return x, s_out, cur_fold
+    if st.kind not in ("fold_xla", "fold_xla_s2", "rs"):
         raise ValueError(st.kind)
-    return x, s_out, cur_fold
+    if s_out is None:
+        raise ValueError(f"{st.kind} cannot emit the head: {st}")
+    f = st.fold
+    cout = pp["s_w"].shape[0] // (f * f)
+    if st.kind == "rs":
+        # the kernel's folded order: 1/s_out is folded into scale and bias
+        so = f32_scalar(s_out, dev)
+        scale = (f32_scalar(cur_scale, dev) * pp["s_w"]) / so
+        x = conv3x3_rs(x, pp["wq"], scale, pp["b"] / so, act=st.act,
+                       quantize_out=True, pool=("gmaxm", f, cout),
+                       ksize=st.k, s2d_out=st.s2d_out)
+        return x, s_out, f // 2 * (2 if st.s2d_out else 1)
+    y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
+                    s_out=s_out, wt=pp["wt"])
+    if st.kind == "fold_xla_s2":
+        if f != 2:
+            raise ValueError(f"fold_xla_s2 is a fold-2 stage: {st}")
+        # group-max + shifted s2d(2) in one kernel, for the fold_xla_k2
+        # consumer; the sentinel carries the true row count H/2
+        return gmax_shift_s2d2(y, go=cout), s_out, -(y.shape[1] // 2)
+    # pool-major group-max on the requantized int8 tensor; the surviving
+    # group order IS the fold-(f/2) layout
+    return group_max4(y), s_out, f // 2

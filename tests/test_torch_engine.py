@@ -4,10 +4,18 @@ YOLOv2-tiny and YOLOv3-tiny w8a8 at 64 px with the JAX engine's random
 weights and calibration scales carried across
 (models/weights.params_from_numpy).
 Detections: classes and survivor counts exact, boxes within 1e-3 px.
+A strategy file (``EngineConfig.strategy``) replaces the pinned table in
+both engines: the one here runs the folded k2 entry, fold_xla_s2 and the
+rs kinds. It leaves out the gemm tier, whose folded-order epilogue the
+JAX engine's jit contracts into an FMA that flips int8 codes mid-network
+(ROADMAP section C); tests/test_torch_plan.py holds that tier against
+the op-by-op JAX plan.
 The heads agree up to the single FMA rounding that XLA's jit applies to
 the f32 head on the CPU (see tests/test_torch_plan.py), which is why the
 boxes and scores get a tolerance at all.
 """
+
+import json
 
 import jax
 import numpy as np
@@ -16,14 +24,21 @@ import torch
 
 from dnn_inference_engine_tpu.config import EngineConfig as JConfig
 from dnn_inference_engine_tpu.runtime.engine import Engine as JEngine
+from dnn_inference_engine_tpu.runtime.plan_sweep import (
+    _strategy_jsonable)
 
 from dnn_inference_engine_tpu_torch.config import EngineConfig
 from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
 
-def _engines(batch, score_thresh, model="yolov2-tiny"):
+# the sweep's new kinds, no gemm tier (see the module docstring)
+STRATEGY = {0: ("fold_xla_k2", 4, {"cin_pad": 64}), 2: ("fold_xla_s2", 2),
+            4: ("fold_xla_k2", 2), 6: ("rs2", 2), 8: ("rs", 2)}
+
+
+def _engines(batch, score_thresh, model="yolov2-tiny", strategy=None):
     kw = dict(model=model, batch=batch, input_size=64,
-              score_thresh=score_thresh)
+              score_thresh=score_thresh, strategy=strategy)
     calib = np.random.default_rng(11).uniform(
         0, 1, (2, 64, 64, 3)).astype(np.float32)
     jeng = JEngine(JConfig(mode="w8a8", kernel="auto", **kw)).load_weights(
@@ -35,13 +50,22 @@ def _engines(batch, score_thresh, model="yolov2-tiny"):
     return jeng, teng
 
 
-@pytest.mark.parametrize("model,batch,thresh", [
-    pytest.param("yolov2-tiny", 2, 0.02, id="2-0.02"),
-    pytest.param("yolov2-tiny", 1, 0.3, id="1-0.3"),
-    pytest.param("yolov3-tiny", 2, 0.02, id="yolov3-2-0.02"),
-    pytest.param("yolov3-tiny", 1, 0.3, id="yolov3-1-0.3")])
-def test_detect_matches_jax_engine(model, batch, thresh):
-    jeng, teng = _engines(batch, thresh, model)
+@pytest.mark.parametrize("model,batch,thresh,strategy", [
+    pytest.param("yolov2-tiny", 2, 0.02, False, id="2-0.02"),
+    pytest.param("yolov2-tiny", 1, 0.3, False, id="1-0.3"),
+    pytest.param("yolov3-tiny", 2, 0.02, False, id="yolov3-2-0.02"),
+    pytest.param("yolov3-tiny", 1, 0.3, False, id="yolov3-1-0.3"),
+    pytest.param("yolov2-tiny", 2, 0.02, True, id="strategy-2-0.02")])
+def test_detect_matches_jax_engine(model, batch, thresh, strategy, tmp_path):
+    path = None
+    if strategy:
+        path = tmp_path / "strategy.json"
+        path.write_text(json.dumps({"strategy": _strategy_jsonable(STRATEGY)}))
+        path = str(path)
+    jeng, teng = _engines(batch, thresh, model, path)
+    if strategy:
+        assert [s.kind for s in teng._plan][:5] == [
+            "fold_xla_k2", "fold_xla_s2", "fold_xla_k2", "rs", "rs"]
     imgs = np.random.default_rng(12).integers(
         0, 256, (batch, 64, 64, 3)).astype(np.uint8)
     jb, js, jc = jeng.detect(imgs)

@@ -27,9 +27,10 @@ from dnn_inference_engine_tpu.quant import quantize as jq
 from dnn_inference_engine_tpu_torch import config as tcfg
 from dnn_inference_engine_tpu_torch.ops import fused_conv as tfc
 from dnn_inference_engine_tpu_torch.ops import gemm as tgemm
+from dnn_inference_engine_tpu_torch.ops import dispatch as tdispatch
 from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
-    extract_patches, gemm_weights)
+    conv2d_w8a8_gemm, extract_patches, gemm_weights)
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool as tmaxpool
 from dnn_inference_engine_tpu_torch.quant import quantize as tq
 
@@ -328,6 +329,218 @@ def test_shift_s2d2_plain_matches_jax(r, shape):
     eq(got[:, :h // 2 + 1], tfc.shift_space_to_depth(T(x), 2))
 
 
+# ---------------------------------------------------------------------------
+# quant_space_to_depth4 (kernel 5), gmax_shift_s2d2 (kernel 6) and
+# conv3x3_rs (kernel 7) plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["k3", "k3-pad64", "k2-pad64"])
+@pytest.mark.parametrize("ingest", ["f32", "uint8"])
+@pytest.mark.parametrize("n,h,w,s_in", [(1, 64, 64, 0.0123),
+                                        (2, 64, 64, 1 / 127.0),
+                                        (1, 32, 96, 0.007919)])
+def test_quant_space_to_depth4_plain_matches_jax(r, n, h, w, s_in, ingest,
+                                                 variant):
+    """Bit for bit, for scales whose reciprocal is inexact. The k3 entry
+    reads the input as it is; the k2 entry's (1, 7) border, which the JAX
+    plan pads before its kernel, is the port's ``pad_hw``."""
+    x = (r.uniform(-1, 1, (n, h, w, 3)).astype(np.float32) if ingest == "f32"
+         else r.integers(0, 256, (n, h, w, 3)).astype(np.uint8))
+    pad_to = 0 if variant == "k3" else 64
+    pad_hw = (1, 7, 1, 7) if variant == "k2-pad64" else (0, 0, 0, 0)
+    xj = jnp.asarray(x)
+    if variant == "k2-pad64":
+        xj = jnp.pad(xj, ((0, 0), (1, 7), (1, 7), (0, 0)))
+    ref = jpc.quant_space_to_depth4(xj, jnp.float32(s_in), pad_to=pad_to)
+    got = tfc.quant_space_to_depth4(T(x), s_in, pad_to=pad_to, pad_hw=pad_hw)
+    assert got.shape[-1] == max(48, pad_to)
+    eq(got, ref)
+
+
+@pytest.mark.parametrize("n,h,w,go", [(2, 16, 16, 8), (1, 26, 26, 32),
+                                      (2, 24, 16, 4), (1, 10, 14, 16)])
+def test_gmax_shift_s2d2_plain_matches_jax(r, n, h, w, go):
+    """Bit for bit, the zero junk rows included."""
+    y = r.integers(-127, 128, (n, h, w, 4 * go)).astype(np.int8)
+    ref = jpc.gmax_shift_s2d2(jnp.asarray(y), go)
+    got = tfc.gmax_shift_s2d2(T(y), go)
+    eq(got, ref)
+    eq(got[:, :h // 2 + 1],
+       tfc.shift_space_to_depth(tfc.group_max4(T(y)), 2))
+
+
+def _rs_y_f32(x, w, scale, bias, ksize, act, fused):
+    """The pre-pool f32 epilogue of conv3x3_rs in numpy, from the exact
+    int32 accumulator: ``fused`` rounds acc*scale + bias once (an FMA, as
+    XLA compiles the JAX kernel under jit), else the product and the sum
+    separately (the port)."""
+    n, h, wd, cin = x.shape
+    ho, wo = (h, wd) if ksize == 3 else (h - 1, wd - 1)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0))) if ksize == 3 else x
+    a = np.concatenate([xp[:, i:i + ho, j:j + wo] for i in range(ksize)
+                        for j in range(ksize)], axis=-1).astype(np.int64)
+    acc = a @ w.reshape(-1, w.shape[-1]).astype(np.int64)
+    if fused:
+        y = (acc.astype(np.float64) * scale.astype(np.float64)
+             + bias.astype(np.float64)).astype(np.float32)
+    else:
+        y = acc.astype(np.float32) * scale + bias
+    if act == "leaky":
+        y = np.where(y > 0, y, np.float32(0.1) * y)
+    return y
+
+
+RS_CASES = [
+    # (h, w, cin, cout, ksize, pool, quantize_out, s2d_out)
+    (9, 11, 16, 24, 3, None, True, False),
+    (8, 10, 32, 32, 3, ("gmaxm", 2, 8), True, False),
+    (9, 9, 64, 64, 2, ("gmaxm", 2, 16), True, False),
+    (8, 8, 48, 64, 3, ("gmaxm", 4, 4), True, False),
+    (8, 8, 16, 32, 3, ("gmax", 2, 8), True, False),
+    (9, 9, 48, 64, 2, ("gmax", 4, 4), True, False),
+    (8, 13, 16, 16, 3, "pool2", True, False),
+    (8, 12, 16, 32, 3, ("gmaxm", 2, 8), True, True),
+    (9, 10, 32, 16, 2, None, True, True),
+    (7, 7, 16, 16, 3, None, False, False),
+    (8, 8, 16, 32, 3, ("gmaxm", 2, 8), False, False),
+    (9, 9, 16, 32, 2, None, False, False),
+]
+
+
+@pytest.mark.parametrize("case", RS_CASES)
+def test_conv3x3_rs_plain_matches_jax(r, case):
+    """Every pool form, k 2 and 3, quantize_out both ways, s2d_out.
+
+    The JAX kernel runs under jax.jit, and XLA contracts its
+    acc*scale + bias into one FMA; the port rounds twice. int8 codes are
+    identical at these inputs; the f32 outputs are pinned exactly, JAX to
+    the single rounding and the port to the double one, both computed
+    here in numpy."""
+    h, w, cin, cout, k, pool, qo, s2d = case
+    x = r.integers(-127, 128, (2, h, w, cin)).astype(np.int8)
+    wq = r.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    scale = (r.uniform(0.5, 2, cout) * 1e-4).astype(np.float32)
+    bias = r.standard_normal(cout).astype(np.float32)
+    kw = dict(quantize_out=qo, pool=pool, ksize=k, s2d_out=s2d)
+    ref = jpc.conv3x3_rs(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale),
+                         jnp.asarray(bias), **kw)
+    got = tfc.conv3x3_rs(T(x), T(wq), T(scale), T(bias), **kw)
+    assert got.shape == ref.shape
+    if qo:
+        eq(got, ref)
+        return
+    want = [_rs_y_f32(x, wq, scale, bias, k, "leaky", fused)
+            for fused in (True, False)]
+    if pool is not None:                     # ("gmaxm", 2, co)
+        want = [np.max(y.reshape(y.shape[:-1] + (4, -1)), axis=-2)
+                for y in want]
+    eq(ref, want[0])
+    eq(got, want[1])
+
+
+@pytest.mark.parametrize("s_out", [None, 0.06])
+@pytest.mark.parametrize("pool", [None, "pool2"])
+def test_conv2d_w8a8_rs_matches_jax(r, s_out, pool):
+    x = r.integers(-127, 128, (2, 8, 10, 16)).astype(np.int8)
+    wq = r.integers(-127, 128, (3, 3, 16, 32)).astype(np.int8)
+    s_w = r.uniform(1e-3, 1e-2, 32).astype(np.float32)
+    b = r.standard_normal(32).astype(np.float32)
+    ref = jpc.conv2d_w8a8_rs(
+        jnp.asarray(x), jnp.float32(0.02), jnp.asarray(wq), jnp.asarray(s_w),
+        jnp.asarray(b), s_out=None if s_out is None else jnp.float32(s_out),
+        pool=pool)
+    got = tfc.conv2d_w8a8_rs(T(x), 0.02, T(wq), T(s_w), T(b), s_out=s_out,
+                             pool=pool)
+    if s_out is not None:
+        eq(got, ref)
+    else:                      # f32: one FMA rounding apart at most
+        np.testing.assert_allclose(N(got), N(ref), rtol=0,
+                                   atol=2 * np.spacing(np.abs(N(ref)).max()))
+
+
+def test_fold_helpers_match_jax(r):
+    y = r.standard_normal((2, 3, 5, 4 * 4 * 6)).astype(np.float32)
+    eq(tfc.fold_group_pool_channels(T(y), 4, 6),
+       jpc.fold_group_pool_channels(jnp.asarray(y), 4, 6))
+    wq = r.integers(-127, 128, (3, 3, 5, 6)).astype(np.int8)
+    s_w, b = r.uniform(size=6).astype(np.float32), r.standard_normal(6)
+    for got, want in zip(tfc.folded_stage_params(wq, s_w, b, 2),
+                         jpc.folded_stage_params(wq, s_w, b, 2)):
+        eq(got, want)
+
+
+def test_rs_weight_matrix_layout_and_cache(r):
+    w = T(r.integers(-127, 128, (2, 2, 32, 64)).astype(np.int8))
+    m = tfc.rs_weight_matrix(w)
+    eq(m, gemm_weights(w))
+    assert tfc.rs_weight_matrix(w) is m
+    w[0, 1, 3, 5] = 0 if int(w[0, 1, 3, 5]) else 1
+    assert tfc.rs_weight_matrix(w) is not m
+
+
+# ---------------------------------------------------------------------------
+# the gemm and auto conv tiers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s_out", [None, 0.031])
+@pytest.mark.parametrize("shape,k,cout,stride", [
+    ((2, 13, 13, 64), 3, 128, 1), ((2, 8, 8, 256), 1, 125, 1),
+    ((2, 9, 10, 16), 3, 32, 2)])
+def test_conv2d_w8a8_gemm_matches_jax(r, shape, k, cout, stride, s_out):
+    """The gemm tier's folded order, against the JAX Pallas tier
+    (conv2d_w8a8_pallas): codes exact; the f32 output pinned as the GEMM's
+    (one FMA rounding in JAX, two in the port)."""
+    from dnn_inference_engine_tpu.ops.conv_lowering import conv2d_w8a8_pallas
+    x = r.integers(-127, 128, shape).astype(np.int8)
+    wq = r.integers(-127, 128, (k, k, shape[-1], cout)).astype(np.int8)
+    s_w = (r.uniform(0.5, 2, cout) * 1e-3).astype(np.float32)
+    b = (r.standard_normal(cout) * 0.1).astype(np.float32)
+    s_in = 0.0421
+    act = "leaky" if s_out else "linear"
+    ref = conv2d_w8a8_pallas(jnp.asarray(x), jnp.float32(s_in),
+                             jnp.asarray(wq), jnp.asarray(s_w),
+                             jnp.asarray(b), act=act, stride=stride,
+                             s_out=None if s_out is None
+                             else jnp.float32(s_out))
+    got = conv2d_w8a8_gemm(T(x), s_in, T(wq), T(s_w), T(b), act=act,
+                           stride=stride, s_out=s_out)
+    if s_out is not None:
+        eq(got, ref)
+        return
+    a = N(extract_patches(T(x), k, k, stride))
+    _assert_f32_vs_jax_gemm(
+        N(got).reshape(-1, cout), N(ref).reshape(-1, cout),
+        a.reshape(-1, a.shape[-1]), wq.reshape(-1, cout),
+        np.float32(s_in) * s_w, b, act)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((1, 13, 13, 512), (3, 3, 512, 1024), 1),
+    ((1, 26, 26, 128), (3, 3, 128, 256), 1),
+    ((1, 52, 52, 64), (3, 3, 64, 128), 1),
+    ((1, 13, 13, 1024), (1, 1, 1024, 125), 1),
+    ((1, 13, 13, 1000), (1, 1, 1000, 125), 1),
+    ((1, 64, 64, 128), (3, 3, 128, 128), 2)])
+def test_auto_tier_choice_matches_jax(r, x_shape, w_shape, stride):
+    """The auto tier takes the gemm tier exactly where JAX takes its
+    Pallas tier, and then computes that tier's codes."""
+    from dnn_inference_engine_tpu.ops import dispatch as jdispatch
+    want = jdispatch.use_pallas(x_shape, w_shape, stride)
+    assert tdispatch.use_pallas(x_shape, w_shape, stride) == want
+    if x_shape[1] > 26:
+        return
+    x = r.integers(-127, 128, (1,) + x_shape[1:]).astype(np.int8)
+    wq = r.integers(-127, 128, w_shape).astype(np.int8)
+    s_w = (r.uniform(0.5, 2, w_shape[-1]) * 1e-4).astype(np.float32)
+    b = r.standard_normal(w_shape[-1]).astype(np.float32)
+    ref = jdispatch.conv2d_w8a8_dispatch(
+        jnp.asarray(x), jnp.float32(0.03), jnp.asarray(wq), jnp.asarray(s_w),
+        jnp.asarray(b), stride=stride, s_out=jnp.float32(0.07))
+    got = tdispatch.conv2d_w8a8_dispatch(T(x), 0.03, T(wq), T(s_w), T(b),
+                                         stride=stride, s_out=0.07)
+    eq(got, ref)
+
+
 def test_kernel_wrappers_refuse_bad_inputs(r):
     a = torch.zeros((4, 8), dtype=torch.int8)
     with pytest.raises(TypeError):
@@ -344,6 +557,29 @@ def test_kernel_wrappers_refuse_bad_inputs(r):
                      exact_u8=exact)
     with pytest.raises(ValueError):
         tfc.shift_s2d2(torch.zeros((1, 5, 4, 3), dtype=torch.int8))
+    with pytest.raises(ValueError):       # padded H not a multiple of 8
+        tfc.quant_space_to_depth4(torch.zeros((1, 8, 8, 3)), 0.1,
+                                  pad_hw=(1, 1, 0, 0))
+    with pytest.raises(TypeError):
+        tfc.quant_space_to_depth4(torch.zeros((1, 8, 8, 3),
+                                              dtype=torch.int8), 0.1)
+    with pytest.raises(ValueError):       # channels != 4 * go
+        tfc.gmax_shift_s2d2(torch.zeros((1, 4, 4, 12), dtype=torch.int8), 4)
+    with pytest.raises(ValueError):       # odd H
+        tfc.gmax_shift_s2d2(torch.zeros((1, 5, 4, 16), dtype=torch.int8), 4)
+    x = torch.zeros((1, 7, 8, 16), dtype=torch.int8)
+    w = torch.zeros((3, 3, 16, 32), dtype=torch.int8)
+    sb = torch.zeros(32)
+    with pytest.raises(TypeError):
+        tfc.conv3x3_rs(x.float(), w, sb, sb)
+    with pytest.raises(ValueError):       # w does not match x
+        tfc.conv3x3_rs(x, w[:2, :2], sb, sb)
+    with pytest.raises(ValueError):       # f*f*co != Cout
+        tfc.conv3x3_rs(x, w, sb, sb, pool=("gmaxm", 2, 4))
+    with pytest.raises(ValueError):       # odd output height
+        tfc.conv3x3_rs(x, w, sb, sb, pool=("gmaxm", 2, 8), s2d_out=True)
+    with pytest.raises(ValueError):
+        tfc.conv3x3_rs(x, w, sb, sb, pool="pool2")
 
 
 # ---------------------------------------------------------------------------

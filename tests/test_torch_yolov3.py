@@ -13,7 +13,11 @@ detection heads (layers 15 and 21). Held against JAX:
   recorded, route sources included, exactly; both heads exactly against
   the JAX plan run op by op and within 4 ulps of the jitted JAX heads
   (XLA contracts the f32 heads' acc*scale + bias into one FMA under jit,
-  see tests/test_torch_plan.py).
+  see tests/test_torch_plan.py);
+- the same for a strategy with the new kinds: the folded k2 entry
+  (quant_space_to_depth4), ``rs`` at L2, ``fold_xla_s2`` at L4 feeding
+  ``fold_xla_k2`` at L6 (gmax_shift_s2d2 and the negative fold sentinel),
+  and the gemm and auto tiers; L8 is a route source, so it cannot fold.
 """
 
 import dataclasses
@@ -38,6 +42,15 @@ from dnn_inference_engine_tpu_torch.runtime import plan as tplan
 
 ULPS = 32
 F32_EPS = float(np.finfo(np.float32).eps)
+
+STRATEGIES = {
+    "pin": jplan._YOLOV3_STRATEGY,
+    "sweep-kinds": {0: ("fold_xla_k2", 4, {"cin_pad": 64}), 2: ("rs", 2),
+                    4: ("fold_xla_s2", 2), 6: ("fold_xla_k2", 2),
+                    8: ("auto", 1), 10: ("gemm", 1), 12: ("auto", 1),
+                    13: ("gemm", 1), 14: ("auto", 1), 15: ("xla", 1),
+                    17: ("gemm", 1), 20: ("auto", 1), 21: ("xla", 1)},
+}
 
 
 def _np(t):
@@ -138,9 +151,9 @@ def test_generic_forward_w8a8_matches_jax(nets):
         np.testing.assert_array_equal(g.numpy(), _np(w))
 
 
-def _plans(nets):
-    jst = jplan.build_plan(nets["jm"], jplan._YOLOV3_STRATEGY)
-    tst = tplan.build_plan(nets["tm"], jplan._YOLOV3_STRATEGY)
+def _plans(nets, name="pin"):
+    jst = jplan.build_plan(nets["jm"], STRATEGIES[name])
+    tst = tplan.build_plan(nets["tm"], STRATEGIES[name])
     assert [(s.kind, s.conv_li, s.pool_li, s.fold, s.k) for s in tst] == \
         [(s.kind, s.conv_li, s.pool_li, s.fold, s.k) for s in jst]
     jpp = jplan.prepare_plan_params(nets["jm"], nets["jq"], jst)
@@ -161,11 +174,15 @@ def test_plan_stages_match_jax(nets):
         jplan._referenced_layers(nets["jm"]) == {8, 13, 15, 18, 21}
 
 
-def test_every_stage_matches_jax(nets):
+@pytest.mark.parametrize("name", list(STRATEGIES))
+def test_every_stage_matches_jax(nets, name):
     """Each stage of the port, fed the JAX plan's recorded entry state
     (the saved route sources too), gives the JAX plan's next state bit
     for bit."""
-    jst, jpp, tst, tpp = _plans(nets)
+    jst, jpp, tst, tpp = _plans(nets, name)
+    if name != "pin":
+        assert {"fold_xla_k2", "rs", "fold_xla_s2", "gemm", "auto"} <= {
+            st.kind for st in tst}
     states = []
     heads = jplan.plan_forward_w8a8(nets["jm"], jst, jpp, nets["scales"],
                                     jnp.asarray(nets["u8"]),
@@ -191,9 +208,15 @@ def test_every_stage_matches_jax(nets):
             assert np.float32(gs) == np.float32(ws)
 
 
+@pytest.mark.parametrize("name", list(STRATEGIES))
 @pytest.mark.parametrize("wire", ["uint8", "f32"])
-def test_forward_heads_match_jax(nets, wire):
-    jst, jpp, tst, tpp = _plans(nets)
+def test_forward_heads_match_jax(nets, wire, name):
+    """Both heads exact against the JAX plan run op by op. Against the
+    jitted JAX plan only under the pin: with gemm-tier stages, jax.jit
+    contracts their folded-order epilogue into an FMA and flips int8
+    codes mid-network, so the jitted JAX plan departs from its own op-by-op
+    run (ROADMAP section C)."""
+    jst, jpp, tst, tpp = _plans(nets, name)
     x = nets["u8"] if wire == "uint8" else (
         nets["u8"].astype(np.float32) / np.float32(255.0))
 
@@ -211,5 +234,6 @@ def test_forward_heads_match_jax(nets, wire):
     for g, e, j in zip(got, eager, jitted):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), e)
-        ulp = np.spacing(np.abs(e).max())
-        np.testing.assert_allclose(g.numpy(), j, rtol=0, atol=4 * ulp)
+        if name == "pin":
+            ulp = np.spacing(np.abs(e).max())
+            np.testing.assert_allclose(g.numpy(), j, rtol=0, atol=4 * ulp)
