@@ -27,13 +27,14 @@ Stage kinds, with what runs them on the card:
   gemm         im2col + gemm_fused in the folded order
                (ops/conv_lowering.conv2d_w8a8_gemm)
   auto         xla or gemm per layer shape (ops/dispatch.py)
+  s0           ops/attic/stage0.stage0_fused_v2 (kernel): quantize (f32
+               input) + conv1 + 2x2/s2 pool on the int32 accumulator +
+               epilogue/requant, emitting the fold-2 tensor (cur_fold 2);
+               layer 0 of the 416 px model only, elsewhere it degrades to
+               fold_xla, as in the JAX plan
   pool         ops/pool.maxpool
   route        dequantize the saved pieces, concat, requantize
   upsample     nearest repeat of the int8 tensor (keeps its scale)
-
-``s0`` (the shape-specialized stage-0 kernel) is ROADMAP item B8; away
-from the one shape it was written for it degrades to ``fold_xla``, as in
-the JAX plan.
 
 Layer outputs consumed out of sequence (route sources, the heads of a
 multi-head model) are saved de-folded with their scale.
@@ -58,6 +59,8 @@ from dnn_inference_engine_tpu_torch.models.layers import (
 from dnn_inference_engine_tpu_torch.models.model import (
     _to_f32, _upsample_nearest,
 )
+from dnn_inference_engine_tpu_torch.ops.attic.stage0 import (
+    build_stage0_weights_v2, dense_k_from_v2, stage0_fused_v2)
 from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
     conv2d_w8a8_gemm, gemm_weights)
@@ -77,9 +80,10 @@ from dnn_inference_engine_tpu_torch.quant.quantize import (
 
 @dataclasses.dataclass
 class Stage:
-    kind: str                     # conv kinds: stem_rs | stem_dg | fold_xla
-                                  # | fold_xla_k2 | fold_xla_s2 | rs | xla
-                                  # | gemm | auto; pool | route | upsample
+    kind: str                     # conv kinds: stem_rs | stem_dg | s0
+                                  # | fold_xla | fold_xla_k2 | fold_xla_s2
+                                  # | rs | xla | gemm | auto; pool | route
+                                  # | upsample
     conv_li: int                  # layer index this stage implements
     pool_li: Optional[int]        # fused following MaxPool layer (or None)
     fold: int = 1                 # 1 (unfolded) or fold factor (+ gmax)
@@ -97,10 +101,6 @@ _CONV_KINDS = {"fold_xla": "fold_xla", "fold_xla_k2": "fold_xla_k2",
                "rs": "rs", "rs2": "rs", "stem_rs": "stem_rs",
                "stem_dg": "stem_dg",
                "xla": "xla", "gemm": "gemm", "auto": "auto", "s0": "s0"}
-
-# Conv kinds of the JAX plan that this port does not run yet, with the
-# ROADMAP item that ports each.
-_LATER_KINDS = {"s0": "B8 (stage0_fused_v2)"}
 
 # The JAX package's YOLOv2-tiny pin for batch 32 (and the default for
 # batches without a pin of their own).
@@ -192,8 +192,7 @@ def build_plan(model, strategy: Optional[Dict] = None,
                mode: str = "w8a8") -> Optional[List[Stage]]:
     """Layer-list model -> list of stages; None where the JAX plan gives
     None (a fold without its pool, a fold of a referenced output, a chain
-    the fold states cannot follow). Kinds not ported yet raise, naming
-    their ROADMAP item."""
+    the fold states cannot follow)."""
     return plan_or_reason(model, strategy, batch, mode)[0]
 
 
@@ -223,10 +222,6 @@ def plan_or_reason(model, strategy: Optional[Dict] = None,
                     and layer.ksize == 3 and layer.out_ch == 16
                     and layer.stride == 1):
                 kind = "fold_xla"   # shape-specialized kernel; degrade
-            if _CONV_KINDS[kind] in _LATER_KINDS:
-                raise NotImplementedError(
-                    f"plan stage kind {kind!r} is ROADMAP item "
-                    f"{_LATER_KINDS[_CONV_KINDS[kind]]}")
             pool_li = None
             nxt = li + 1
             if (fold > 1 and nxt < len(layers)
@@ -279,6 +274,8 @@ def plan_or_reason(model, strategy: Optional[Dict] = None,
                           "shifted fold-2 layout of a fold_xla_s2")
         if st.kind in ("stem_rs", "stem_dg", "fold_xla_k2", "fold_xla"):
             cur = st.fold // 2
+        elif st.kind == "s0":
+            cur = 2
         elif st.kind == "fold_xla_s2":
             cur = -2
         elif st.kind == "rs":
@@ -295,11 +292,22 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
                         stages: Sequence[Stage]) -> List[Dict]:
     """Pre-fold weights for folded stages (host-side, once), store each
     GEMM stage's K-major weight matrix ``wt`` (gemm_weights), and lay out
-    the stem_dg kernel's weight slabs and the rs kernel's K-major matrix
-    (each cached on the folded weights)."""
+    the stem_dg kernel's weight slabs, the rs kernel's K-major matrix and
+    the s0 kernel's dense-K matrix (each cached on its weights)."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
+        if st.kind == "s0":
+            # v2's operand at unit scale; the stage folds the scales in at
+            # run time. Taken before the fold branch: s0's weights are not
+            # folded, whatever the strategy's fold says
+            wv, _, _ = build_stage0_weights_v2(
+                p["wq"].cpu().numpy(), np.ones(16, np.float32),
+                np.zeros(16, np.float32), 1.0, 1.0)
+            wv = torch.as_tensor(wv, device=p["wq"].device)
+            dense_k_from_v2(wv)
+            out.append({"wv": wv, "s_w": p["s_w"], "b": p["b"]})
+            continue
         if st.fold > 1:
             f = st.fold
             folder = (fold_conv3x3_k2_weights if st.k == 2
@@ -485,6 +493,19 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
             bias = pp["b"] / s_out
             x = stem(x, pp["wq"], scale, bias, act_scales[li], act=st.act)
         return x, s_next, st.fold // 2
+
+    if st.kind == "s0":
+        # quantize + conv1 + pool + fold-2 emit in one kernel; the JAX s0
+        # branch's op order (the f32 s_in/s_next first), not the stems'
+        if not (cur_scale is None and cur_fold == 1):
+            raise ValueError(f"s0 must be the entry stage: {st}")
+        s_in = f32_scalar(act_scales[li], dev)
+        s_out = f32_scalar(s_next, dev)
+        scale = pp["s_w"].repeat(4) * (s_in / s_out)
+        bias = pp["b"].repeat(4) / s_out
+        x = stage0_fused_v2(x, pp["wv"], scale, bias, act_scales[li],
+                            act=st.act)
+        return x, s_next, 2
 
     if st.kind == "fold_xla_k2":
         return _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales)

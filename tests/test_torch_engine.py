@@ -89,6 +89,32 @@ def test_detect_matches_jax_engine(model, batch, thresh, strategy, tmp_path):
         np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-5)
 
 
+def test_s0_strategy_engine_prepares_stage0_kernel_plan(tmp_path):
+    """S3, the b32 pin with s0 at layer 0, on the 416 px model: prepare
+    builds a plan whose stage 0 is s0 (reading f32: the engine divides a
+    uint8 batch by 255 first) with v2's operand and its dense-K matrix.
+    Weights and scales are carried in, so nothing is calibrated at 416 px
+    on the CPU."""
+    from dnn_inference_engine_tpu.runtime.plan import _YOLOV2_STRATEGY
+    from dnn_inference_engine_tpu_torch.models import build_model
+    from dnn_inference_engine_tpu_torch.runtime.plan import (
+        plan_input_uint8_ok)
+    path = tmp_path / "s3.json"
+    path.write_text(json.dumps({"strategy": _strategy_jsonable(
+        {**_YOLOV2_STRATEGY, 0: ("s0", 4)})}))
+    model = build_model("yolov2-tiny")
+    fp32 = [{k: v.numpy() for k, v in p.items()}
+            for p in model.init_params(torch.Generator().manual_seed(0),
+                                       "cpu")]
+    eng = Engine(EngineConfig(batch=32, strategy=str(path)),
+                 device="cpu").load_weights(
+        params=fp32, act_scales=[0.01] * (len(model.layers) + 1)).prepare()
+    assert [s.kind for s in eng._plan][:3] == ["s0", "fold_xla",
+                                               "fold_xla_k2"]
+    assert not plan_input_uint8_ok(eng._plan)
+    assert eng._plan_params[0]["wv"].shape == (3, 128, 256)
+
+
 def test_engine_needs_a_device_or_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

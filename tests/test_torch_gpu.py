@@ -273,3 +273,118 @@ def test_strategy_engine_card_matches_cpu(cuda, tmp_path, name):
     np.testing.assert_array_equal(cg, cc)
     np.testing.assert_array_equal((sg > 0).sum(1), (sc > 0).sum(1))
     np.testing.assert_allclose(bg, bc, rtol=0, atol=1e-3)
+
+
+def _stage0_operands(dev, r):
+    """v2's operand and a (64,) epilogue from a random conv1."""
+    from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
+    wq = r.integers(-127, 128, (3, 3, 3, 16)).astype(np.int8)
+    s_w = r.uniform(1e-3, 1e-2, 16).astype(np.float32)
+    b = r.standard_normal(16).astype(np.float32)
+    w, scale, bias = st0.stage0_params_v2(torch.from_numpy(wq).to(dev),
+                                          s_w, b, 0.00789, 0.0511)
+    return wq, s_w, b, w, scale.to(dev), bias.to(dev)
+
+
+@pytest.mark.parametrize("act", ["leaky", "linear", "relu"])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(2, 56, 72, 3), (1, 64, 64, 3)])
+def test_stage0_kernel_matches_plain(cuda, monkeypatch, shape, rows, act):
+    """stage0_fused_v2 on the card against the plain version on the same
+    dense-K operand: every band height (56 px: 14 output rows, the last
+    band of 4 partial), one launch counted."""
+    from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
+    monkeypatch.setattr(st0, "_stem_band_rows", lambda n, hout, sms: rows)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    _, _, _, w, scale, bias = _stage0_operands(
+        cuda, np.random.default_rng(rows))
+    x = torch.rand(shape, generator=g, device=cuda) * 1.2 - 0.1
+    before = st0.stage0_fused.launches
+    got = st0.stage0_fused_v2(x, w, scale, bias, 0.00789, act=act)
+    assert st0.stage0_fused.launches == before + 1
+    ref = st0.stage0_fused_plain(x, st0.dense_k_from_v2(w), scale, bias,
+                                 0.00789, act=act)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("ht", [4, 8])
+def test_stage0_v1_kernel_matches_plain_and_v2(cuda, ht):
+    """v1's operand at 416 px gives the same codes as v2's on the card."""
+    from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
+    r = np.random.default_rng(ht)
+    g = torch.Generator(device=cuda).manual_seed(ht)
+    wq, s_w, b, w, scale, bias = _stage0_operands(cuda, r)
+    wb, _, _ = st0.stage0_params(torch.from_numpy(wq).to(cuda), s_w, b,
+                                 0.00789, 0.0511, ht=ht)
+    x = torch.rand((2, 416, 416, 3), generator=g, device=cuda)
+    before = st0.stage0_fused.launches
+    got = st0.stage0_fused(x, wb, scale, bias, 0.00789, ht=ht)
+    assert st0.stage0_fused.launches == before + 1
+    ref = st0.stage0_fused_plain(x, st0.dense_k_from_v1(wb, ht), scale, bias,
+                                 0.00789)
+    v2 = st0.stage0_fused_v2(x, w, scale, bias, 0.00789)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, v2)
+
+
+BT_CASES = [
+    # (n, h, w, cin, cout, quantize_out)
+    (2, 13, 13, 128, 256, True),
+    (3, 13, 13, 256, 128, True),
+    (2, 26, 26, 128, 128, True),
+    (1, 8, 8, 128, 125, False),
+    (1, 13, 13, 512, 1024, True),
+    (2, 5, 31, 128, 64, True),
+    (1, 13, 13, 128, 200, False),
+]
+
+
+@pytest.mark.parametrize("act", ["leaky", "linear", "relu"])
+@pytest.mark.parametrize("case", BT_CASES)
+def test_conv3x3_bt_kernel_matches_plain_and_rs(cuda, case, act):
+    """int8 and f32 out, M and Cout not multiples of 128, W = 31 (the
+    widest window): equal to the plain version and to conv3x3_rs with pool
+    None on the same inputs."""
+    from dnn_inference_engine_tpu_torch.ops.attic import tail
+    n, h, w, cin, cout, qo = case
+    g = torch.Generator(device=cuda).manual_seed(h * w + cout)
+    x, wq = _i8(g, cuda, n, h, w, cin), _i8(g, cuda, 3, 3, cin, cout)
+    scale = torch.rand(cout, generator=g, device=cuda) * 1e-4 + 1e-5
+    bias = torch.randn(cout, generator=g, device=cuda)
+    before = tail.conv3x3_bt.launches
+    got = tail.conv3x3_bt(x, wq, scale, bias, act=act, quantize_out=qo)
+    assert tail.conv3x3_bt.launches == before + 1
+    ref = tail.conv3x3_bt_plain(x, wq, scale, bias, act=act, quantize_out=qo)
+    rs = fc.conv3x3_rs(x, wq, scale, bias, act=act, quantize_out=qo)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref) and torch.equal(got, rs)
+
+
+def test_s0_plan_card_matches_cpu(cuda):
+    """The s0 strategy on the 416 px model fed 64 px f32 images: the
+    card's plan (stage0_fused_v2's kernel) gives the CPU plan's head."""
+    from dnn_inference_engine_tpu_torch.models import build_model
+    from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
+    from dnn_inference_engine_tpu_torch.quant.quantize import (
+        calibrate, quantize_model_params)
+    from dnn_inference_engine_tpu_torch.runtime import plan
+    model = build_model("yolov2-tiny")
+    strat = {**plan._YOLOV2_STRATEGY, 0: ("s0", 4)}
+    fp32 = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    scales = calibrate(model, fp32, x.numpy(), device="cpu")
+    qcpu = quantize_model_params(fp32, model.layers)
+    heads = []
+    for dev in ("cpu", cuda):
+        q = [{k: v.to(dev) for k, v in p.items()} for p in qcpu]
+        stages = plan.build_plan(model, strat)
+        assert stages[0].kind == "s0"
+        pp = plan.prepare_plan_params(model, q, stages)
+        before = st0.stage0_fused.launches
+        heads.append(plan.plan_forward_w8a8(model, stages, pp, scales,
+                                            x.to(dev)).cpu())
+        assert st0.stage0_fused.launches == before + (dev != "cpu")
+    assert torch.equal(heads[0], heads[1])

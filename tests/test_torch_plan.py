@@ -7,7 +7,8 @@ produce the JAX plan's next state bit for bit, under the batch-32 table,
 the batch-1 and batch-8 pins and three strategies (S1-S3) that run every
 kind the sweep proposes: the folded entry stages (quant_space_to_depth4),
 fold_xla_s2 (gmax_shift_s2d2) and its negative fold sentinel, rs and rs2
-(conv3x3_rs, s2d_out too), and the gemm and auto conv tiers. The whole
+(conv3x3_rs, s2d_out too), and the gemm and auto conv tiers; and under
+the b32 table with s0 at layer 0 (stage0_fused_v2, f32 input). The whole
 head must match too, for uint8 wire input and for f32 input.
 
 An f32 head that the gemm tier computes (S2's and S3's L14) is held
@@ -52,11 +53,16 @@ PINS = {"b32": jplan._YOLOV2_STRATEGY,
                4: ("rs2", 2), 6: ("auto", 1), 8: ("auto", 1),
                10: ("xla", 1), 12: ("gemm", 1), 13: ("xla", 1),
                14: ("gemm", 1)},
-        # the unpadded k2 entry, rs emitting s2d(2) into a fold_xla stage
+        # a strategy of these tests only (not chip_smoke.py's S3): the
+        # unpadded k2 entry, rs emitting s2d(2) into a fold_xla stage
         "s3": {0: ("fold_xla_k2", 4), 2: ("rs", 2, {"s2d_out": True}),
                4: ("fold_xla", 2), 6: ("gemm", 1), 8: ("auto", 1),
                10: ("auto", 1), 12: ("xla", 1), 13: ("gemm", 1),
-               14: ("auto", 1)}}
+               14: ("auto", 1)},
+        # S3 of chip_smoke.py and the docs: the b32 pin with s0 at layer 0
+        # (the 416 px model fed 64 px images; stage0_fused_v2 is
+        # shape-generic)
+        "S3": {**jplan._YOLOV2_STRATEGY, 0: ("s0", 4)}}
 
 # the conv stage kinds each pin must run
 PIN_KINDS = {"b32": {"stem_rs", "fold_xla", "fold_xla_k2", "xla"},
@@ -65,7 +71,8 @@ PIN_KINDS = {"b32": {"stem_rs", "fold_xla", "fold_xla_k2", "xla"},
              "s1": {"fold_xla_k2", "fold_xla_s2", "rs", "gemm", "auto",
                     "xla"},
              "s2": {"fold_xla", "rs", "auto", "xla", "gemm"},
-             "s3": {"fold_xla_k2", "rs", "fold_xla", "gemm", "auto", "xla"}}
+             "s3": {"fold_xla_k2", "rs", "fold_xla", "gemm", "auto", "xla"},
+             "S3": {"s0", "fold_xla", "fold_xla_k2", "xla"}}
 # pins whose f32 head comes from the gemm tier (one FMA rounding in JAX)
 GEMM_HEAD = {"s2", "s3"}
 
@@ -188,12 +195,21 @@ def _assert_head(got, want, pin):
         np.testing.assert_array_equal(got, want)
 
 
+def _wire(nets, stages):
+    """The batch as an engine hands it to the plan: uint8 where the entry
+    stage ingests the wire format, else normalized to f32 (s0)."""
+    if jplan.plan_input_uint8_ok(stages):
+        return nets["u8"]
+    return nets["u8"].astype(np.float32) / np.float32(255.0)
+
+
 @pytest.mark.parametrize("pin", list(PINS))
 def test_every_stage_matches_jax(nets, pin):
     jst, jpp, tst, tpp = _plans(nets, pin)
+    assert tplan.plan_input_uint8_ok(tst) == jplan.plan_input_uint8_ok(jst)
     states = []
     head = jplan.plan_forward_w8a8(nets["jm"], jst, jpp, nets["scales"],
-                                   jnp.asarray(nets["u8"]),
+                                   jnp.asarray(_wire(nets, jst)),
                                    record_states=states)
     outs = [s[:3] for s in states[1:]] + [(head, None, 1)]
     kinds = set()
@@ -249,6 +265,34 @@ def test_forward_head_matches_jax(nets, wire, pin):
     np.testing.assert_allclose(got.numpy(), jitted, rtol=0, atol=4 * ulp)
 
 
+def test_s0_plan_matches_jax(nets):
+    """S3 (s0 at layer 0 of the 416 px model, 64 px f32 images): stage 0
+    is s0 and emits the fold-2 tensor that L2's fold_xla reads with no
+    relayout; the whole head equals the op-by-op JAX plan's, within 4
+    ulps of its jitted one, and every entry state matches."""
+    jst, jpp, tst, tpp = _plans(nets, "S3")
+    assert tst[0].kind == "s0" and tst[1].kind == "fold_xla"
+    assert not tplan.plan_input_uint8_ok(tst)
+    x = _wire(nets, jst)
+    jstates = []
+    eager = _np(jplan.plan_forward_w8a8(nets["jm"], jst, jpp, nets["scales"],
+                                        jnp.asarray(x), record_states=jstates))
+    jitted = _np(jax.jit(lambda xx: jplan.plan_forward_w8a8(
+        nets["jm"], jst, jpp, nets["scales"], xx))(jnp.asarray(x)))
+    states = []
+    got = tplan.plan_forward_w8a8(nets["tm"], tst, tpp, nets["tscales"],
+                                  torch.from_numpy(x), record_states=states)
+    assert [s[2] for s in states] == [s[2] for s in jstates]
+    assert [s[2] for s in states[:3]] == [1, 2, 1]
+    for si, ((a, sa, _, _), (b, sb, _, _)) in enumerate(zip(states,
+                                                            jstates)):
+        np.testing.assert_array_equal(a.numpy(), _np(b), err_msg=str(si))
+        assert (sa is None) == (sb is None)
+    np.testing.assert_array_equal(got.numpy(), eager)
+    ulp = np.spacing(np.abs(eager).max())
+    np.testing.assert_allclose(got.numpy(), jitted, rtol=0, atol=4 * ulp)
+
+
 def test_generic_forward_w8a8_matches_jax(nets):
     """Model.forward_w8a8, the layer-by-layer reference path."""
     x = nets["u8"].astype(np.float32) / np.float32(255.0)
@@ -256,14 +300,6 @@ def test_generic_forward_w8a8_matches_jax(nets):
     got = nets["tm"].forward_w8a8(nets["tq"], nets["tscales"],
                                   torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), _np(ref))
-
-
-@pytest.mark.parametrize("entry,item", [(("s0", 4), "B8")])
-def test_unported_kinds_raise_with_roadmap_item(entry, item):
-    """s0 at the one shape it was written for (layer 0 of the 416 px
-    model) is still to come."""
-    with pytest.raises(NotImplementedError, match=item):
-        tplan.build_plan(tyolo(), {0: entry})
 
 
 def test_s0_degrades_to_fold_xla_off_its_shape(nets):
@@ -277,17 +313,25 @@ def test_s0_degrades_to_fold_xla_off_its_shape(nets):
 
 
 @pytest.mark.parametrize("entry", [("auto", 1), ("rs2", 2),
-                                   ("fold_xla_s2", 2), ("gemm", 1)])
+                                   ("fold_xla_s2", 2), ("gemm", 1),
+                                   ("s0", 4)])
 def test_once_unported_kinds_build_as_jax(nets, entry):
-    """The kinds that raised before this slice build the JAX plan's
+    """The kinds that raised before their slice build the JAX plan's
     stages (the b32 table's L4 is the fold_xla_k2 f=2 consumer that
-    fold_xla_s2 needs)."""
+    fold_xla_s2 needs); s0 at layer 0 of the 416 px model, where it is an
+    s0 stage (its fold is not a weight fold)."""
     strat = dict(PINS["b32"])
-    strat[2] = entry
+    li = 0 if entry[0] == "s0" else 2
+    strat[li] = entry
     want = jplan.build_plan(nets["jm"], strat)
-    assert _stage_keys(tplan.build_plan(nets["tm"], strat)) == \
-        _stage_keys(want)
+    got = tplan.build_plan(nets["tm"], strat)
+    assert _stage_keys(got) == _stage_keys(want)
     assert want is not None
+    if entry[0] == "s0":
+        assert got[0].kind == "s0" and got[0].fold == 4
+        pp = tplan.prepare_plan_params(nets["tm"], nets["tq"], got[:1])[0]
+        assert set(pp) == {"wv", "s_w", "b"} and pp["wv"].shape == (
+            3, 128, 256)
 
 
 def _l2_l4_candidates():
