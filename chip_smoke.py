@@ -19,7 +19,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    its wrappers (b32 and b2, v1's operand at ht 4 and 8) and conv3x3_bt
    at YOLOv2-tiny's tail shapes (b32 and b1, also held equal to
    conv3x3_rs), whose b32 tail pass gives its launch count;
-4. card against CPU, W8A8 at 416 px from seeded random weights:
+4. the copy-engine tools' path: ``probe_dma_rules.main`` (every TMA
+   encode verdict equal to ``tma_box_legal``, every accepted box equal to
+   the slice) and ``proto_conv_dma.main`` (conv_dma at (32,104,104,64) ->
+   128 for each ht, and conv3x3_rs on the same inputs), counters from 0;
+   then conv_dma against its plain version and conv3x3_rs at that shape,
+   timed beside its bound, the plain version, conv3x3_rs and
+   ``torch._int_mm``, and tma_probe against its plain copy;
+5. card against CPU, W8A8 at 416 px from seeded random weights:
    YOLOv2-tiny at batch 2 (the batch-32 plan: all three of its kernels)
    and batch 1 (its own pinned plan), YOLOv3-tiny at batch 2 and batch 1
    (its one pin), and YOLOv2-tiny at batch 2 under the strategy files S1,
@@ -27,7 +34,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    scales; heads must be identical and detections equal. The card's
    YOLOv2 calibration scales must match a CPU calibration of the same
    weights to a few float32 ulps (no TF32 in the reference conv);
-5. drive each main path: YOLOv2-tiny at batch 32 and batch 1, YOLOv3-tiny
+6. drive each main path: YOLOv2-tiny at batch 32 and batch 1, YOLOv3-tiny
    at batch 16 and batch 1, S1 at batch 32 and 1, S2 at batch 32, S3 at
    batch 32 and 1. The
    launch counters, set to 0 just before each detect and read just
@@ -37,11 +44,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    from ``torch.profiler`` (a trace must hold every kernel as many times
    as its launch counter counted). Before them, the host's wait for one scale
    upload behind a busy card (``upload_wait_ms``);
-6. S2's stage 1 (``rs``, no im2col) against the pinned plan's L2 stage
+7. S2's stage 1 (``rs``, no im2col) against the pinned plan's L2 stage
    (``fold_xla``: im2col, GEMM, group-max) on the same b32 entry state,
    and S3's stage 0 (``s0``) against the pin's (``stem_rs``) on the same
    b32 f32 input, with the share of codes that differ;
-7. the ported plan sweep (YOLOv2-tiny w8a8, batch 8, every candidate,
+8. the ported plan sweep (YOLOv2-tiny w8a8, batch 8, every candidate,
    short fixed loop counts): no candidate may crash or fail parity, and
    an engine built from its artifact must have its kinds and run detect.
 
@@ -98,6 +105,14 @@ KERNELS = {
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/conv3x3_bt.cu",
         replaces="dnn_inference_engine_tpu/ops/attic/pallas_tail.py:78"),
+    "conv_dma": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/conv_dma.cu",
+        replaces="tools/proto_conv_dma.py:82"),
+    "tma_probe": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/tma_probe.cu",
+        replaces="tools/probe_dma_rules.py:24"),
 }
 
 # Strategy plans (YOLOv2-tiny, w8a8): S1 and S2 between them run every
@@ -696,17 +711,126 @@ def phase_attic_kernels(dev, ops_peak, bw):
     return rows, tail_launches
 
 
+def phase_dma_kernels(dev, ops_peak, bw):
+    """The copy-engine tools as a user runs them (the path of conv_dma and
+    tma_probe: their counters set to 0 just before, read just after; each
+    main raises on a mismatch), then each kernel against its plain version
+    with max error 0: conv_dma at (32,104,104,64) -> 128, go 32, for each
+    ht of the tool, also against conv3x3_rs ('gmaxm', scale and bias tiled
+    4x), timed beside them and ``torch._int_mm`` on the im2col'd A
+    (product only); tma_probe on every case the encode accepts, timed on
+    the largest box inside its source beside a slice's ``clone``."""
+    from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
+    from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+        extract_patches)
+    from dnn_inference_engine_tpu_torch.tools import probe_dma_rules as pr
+    from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
+
+    pr.probe.launches = pc.conv_dma.launches = 0
+    pr.main([])
+    pc.main([])
+    torch.cuda.synchronize()
+    launches = {"tma_probe": pr.probe.launches,
+                "conv_dma": pc.conv_dma.launches}
+    print(f"  tools' path launches: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the tools' path skipped a kernel: {launches}")
+
+    def check(name, got, ref, what):
+        err = max_abs_err(got, ref)
+        print(f"  {name} {what}: err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} {what}: kernel != reference")
+        return err
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, h, wd, cin, go = pc.N, pc.H, pc.W, pc.CIN, pc.GO
+    x = torch.randint(-127, 128, (n, h, wd, cin), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, cin, 4 * go), generator=g,
+                      device=dev, dtype=torch.int8)
+    scale = torch.rand(go, generator=g, device=dev) * 2e-5 + 1e-5
+    bias = torch.randn(go, generator=g, device=dev)
+    s4, b4 = scale.repeat(4), bias.repeat(4)
+    ref = pc.conv_dma_plain(x, w, scale, bias)
+    rs = fc.conv3x3_rs(x, w, s4, b4, pool=("gmaxm", 2, go))
+    errs = [check("conv3x3_rs", rs, ref, "vs conv_dma_plain")]
+    ht_ms = {}
+    for ht in pc.HTS:
+        got = pc.conv_dma(x, w, scale, bias, ht=ht)
+        errs.append(check("conv_dma", got, ref, f"ht {ht} vs plain"))
+        errs.append(check("conv_dma", got, rs, f"ht {ht} vs conv3x3_rs"))
+        ht_ms[ht] = device_ms(
+            lambda ht=ht: pc.conv_dma(x, w, scale, bias, ht=ht), 10)
+    m, k = n * h * wd, 9 * cin
+    a = extract_patches(x, 3, 3, 1, "SAME").reshape(m, k)
+    wt = fc.rs_weight_matrix(w)
+    bound, by = _bound(2.0 * m * k * 4 * go,
+                       x.numel() + w.numel() + 8 * go + ref.numel(),
+                       ops_peak, bw)
+    rows["conv_dma"] = dict(
+        max_abs_err=max(errs), ms=ht_ms[pc.HTS[0]],
+        plain_ms=device_ms(lambda: pc.conv_dma_plain(x, w, scale, bias), 2),
+        library_ms=device_ms(lambda: torch._int_mm(a, wt.t()), 10),
+        bound_ms=bound, bound_by=by,
+        ht_ms=ht_ms,
+        rs_ms=device_ms(lambda: fc.conv3x3_rs(x, w, s4, b4,
+                                              pool=("gmaxm", 2, go)), 10))
+    r = rows["conv_dma"]
+    print(f"  conv_dma ({n},{h},{wd},{cin}) -> {4 * go}, go {go} (M={m} "
+          f"K={k}): ms by ht " + ", ".join(f"{t} {v:.4f}"
+                                           for t, v in ht_ms.items())
+          + f"; conv3x3_rs {r['rs_ms']:.4f}; plain "
+          f"{r['plain_ms']:.3f}; int_mm {r['library_ms']:.4f}; bound "
+          f"{bound:.4f} ({by})")
+    del x, w, a, wt, ref, rs
+
+    errs, largest = [], None
+    for case in pr.CASES:
+        src = pr.case_source(case, dev)
+        v = pr.probe(src, case.start, case.box)
+        if v.out is None:
+            continue
+        errs.append(check("tma_probe", v.out, pr.probe_plain(
+            src, case.start, case.box), case.name))
+        inside = all(0 <= s and s + b <= d for s, b, d in
+                     zip(case.start, case.box, case.shape))
+        if inside and (largest is None
+                       or v.out.numel() > largest[0].out.numel()):
+            largest = (v, case, src)
+    v, case, src = largest
+    sl = tuple(slice(s, s + b) for s, b in zip(case.start, case.box))
+    nbytes = v.out.numel()
+    rows["tma_probe"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: pr.probe(src, case.start, case.box), 20),
+        plain_ms=device_ms(lambda: pr.probe_plain(src, case.start, case.box),
+                           20),
+        library_ms=device_ms(lambda: src[sl].clone(), 20),
+        bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes",
+        timed_case=case.name, box_bytes=nbytes)
+    r = rows["tma_probe"]
+    print(f"  tma_probe {case.name} ({nbytes} bytes): ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} clone_ms={r['library_ms']:.4f} "
+          f"bound_ms={r['bound_ms']:.6f} (bytes)")
+    return rows, launches
+
+
 def _counters():
     from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     from dnn_inference_engine_tpu_torch.ops.attic import stage0, tail
+    from dnn_inference_engine_tpu_torch.tools import probe_dma_rules as pr
+    from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
     return {"gemm_fused": gm.gemm_fused, "stem_fused_k2": fc.stem_fused_k2,
             "shift_s2d2": fc.shift_s2d2, "stem_fused_dg": fc.stem_fused_dg,
             "quant_space_to_depth4": fc.quant_space_to_depth4,
             "gmax_shift_s2d2": fc.gmax_shift_s2d2,
             "conv3x3_rs": fc.conv3x3_rs,
             "stage0_fused": stage0.stage0_fused,
-            "conv3x3_bt": tail.conv3x3_bt}
+            "conv3x3_bt": tail.conv3x3_bt,
+            "conv_dma": pc.conv_dma, "tma_probe": pr.probe}
 
 
 def _reset_counts():
@@ -804,6 +928,8 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("conv3x3_rs", "conv_rs_kernel"),
                  ("stage0_fused", "stage0_kernel"),
                  ("conv3x3_bt", "conv_bt_kernel"),
+                 ("conv_dma", "conv_dma_kernel"),
+                 ("tma_probe", "tma_probe_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),
                  ("host-to-device copies", "Memcpy HtoD"))
@@ -1061,6 +1187,10 @@ def main() -> int:
                                       torch.device("cuda"), ops_peak, bw)
     rows.update(attic_rows)
     torch.cuda.empty_cache()
+    dma_rows, tools_launches = timed("dma kernels", phase_dma_kernels,
+                                     torch.device("cuda"), ops_peak, bw)
+    rows.update(dma_rows)
+    torch.cuda.empty_cache()
 
     def card_vs_cpu():
         phase_card_vs_cpu("yolov2-tiny", 2, check_calibration=True)
@@ -1102,11 +1232,14 @@ def main() -> int:
     # each kernel's launches from the main path that runs it: the YOLOv2
     # b32 detect, the YOLOv3 b16 detect for the per-tap stem, the S1 b32
     # detect for the strategy plans' kernels, the S3 b32 detect for
-    # stage0_fused, and the b32 tail pass for conv3x3_bt (on no detect path)
+    # stage0_fused, the b32 tail pass for conv3x3_bt (on no detect path),
+    # and the copy-engine tools' mains for conv_dma and tma_probe
     counts["tail"] = {"conv3x3_bt": tail_launches}
+    counts["tools"] = tools_launches
     path_of = {"stem_fused_dg": "yolov3-tiny", "quant_space_to_depth4": "S1",
                "gmax_shift_s2d2": "S1", "conv3x3_rs": "S1",
-               "stage0_fused": "S3", "conv3x3_bt": "tail"}
+               "stage0_fused": "S3", "conv3x3_bt": "tail",
+               "conv_dma": "tools", "tma_probe": "tools"}
     kernels = []
     for kname, meta in KERNELS.items():
         path = path_of.get(kname, "yolov2-tiny")

@@ -388,3 +388,105 @@ def test_s0_plan_card_matches_cpu(cuda):
                                             x.to(dev)).cpu())
         assert st0.stage0_fused.launches == before + (dev != "cpu")
     assert torch.equal(heads[0], heads[1])
+
+
+# conv_dma: (N, H, W, Cin, go, ht); the prototype's own shape, ht past H,
+# ragged H (the last band short), W past one 128-pixel chunk, Cin % 32 ==
+# 16 (k past Cin meets zero weights), 128 (a 144-byte tap row, 2 rows a
+# step by the budget) and go 64 (two column blocks)
+DMA_CASES = [(2, 26, 104, 64, 32, 13), (1, 13, 104, 64, 32, 26),
+             (3, 11, 17, 32, 32, 4), (2, 9, 40, 16, 32, 3),
+             (1, 7, 24, 48, 32, 5), (2, 8, 8, 64, 64, 8),
+             (1, 5, 200, 16, 32, 2), (1, 6, 256, 16, 32, 3),
+             (2, 12, 13, 128, 32, 5)]
+
+
+@pytest.mark.parametrize("case", DMA_CASES)
+def test_conv_dma_kernel_matches_plain_and_rs(cuda, case):
+    from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
+    n, h, w, cin, go, ht = case
+    g = torch.Generator(device=cuda).manual_seed(h * w + cin)
+    x, wq = _i8(g, cuda, n, h, w, cin), _i8(g, cuda, 3, 3, cin, 4 * go)
+    scale = torch.rand(go, generator=g, device=cuda) * 1e-4 + 1e-5
+    bias = torch.randn(go, generator=g, device=cuda)
+    before = pc.conv_dma.launches
+    got = pc.conv_dma(x, wq, scale, bias, ht=ht)
+    assert pc.conv_dma.launches == before + 1
+    ref = pc.conv_dma_plain(x, wq, scale, bias)
+    rs = fc.conv3x3_rs(x, wq, scale.repeat(4), bias.repeat(4),
+                       pool=("gmaxm", 2, go))
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (n, h, w, go)
+    assert torch.equal(got, ref) and torch.equal(got, rs)
+
+
+def test_conv_dma_kernel_takes_an_unaligned_x(cuda):
+    """A view of x 1 byte into its buffer is copied to an aligned base."""
+    from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
+    g = torch.Generator(device=cuda).manual_seed(5)
+    flat = _i8(g, cuda, 2 * 6 * 20 * 32 + 1)
+    x = flat[1:].view(2, 6, 20, 32)
+    wq = _i8(g, cuda, 3, 3, 32, 128)
+    scale = torch.rand(32, generator=g, device=cuda) * 1e-4
+    bias = torch.randn(32, generator=g, device=cuda)
+    got = pc.conv_dma(x, wq, scale, bias, ht=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pc.conv_dma_plain(x, wq, scale, bias))
+
+
+def test_tma_probe_matches_the_rules(cuda):
+    """Every case: the encode's verdict is tma_box_legal's, and an
+    accepted box equals the slice with zeros outside the source."""
+    from dnn_inference_engine_tpu_torch.tools import probe_dma_rules as pr
+    for case in pr.CASES:
+        src = pr.case_source(case, cuda)
+        legal, why = pr.tma_box_legal(tuple(src.shape), src.stride(),
+                                      case.box, src.data_ptr() % 16)
+        before = pr.probe.launches
+        v = pr.probe(src, case.start, case.box)
+        torch.cuda.synchronize()
+        assert v.accepted == legal, (case.name, v.cu_result, why)
+        assert pr.probe.launches == before + legal
+        if legal:
+            assert v.cu_result == 0
+            assert torch.equal(v.out, pr.probe_plain(src, case.start,
+                                                     case.box)), case.name
+
+
+def test_tma_box_leaving_a_ragged_inner_dimension_faults(cuda):
+    """What ``probe`` refuses, shown on the card in a process of its own
+    (the fault poisons its context): cuTensorMapEncodeTiled accepts a
+    rank-1 map of
+    1000 bytes, and the copy of a 256-byte box at 900 traps; at 1024
+    bytes the same box copies (zero-filled past the end)."""
+    import subprocess
+    import sys
+    code = (
+        "import ctypes, torch\n"
+        "from dnn_inference_engine_tpu_torch.ops import _build\n"
+        "from dnn_inference_engine_tpu_torch.tools import probe_dma_rules "
+        "as pr\n"
+        "src = torch.zeros(1000, dtype=torch.int8, device='cuda')\n"
+        "out = torch.empty(256, dtype=torch.int8, device='cuda')\n"
+        "cu = ctypes.c_int(-1)\n"
+        "p, i = ctypes.c_void_p, ctypes.c_int\n"
+        "fn = _build.function('tma_probe', 'tma_probe', "
+        "[p, i, p, p, p, p, i, p, p, p])\n"
+        "err = fn(src.data_ptr(), 1, pr._inner((1000,), ctypes.c_longlong), "
+        "pr._inner((), ctypes.c_longlong), pr._inner((256,), ctypes.c_int), "
+        "pr._inner((900,), ctypes.c_int), 1, out.data_ptr(), "
+        "ctypes.byref(cu), torch.cuda.current_stream().cuda_stream)\n"
+        "print('encode', cu.value, 'launch', err, flush=True)\n"
+        "torch.cuda.synchronize()\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert "encode 0 launch 0" in r.stdout, (r.stdout, r.stderr)
+    assert r.returncode != 0 and "illegal instruction" in r.stderr, (
+        r.stdout, r.stderr[-2000:])
+    from dnn_inference_engine_tpu_torch.tools import probe_dma_rules as pr
+    src = torch.arange(1024, device=cuda).to(torch.int8)
+    v = pr.probe(src, (896,), (256,))
+    torch.cuda.synchronize()
+    assert v.accepted and torch.equal(v.out, pr.probe_plain(src, (896,),
+                                                            (256,)))
+
