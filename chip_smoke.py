@@ -18,7 +18,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    the same inputs; then the attic kernels: stage0_fused through both of
    its wrappers (b32 and b2, v1's operand at ht 4 and 8) and conv3x3_bt
    at YOLOv2-tiny's tail shapes (b32 and b1, also held equal to
-   conv3x3_rs), whose b32 tail pass gives its launch count;
+   conv3x3_rs), whose b32 tail pass gives its launch count; and
+   gemm_f32 (the float form of gemm_fused) at the fp32 gemm tier's
+   shapes (YOLOv2-tiny b32, YOLOv3-tiny b16) with a float32 and an int8
+   B, within ``sum_tol`` of its float64-summed plain version, timed
+   beside ``torch.matmul`` with TF32 off;
 4. the copy-engine tools' path: ``probe_dma_rules.main`` (every TMA
    encode verdict equal to ``tma_box_legal``, every accepted box equal to
    the slice) and ``proto_conv_dma.main`` (conv_dma at (32,104,104,64) ->
@@ -30,13 +34,16 @@ Phases (each raises on failure, and the script then exits non-zero):
    YOLOv2-tiny at batch 2 (the batch-32 plan: all three of its kernels)
    and batch 1 (its own pinned plan), YOLOv3-tiny at batch 2 and batch 1
    (its one pin), and YOLOv2-tiny at batch 2 under the strategy files S1,
-   S2 and S3 (the pin with s0 at layer 0). The CPU engine (plain versions) gets the card's weights and
-   scales; heads must be identical and detections equal. The card's
+   S2 and S3 (the pin with s0 at layer 0). The CPU engine (plain
+   versions) gets the card's weights and scales; heads must be identical
+   and detections equal. The card's
    YOLOv2 calibration scales must match a CPU calibration of the same
    weights to a few float32 ulps (no TF32 in the reference conv);
 6. drive each main path: YOLOv2-tiny at batch 32 and batch 1, YOLOv3-tiny
    at batch 16 and batch 1, S1 at batch 32 and 1, S2 at batch 32, S3 at
-   batch 32 and 1. The
+   batch 32 and 1, then both models in fp32 (``EngineConfig()``'s
+   defaults: the generic forward, gemm_f32 on the deep layers) and in w8
+   (the bf16 plans) at the same batches. The
    launch counters, set to 0 just before each detect and read just
    after, must show it ran through its kernels and no others; then
    throughput (forwards and detects back to back), latency (each call
@@ -50,7 +57,16 @@ Phases (each raises on failure, and the script then exits non-zero):
    b32 f32 input, with the share of codes that differ;
 8. the ported plan sweep (YOLOv2-tiny w8a8, batch 8, every candidate,
    short fixed loop counts): no candidate may crash or fail parity, and
-   an engine built from its artifact must have its kinds and run detect.
+   an engine built from its artifact must have its kinds and run detect;
+9. card against CPU at 416 px, b2, for the fp32 and w8 modes and the generic
+   W8A8 tiers: fp32
+   and the w8 plans (heads within F32_REL_TOL and BF16_REL_TOL of the
+   largest head, detections as sets within that: ``detections_close``),
+   W8A8 with ``kernel="xla"`` and ``"pallas"`` and the fallback from an
+   illegal strategy file (bit for bit), each with its launch counts (the
+   fallback's ``auto`` takes the gemm tier where use_pallas says so), and
+   ``Model.forward(mode="w8", kernel="pallas")`` (gemm_f32 with int8
+   codes on every conv).
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -71,6 +87,10 @@ KERNELS = {
     "gemm_fused": dict(
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/gemm_fused.cu",
+        replaces="dnn_inference_engine_tpu/ops/pallas_gemm.py:112"),
+    "gemm_f32": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/gemm_f32.cu",
         replaces="dnn_inference_engine_tpu/ops/pallas_gemm.py:112"),
     "stem_fused_k2": dict(
         route="cuda",
@@ -151,6 +171,17 @@ B16_V3_GEMMS = [("L2", 173056, 576, 128), ("L4", 43264, 512, 256),
                 ("L15", 2704, 512, 75), ("L17", 2704, 256, 128),
                 ("L20", 10816, 3456, 256), ("L21", 10816, 256, 75)]
 HEADS = {"yolov2-tiny": {"L14"}, "yolov3-tiny": {"L15", "L21"}}
+# (layer, M, K, N) of the gemm_f32 launches of one fp32 kernel="auto"
+# forward at 416 px: the layers where use_pallas takes the gemm tier
+# (YOLOv2-tiny b32; YOLOv3-tiny b16); L14 is the linear head
+F32_B32_GEMMS = [("L8", 21632, 1152, 256), ("L10", 5408, 2304, 512),
+                 ("L12", 5408, 4608, 1024), ("L13", 5408, 9216, 1024),
+                 ("L14", 5408, 1024, 125)]
+F32_B16_V3_GEMMS = [("L8", 10816, 1152, 256), ("L10", 2704, 2304, 512),
+                    ("L12", 2704, 4608, 1024), ("L13", 2704, 1024, 256),
+                    ("L14", 2704, 2304, 512), ("L20", 10816, 3456, 256)]
+F32_HEADS = {"L14"}
+U32 = 2.0 ** -24                     # float32 unit roundoff
 # conv3x3_bt at YOLOv2-tiny's 3x3 tail convs, 416 px: (tag, x shape, Cout)
 BT_SHAPES = [("L8 b32", (32, 26, 26, 128), 256),
              ("L10 b32", (32, 13, 13, 256), 512),
@@ -168,6 +199,16 @@ def peaks(name: str):
     if "NVL" in name:
         return 1671e12, 3.9e12
     return 1979e12, 3.35e12          # SXM
+
+
+def f32_peak(name: str) -> float:
+    """Float32 FMA operations/s outside the tensor cores (NVIDIA's data
+    sheets), for the same variants as ``peaks``."""
+    if "PCIe" in name:
+        return 51e12
+    if "NVL" in name:
+        return 60e12
+    return 67e12                     # SXM
 
 
 def device_ms(fn, reps: int) -> float:
@@ -414,6 +455,96 @@ def phase_kernels(dev, ops_peak, bw):
               f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']})")
     return rows
+
+
+def sum_tol(abs_sum_max: float, k: int) -> float:
+    """Tolerance of a float32 sum of K products against the same sum taken
+    in another order: 8 sqrt(K) half-ulps of the largest sum of
+    magnitudes, plus the epilogue's roundings (4 half-ulps)."""
+    return (8 * k ** 0.5 + 4) * U32 * abs_sum_max
+
+
+def gemm_f32_shapes(g, dev, table, f32_ops, bw, tag):
+    """gemm_f32 against gemm_f32_plain at each (layer, M, K, N) of
+    ``table``, with a float32 B (fp32, unit scales) and with int8 codes
+    (w8), timed beside ``torch.matmul`` of the same A and B with TF32 off
+    (cuBLAS SGEMM, product only). A is positive like a leaky layer's
+    output; the error must stay within ``sum_tol`` of the largest
+    sum |a||b|*|scale|."""
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = []
+    for layer, m, k, n in table:
+        a = torch.rand((m, k), generator=g, device=dev)
+        act = "linear" if layer in F32_HEADS else "leaky"
+        bias = torch.randn(n, generator=g, device=dev) * 0.1
+        for bdt in ("f32", "int8"):
+            if bdt == "f32":
+                bt = torch.randn((n, k), generator=g, device=dev) * 0.05
+                scale = torch.ones(n, device=dev)
+            else:
+                bt = torch.randint(-127, 128, (n, k), generator=g,
+                                   device=dev, dtype=torch.int8)
+                scale = torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4
+            got = gm.gemm_f32(a, bt, scale, bias, act=act)
+            ref = gm.gemm_f32_plain(a, bt, scale, bias, act=act)
+            err = max_abs_err(got, ref)
+            bound_sum = float(((a @ bt.float().abs().t())
+                               * scale.abs()).max())
+            tol = sum_tol(bound_sum, k)
+            bf = bt.float()
+            row = dict(
+                layer=layer, M=m, K=k, N=n, b=bdt, max_abs_err=err, tol=tol,
+                ms=device_ms(lambda: gm.gemm_f32(a, bt, scale, bias,
+                                                 act=act), 10),
+                plain_ms=device_ms(lambda: gm.gemm_f32_plain(
+                    a, bt, scale, bias, act=act), 2),
+                library_ms=device_ms(lambda: torch.matmul(a, bf.t()), 10))
+            nbytes = (4 * m * k + bt.element_size() * n * k + 8 * n
+                      + 4 * m * n)
+            row["bound_ms"], row["bound_by"] = _bound(2.0 * m * k * n,
+                                                      nbytes, f32_ops, bw)
+            shapes.append(row)
+            print(f"  gemm_f32 {tag} {layer} B {bdt} M={m} K={k} N={n}: "
+                  f"err={err:.3g} (tol {tol:.3g}) ms={row['ms']:.4f} "
+                  f"plain_ms={row['plain_ms']:.3f} "
+                  f"matmul_ms={row['library_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+            if not err <= tol:
+                raise AssertionError(f"gemm_f32 {tag} {layer} B {bdt}: "
+                                     f"error {err} > {tol}")
+            del bt, bf, got, ref
+        del a
+    return shapes
+
+
+def phase_gemm_f32(dev, f32_ops, bw):
+    """The float form of gemm_fused at the shapes of one fp32 auto forward:
+    YOLOv2-tiny b32 (the row: sums over its 5 launches, f32 B) and
+    YOLOv3-tiny b16, both B dtypes."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    v2 = gemm_f32_shapes(g, dev, F32_B32_GEMMS, f32_ops, bw, "v2-b32")
+    v3 = gemm_f32_shapes(g, dev, F32_B16_V3_GEMMS, f32_ops, bw, "v3-b16")
+    row = [r for r in v2 if r["b"] == "f32"]
+    out = dict(
+        max_abs_err=max(r["max_abs_err"] for r in v2 + v3),
+        **{key: sum(r[key] for r in row)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=("operations" if all(r["bound_by"] == "operations"
+                                      for r in row) else "bytes"),
+        int8_b_ms=sum(r["ms"] for r in v2 if r["b"] == "int8"),
+        v3_b16_ms=sum(r["ms"] for r in v3 if r["b"] == "f32"),
+        v3_b16_library_ms=sum(r["library_ms"] for r in v3
+                              if r["b"] == "f32"),
+        v3_b16_bound_ms=sum(r["bound_ms"] for r in v3 if r["b"] == "f32"),
+        shapes=v2 + v3)
+    print(f"  gemm_f32 sums over the v2 b32 fp32 forward's 5 launches: "
+          f"ms={out['ms']:.4f} (int8 B {out['int8_b_ms']:.4f}) "
+          f"matmul_ms={out['library_ms']:.4f} bound_ms="
+          f"{out['bound_ms']:.4f}; v3 b16 ms={out['v3_b16_ms']:.4f} "
+          f"matmul_ms={out['v3_b16_library_ms']:.4f} bound_ms="
+          f"{out['v3_b16_bound_ms']:.4f}")
+    return {"gemm_f32": out}
 
 
 def phase_strategy_kernels(dev, ops_peak, bw):
@@ -823,7 +954,8 @@ def _counters():
     from dnn_inference_engine_tpu_torch.ops.attic import stage0, tail
     from dnn_inference_engine_tpu_torch.tools import probe_dma_rules as pr
     from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
-    return {"gemm_fused": gm.gemm_fused, "stem_fused_k2": fc.stem_fused_k2,
+    return {"gemm_fused": gm.gemm_fused, "gemm_f32": gm.gemm_f32,
+            "stem_fused_k2": fc.stem_fused_k2,
             "shift_s2d2": fc.shift_s2d2, "stem_fused_dg": fc.stem_fused_dg,
             "quant_space_to_depth4": fc.quant_space_to_depth4,
             "gmax_shift_s2d2": fc.gmax_shift_s2d2,
@@ -834,8 +966,10 @@ def _counters():
 
 
 def _reset_counts():
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
     for fn in _counters().values():
         fn.launches = 0
+    gm.gemm_fused.folded_launches = 0
 
 
 def _read_counts():
@@ -866,19 +1000,142 @@ def strategy_file(name: str) -> str:
     return str(path)
 
 
+def _iou(box, boxes):
+    lt = np.maximum(box[:2], boxes[:, :2])
+    rb = np.minimum(box[2:], boxes[:, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), axis=-1)
+
+    def area(b):
+        return np.prod(np.clip(b[..., 2:] - b[..., :2], 0, None), axis=-1)
+    return inter / np.maximum(area(box) + area(boxes) - inter, 1e-12)
+
+
+def _candidates(model: str, heads):
+    """Every candidate box of each image (xyxy, (B,M,4)) and its largest
+    class score ((B,M)), decoded on the CPU from ``heads`` as
+    ``Engine.postprocess`` decodes them before the NMS."""
+    from dnn_inference_engine_tpu_torch.config import (
+        YOLOV2_TINY_ANCHORS, YOLOV3_TINY_ANCHORS)
+    from dnn_inference_engine_tpu_torch.postprocess import (
+        decode_yolov2_cols, decode_yolov3_cols)
+    hs = [torch.from_numpy(np.ascontiguousarray(h)) for h in heads]
+    if model == "yolov3-tiny":
+        parts = [decode_yolov3_cols(hs[0], YOLOV3_TINY_ANCHORS[3:]),
+                 decode_yolov3_cols(hs[1], YOLOV3_TINY_ANCHORS[:3])]
+        boxes = torch.cat([b for b, _ in parts], dim=-1)
+        scores = torch.cat([sc for _, sc in parts], dim=-1)
+    else:
+        boxes, scores = decode_yolov2_cols(hs[0], YOLOV2_TINY_ANCHORS)
+    c = boxes.numpy()
+    xyxy = np.stack([c[:, 0] - c[:, 2] * np.float32(0.5),
+                     c[:, 1] - c[:, 3] * np.float32(0.5),
+                     c[:, 0] + c[:, 2] * np.float32(0.5),
+                     c[:, 1] + c[:, 3] * np.float32(0.5)], axis=-1)
+    return xyxy, scores.numpy().max(axis=1)
+
+
+def detections_close(det_a, det_b, cand_a, cand_b, head_atol, cfg):
+    """Detections of two engines as sets, within the heads' tolerance.
+
+    A detection matches one of the other engine's with its class, its score
+    within ``head_atol`` and its box within ``head_atol * (8 px + its
+    larger side)`` (a logit moves a box centre by at most 8 px, a side by
+    the side itself). One without a match is explained by an event within
+    the tolerance (the first five are printed): its score at the score
+    threshold; an NMS tie (the other engine kept an overlapping box of its
+    class, IoU above the NMS threshold, whose score is within
+    ``head_atol``); an overlap at the NMS threshold (the other engine kept
+    a box of its class scored at least as high, less ``head_atol``, whose
+    IoU with it lies within ``4 * head_atol`` of the threshold: a relative
+    move of ``head_atol`` in each side of two boxes moves their IoU by
+    about 4 times that); or its box's largest class score at either
+    engine's cut of the NMS candidate pool (``cand_*``: the decoded
+    candidates). Greedy NMS carries an event on: after a threshold or tie
+    event the other unmatched detections of that class in that image are
+    explained by it, after a pool event every unmatched one in that image.
+    Any other unmatched detection fails. Returns the counts by reason."""
+    counts = dict(matched=0, threshold=0, tie=0, overlap=0, pool=0,
+                  carried=0)
+    topk = cfg.resolved_nms_topk()
+    sides = ((det_a, cand_a), (det_b, cand_b))
+    for i in range(len(det_a[1])):
+        cuts = []
+        for _, (_, top) in sides:
+            t = np.sort(top[i])[::-1]
+            cuts.append(t[topk - 1] if len(t) > topk else -np.inf)
+        flagged_img, flagged_cls, open_ = False, set(), []
+        for me, (d1, (cb, cs)) in enumerate(sides):
+            b1, s1, c1 = (x[i] for x in d1)
+            b2, s2, c2 = (x[i] for x in sides[1 - me][0])
+            for d in np.flatnonzero(s1 > 0):
+                side = max(b1[d][2] - b1[d][0], b1[d][3] - b1[d][1])
+                same = (c2 == c1[d]) & (s2 > 0)
+                close = same & (np.abs(s2 - s1[d]) <= head_atol)
+                if (close & (np.abs(b2 - b1[d]).max(axis=-1)
+                             <= head_atol * (8 + side))).any():
+                    counts["matched"] += 1
+                    continue
+                m = int(np.abs(cb[i] - b1[d]).max(axis=-1).argmin())
+                top = cs[i][m]
+                if any(abs(top - cut) <= 2 * head_atol for cut in cuts):
+                    why = "pool"
+                    flagged_img = True
+                elif abs(s1[d] - cfg.score_thresh) <= head_atol:
+                    why = "threshold"
+                elif (close & (_iou(b1[d], b2) > cfg.nms_iou_thresh)).any():
+                    why = "tie"
+                elif (same & (s2 >= s1[d] - head_atol)
+                      & (np.abs(_iou(b1[d], b2) - cfg.nms_iou_thresh)
+                         <= 4 * head_atol)).any():
+                    why = "overlap"
+                else:
+                    other = cand_b if me == 0 else cand_a
+                    ov = _iou(b1[d], b2)
+                    open_.append((d, c1[d], s1[d], b1[d], (
+                        f"its box's top score {top:.6f} here, "
+                        f"{other[1][i][m]:.6f} there; pool cuts "
+                        f"{cuts[0]:.6f} / {cuts[1]:.6f}; the other "
+                        "engine's boxes of its class (score, IoU): "
+                        + str([(round(float(s2[j]), 4), round(float(ov[j]),
+                                                              4))
+                               for j in np.flatnonzero(same & (ov > 0.2))]))
+                    ))
+                    continue
+                flagged_cls.add(int(c1[d]))
+                counts[why] += 1
+                if sum(counts.values()) - counts["matched"] <= 5:
+                    print(f"    image {i}: score {s1[d]:.6f} of class "
+                          f"{c1[d]} unmatched: {why} (its box's top score "
+                          f"{top:.6f}, pool cuts {cuts[0]:.6f} / "
+                          f"{cuts[1]:.6f})")
+        for d, c, sc, b, why in open_:
+            if flagged_img or int(c) in flagged_cls:
+                counts["carried"] += 1
+                continue
+            raise AssertionError(f"image {i}: detection {d} (score {sc}, "
+                                 f"class {c}, box {b}) has no counterpart "
+                                 f"and no event explains it: {why}")
+    return counts
+
+
 def phase_card_vs_cpu(model: str, batch: int, check_calibration: bool,
-                      strategy=None):
+                      strategy=None, mode="w8a8", kernel="auto",
+                      rel_tol=0.0, strategy_path=None):
     """416 px: the card engine against a CPU engine (plain versions) with
     the card's weights and scales; under the pinned plan, or under
-    STRATEGIES[strategy]."""
+    STRATEGIES[strategy] (or the file ``strategy_path``). ``rel_tol`` 0:
+    heads identical and detections equal; else heads within ``rel_tol``
+    of the largest head magnitude and detections as equal sets within
+    that (``detections_close``)."""
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
     # serving threshold and capped NMS pool; room for every survivor
     # (YOLOv3's sigmoid class scores keep up to 20 classes x 256 of them)
-    cfg = EngineConfig(model=model, batch=batch,
-                       max_detections=MAX_DET_CHECKED[model],
-                       strategy=strategy and strategy_file(strategy))
+    t0 = time.time()
+    path = strategy_path or (strategy and strategy_file(strategy))
+    cfg = EngineConfig(model=model, mode=mode, kernel=kernel, batch=batch,
+                       max_detections=MAX_DET_CHECKED[model], strategy=path)
     gpu = Engine(cfg).load_weights(seed=0).prepare()
     fp32 = [{k: v.cpu().numpy() for k, v in p.items()}
             for p in gpu.fp32_params]
@@ -886,27 +1143,61 @@ def phase_card_vs_cpu(model: str, batch: int, check_calibration: bool,
         params=fp32, act_scales=gpu.act_scales).prepare()
     imgs = np.random.default_rng(1).integers(
         0, 256, (batch, 416, 416, 3)).astype(np.uint8)
-    hg, hc = _heads(gpu.classify(imgs)), _heads(cpu.classify(imgs))
+    x = gpu._device_batch(imgs)
+    # one card forward gives both the heads and the detections compared
+    dev_heads = gpu._fwd(x)
+    repeat = all(torch.equal(a, b) for a, b in zip(
+        _heads(dev_heads), _heads(gpu._fwd(x))))
+    hg = tuple(h.cpu().numpy() for h in _heads(dev_heads))
+    hc = _heads(cpu.classify(imgs))
     want = [(batch,) + s for s in HEAD_SHAPES[model]]
     if ([h.shape for h in hg] != want
             or not all(np.isfinite(h).all() for h in hg)):
         raise AssertionError(f"bad heads {[h.shape for h in hg]}")
+    head_atol = rel_tol * max(float(np.abs(h).max()) for h in hc)
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(hg, hc)]
     for i, (a, b) in enumerate(zip(hg, hc)):
-        if not np.array_equal(a, b):
+        if not (np.array_equal(a, b) if rel_tol == 0
+                else diffs[i] <= head_atol):
             raise AssertionError(f"{model} b{batch} card head {i} != CPU "
-                                 f"head: max diff {np.abs(a - b).max()}")
-    bg, sg, cg = gpu.detect(imgs)
+                                 f"head: max diff {diffs[i]} (tolerance "
+                                 f"{head_atol})")
+    bg, sg, cg = (t.cpu().numpy() for t in gpu.postprocess(dev_heads))
     bc, sc, cc = cpu.detect(imgs)
     ng, nc = (sg > 0).sum(axis=1), (sc > 0).sum(axis=1)
-    if not (np.array_equal(ng, nc) and np.array_equal(cg, cc)
-            and np.abs(bg - bc).max() <= 1e-3):
-        raise AssertionError(f"{model} b{batch} detections differ: "
-                             f"survivors {ng} vs {nc}, box diff "
-                             f"{np.abs(bg - bc).max()}")
-    print(f"card vs CPU {model} {strategy or 'pin'} @416 b{batch} "
-          f"({[st.kind for st in gpu._plan]}): {len(hg)} heads identical, "
-          f"survivors {ng.tolist()}, box max diff "
-          f"{float(np.abs(bg - bc).max())}")
+    near = {}
+    if rel_tol == 0:
+        if not (np.array_equal(ng, nc) and np.array_equal(cg, cc)
+                and np.abs(bg - bc).max() <= 1e-3):
+            raise AssertionError(f"{model} b{batch} detections differ: "
+                                 f"survivors {ng} vs {nc}, box diff "
+                                 f"{np.abs(bg - bc).max()}")
+    else:
+        # the card's own heads through the CPU's decode + NMS: the same
+        # sets up to the decode's roundings (CUDA's exp and sigmoid against
+        # the CPU's, an ulp or so: DECODE_ATOL)
+        own = cpu.postprocess(tuple(torch.from_numpy(h) for h in hg)
+                              if len(hg) > 1 else torch.from_numpy(hg[0]))
+        cand_g = _candidates(model, hg)
+        same = detections_close((bg, sg, cg), tuple(t.numpy() for t in own),
+                                cand_g, cand_g, DECODE_ATOL, cfg)
+        print(f"  {model} {mode} b{batch}: the card's detections against "
+              f"the CPU's decode + NMS of the card's heads, by reason "
+              f"{same}")
+        near = detections_close((bg, sg, cg), (bc, sc, cc), cand_g,
+                                _candidates(model, hc), head_atol, cfg)
+    plan = ([st.kind for st in gpu._plan] if gpu._plan is not None
+            else f"generic kernel={kernel}")
+    print(f"card vs CPU {model} {mode} {strategy or 'pin'} @416 b{batch} "
+          f"({plan}): {len(hg)} heads "
+          + ("identical" if rel_tol == 0 else
+             f"max diff {diffs} within {head_atol:.4g} ({rel_tol:.3g} of "
+             f"the largest)")
+          + f", survivors {ng.tolist()} vs {nc.tolist()}"
+          + (f"; detections by reason {near}" if near else
+             f", box max diff {float(np.abs(bg - bc).max())}")
+          + f"; a second card forward identical: {repeat}"
+          + f" [{time.time() - t0:.1f} s]")
     if check_calibration:
         # the same noise batch, calibrated on the CPU
         ref = Engine(cfg, device="cpu").load_weights(params=fp32).prepare()
@@ -916,11 +1207,13 @@ def phase_card_vs_cpu(model: str, batch: int, check_calibration: bool,
               f"({rel.max() / eps:.1f} float32 eps)")
         if rel.max() > 32 * eps:
             raise AssertionError("card calibration != CPU calibration")
+    return gpu
 
 
 # (group, substring of the kernel's name); first match wins, so
 # gmax_shift_s2d2 comes before shift_s2d2
 KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
+                 ("gemm_f32", "gemm_f32_kernel"),
                  ("stem_fused_k2", "stem_kernel"),
                  ("stem_fused_dg", "stem_dg_kernel"),
                  ("quant_space_to_depth4", "qs2d4_kernel"),
@@ -932,7 +1225,16 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("tma_probe", "tma_probe_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),
-                 ("host-to-device copies", "Memcpy HtoD"))
+                 ("host-to-device copies", "Memcpy HtoD"),
+                 # the layout transposes around cuDNN's convs (NHWC views
+                 # in, NCHW kernels), then cuDNN's float convs (the fp32
+                 # and w8 xla tiers), then PyTorch's elementwise passes
+                 ("NCHW/NHWC transposes", "nchwToNhwc"),
+                 ("NCHW/NHWC transposes", "nhwcToNchw"),
+                 ("cuDNN conv", "conv"), ("cuDNN conv", "xmma"),
+                 ("cuDNN conv", "fprop"), ("cuDNN conv", "winograd"),
+                 ("cuDNN conv", "implicit"), ("cuDNN conv", "cudnn"),
+                 ("torch elementwise", "elementwise_kernel"))
 
 
 def device_breakdown(fn, reps: int = 5):
@@ -991,19 +1293,22 @@ def upload_wait_ms() -> float:
 
 
 def phase_main_path(model: str, batch: int, want: dict, card: str,
-                    strategy=None):
-    """Build the engine (pinned plan, or STRATEGIES[strategy]), drive
-    detect once with the launch counters set to 0 just before and read
-    just after (they must equal ``want``, every counter named), then time
-    it and break its device time down."""
+                    strategy=None, mode="w8a8"):
+    """Build the engine (pinned plan, or STRATEGIES[strategy]; in fp32 the
+    default ``EngineConfig()``'s generic auto forward), drive detect once
+    with the launch counters set to 0 just before and read just after
+    (they must equal ``want``, every counter named), then time it and
+    break its device time down."""
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
     want = {**dict.fromkeys(_counters(), 0), **want}
-    eng = Engine(EngineConfig(
-        model=model, batch=batch,
-        strategy=strategy and strategy_file(strategy))).load_weights(
-        seed=0).prepare()
+    cfg = EngineConfig(model=model, batch=batch,
+                       strategy=strategy and strategy_file(strategy))
+    if mode != cfg.mode:
+        cfg = EngineConfig(model=model, mode=mode, batch=batch,
+                           strategy=cfg.strategy)
+    eng = Engine(cfg).load_weights(seed=0).prepare()
     imgs = np.random.default_rng(2).integers(
         0, 256, (batch, 416, 416, 3)).astype(np.uint8)
     x = torch.as_tensor(imgs).cuda()
@@ -1011,7 +1316,7 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     b, s, c = eng.detect(imgs)
     torch.cuda.synchronize()
     counts = _read_counts()
-    tag = f"{model} {strategy or 'pin'} b{batch}"
+    tag = f"{model} {mode} {strategy or 'pin'} b{batch}"
     if b.shape != (batch, 128, 4) or not np.isfinite(b).all():
         raise AssertionError(f"{tag}: bad detections {b.shape}")
     if counts != want:
@@ -1044,6 +1349,112 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     return counts
 
 
+# scores decoded from the same heads on the card and on the CPU: the
+# exp and sigmoid of the two round differently by an ulp or so
+DECODE_ATOL = 1e-6
+# the tolerances of card against CPU, as a share of the largest head
+# magnitude: fp32 and the strict f32 w8 tier sum in float32 in another
+# order (cuDNN with TF32 off, gemm_f32) than the CPU (MKL-DNN, float64
+# products in gemm_f32_plain); the w8 plan rounds every conv input to
+# bf16, so where the card's and the CPU's sums straddle a bf16 rounding
+# edge a value moves by a bf16 ulp (2**-8) and the move spreads
+F32_REL_TOL = 2.0 ** -12
+BF16_REL_TOL = 2.0 ** -7
+# an illegal strategy: fold_xla_s2 must feed a fold_xla_k2 stage (C1)
+ILLEGAL_STRATEGY = {"2": ["fold_xla_s2", 2], "4": ["xla", 1]}
+
+
+def _generic_counts(gpu, tag: str, want: dict, want_folded: int):
+    """One classify of a b2 batch with the counters from 0: the launches
+    must equal ``want`` (the others 0), and ``want_folded`` of the int8
+    GEMMs must be in the folded order, the gemm tier's."""
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    imgs = np.random.default_rng(4).integers(
+        0, 256, (2, 416, 416, 3)).astype(np.uint8)
+    _reset_counts()
+    gpu.classify(imgs)
+    torch.cuda.synchronize()
+    counts, folded = _read_counts(), gm.gemm_fused.folded_launches
+    want = {**dict.fromkeys(_counters(), 0), **want}
+    print(f"  {tag}: launches per forward {counts}, folded-order (gemm "
+          f"tier) gemm_fused {folded}")
+    if counts != want or folded != want_folded:
+        raise AssertionError(f"{tag}: launches {counts}, folded {folded} "
+                             f"!= {want}, {want_folded}")
+
+
+def phase_modes_card_vs_cpu():
+    """The fp32 and w8 engines and the generic W8A8 tiers, card against
+    CPU at 416 px, b2: fp32 (kernel auto: cuDNN and gemm_f32) within
+    F32_REL_TOL, the w8 plans within BF16_REL_TOL, W8A8 with kernel xla
+    and pallas and the C1 fallback from an illegal strategy file bit for
+    bit, each with its launch counts: the fallback's ``auto`` takes the
+    gemm tier exactly where use_pallas says so (there the convs that
+    requantize run in the folded order; a head is f32 in both tiers)."""
+    from dnn_inference_engine_tpu_torch.models import build_model
+    from dnn_inference_engine_tpu_torch.ops.dispatch import tier_report
+
+    def tiers(model):
+        m = build_model(model)
+        report = tier_report(m, batch=2)
+        quant = [li for li, _, _ in report if m.layers[li].act != "linear"]
+        deep = [li for li, _, t in report if t == "pallas"]
+        return len(report), quant, deep
+
+    for model in ("yolov2-tiny", "yolov3-tiny"):
+        n, quant, deep = tiers(model)
+        gpu = phase_card_vs_cpu(model, 2, False, mode="fp32",
+                                rel_tol=F32_REL_TOL)
+        _generic_counts(gpu, f"{model} fp32 auto", {"gemm_f32": len(deep)},
+                        0)
+        phase_card_vs_cpu(model, 2, False, mode="w8", rel_tol=BF16_REL_TOL)
+        for kernel in ("xla", "pallas"):
+            gpu = phase_card_vs_cpu(model, 2, False, mode="w8a8",
+                                    kernel=kernel)
+            _generic_counts(gpu, f"{model} w8a8 {kernel}", {"gemm_fused": n},
+                            len(quant) if kernel == "pallas" else 0)
+    n, quant, deep = tiers("yolov2-tiny")
+    path = strategies_dir() / "illegal.json"
+    path.write_text(json.dumps({"strategy": ILLEGAL_STRATEGY}))
+    gpu = phase_card_vs_cpu("yolov2-tiny", 2, False, mode="w8a8",
+                            strategy_path=str(path))
+    if gpu._plan is not None:
+        raise AssertionError("the illegal strategy built a plan")
+    _generic_counts(gpu, "yolov2-tiny w8a8 C1 fallback (auto)",
+                    {"gemm_fused": n}, len(set(deep) & set(quant)))
+
+
+def phase_w8_pallas_forward(card: str):
+    """``Model.forward(mode="w8", kernel="pallas")`` at 416 px, b2: every
+    conv is im2col + gemm_f32 with int8 codes (the f32 x int8 form),
+    card against CPU within F32_REL_TOL, one gemm_f32 launch a conv."""
+    from dnn_inference_engine_tpu_torch.models import build_model
+    from dnn_inference_engine_tpu_torch.quant.quantize import (
+        quantize_model_params)
+    for name in ("yolov2-tiny", "yolov3-tiny"):
+        model = build_model(name)
+        fp32 = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        q = quantize_model_params(fp32, model.layers)
+        qg = [{k: v.cuda() for k, v in p.items()} for p in q]
+        x = torch.rand((2, 416, 416, 3),
+                       generator=torch.Generator().manual_seed(5))
+        ref = _heads(model.forward(q, x, mode="w8", kernel="pallas"))
+        _reset_counts()
+        got = _heads(model.forward(qg, x.cuda(), mode="w8",
+                                   kernel="pallas"))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        convs = sum(1 for p in q if "wq" in p)
+        atol = F32_REL_TOL * max(float(h.abs().max()) for h in ref)
+        diffs = [float((g.cpu() - r).abs().max()) for g, r in zip(got, ref)]
+        print(f"w8 kernel=pallas forward {name} @416 b2: head diffs {diffs}"
+              f" (tolerance {atol:.4g}); launches {counts} [{card}]")
+        if max(diffs) > atol or counts != {**dict.fromkeys(_counters(), 0),
+                                           "gemm_f32": convs}:
+            raise AssertionError(f"w8 pallas forward {name}: diffs {diffs},"
+                                 f" launches {counts}")
+
+
 def compare_stage(card: str, strategy: str, si: int, entry):
     """Stage ``si`` of STRATEGIES[strategy] at b32 against stage ``si`` of
     the pinned b32 plan, both run on the entry state ``(x, scale, fold)``
@@ -1055,7 +1466,7 @@ def compare_stage(card: str, strategy: str, si: int, entry):
     from dnn_inference_engine_tpu_torch.runtime.plan import (
         _run_stage, build_plan, prepare_plan_params)
 
-    eng = Engine(EngineConfig(batch=32, strategy=strategy_file(
+    eng = Engine(EngineConfig(mode="w8a8", batch=32, strategy=strategy_file(
         strategy))).load_weights(seed=0).prepare()
     x, cs, cf = entry(eng)
     pin = build_plan(eng.model, batch=32)
@@ -1134,7 +1545,8 @@ def phase_sweep(card: str):
     n = sum(len(row) for row in art["measurements"].values())
     path = strategies_dir() / "sweep.json"
     path.write_text(json.dumps(art))
-    eng = Engine(EngineConfig(batch=8, strategy=str(path))).load_weights(
+    eng = Engine(EngineConfig(mode="w8a8", batch=8,
+                              strategy=str(path))).load_weights(
         seed=0).prepare()
     by_li = {st.conv_li: st.kind for st in eng._plan}
     for li, entry in load_strategy(str(path)).items():
@@ -1164,7 +1576,9 @@ def main() -> int:
     ops_peak, bw = peaks(name)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    f32_ops = f32_peak(name)
     print(f"peaks used for bounds: {ops_peak / 1e12:.0f} int8 TOP/s, "
+          f"{f32_ops / 1e12:.0f} float32 TFLOP/s (no tensor cores), "
           f"{bw / 1e12:.2f} TB/s")
     t0 = time.time()
     times = {}
@@ -1179,6 +1593,9 @@ def main() -> int:
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels, torch.device("cuda"), ops_peak,
                  bw)
+    torch.cuda.empty_cache()
+    rows.update(timed("gemm_f32 kernel", phase_gemm_f32,
+                      torch.device("cuda"), f32_ops, bw))
     torch.cuda.empty_cache()
     rows.update(timed("strategy kernels", phase_strategy_kernels,
                       torch.device("cuda"), ops_peak, bw))
@@ -1208,6 +1625,8 @@ def main() -> int:
               conv3x3_rs=2)
     s2 = dict(gemm_fused=7, quant_space_to_depth4=1, conv3x3_rs=2)
     s3 = dict(stage0_fused=1, gemm_fused=8, shift_s2d2=1)
+    f32_v2 = dict(gemm_f32=len(F32_B32_GEMMS))
+    f32_v3 = dict(gemm_f32=len(F32_B16_V3_GEMMS))
 
     def main_paths():
         counts = {
@@ -1222,10 +1641,24 @@ def main() -> int:
         phase_main_path("yolov2-tiny", 32, s2, card, "S2")
         counts["S3"] = phase_main_path("yolov2-tiny", 32, s3, card, "S3")
         phase_main_path("yolov2-tiny", 1, s3, card, "S3")
+        # EngineConfig() defaults: fp32, kernel auto (the generic forward,
+        # gemm_f32 on the tier_report "pallas" layers)
+        counts["fp32"] = phase_main_path("yolov2-tiny", 32, f32_v2, card,
+                                         mode="fp32")
+        phase_main_path("yolov2-tiny", 1, f32_v2, card, mode="fp32")
+        phase_main_path("yolov3-tiny", 16, f32_v3, card, mode="fp32")
+        phase_main_path("yolov3-tiny", 1, f32_v3, card, mode="fp32")
+        # the w8 plans: bf16 convs on cuDNN, no port kernel
+        phase_main_path("yolov2-tiny", 32, {}, card, mode="w8")
+        phase_main_path("yolov2-tiny", 1, {}, card, mode="w8")
+        phase_main_path("yolov3-tiny", 16, {}, card, mode="w8")
+        phase_main_path("yolov3-tiny", 1, {}, card, mode="w8")
         return counts
     counts = timed("main paths", main_paths)
     timed("stage compare", phase_stage_compare, card)
     timed("sweep", phase_sweep, card)
+    timed("modes card vs CPU", phase_modes_card_vs_cpu)
+    timed("w8 pallas forward", phase_w8_pallas_forward, card)
     print(f"total {time.time() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + ")")
 
@@ -1233,13 +1666,15 @@ def main() -> int:
     # b32 detect, the YOLOv3 b16 detect for the per-tap stem, the S1 b32
     # detect for the strategy plans' kernels, the S3 b32 detect for
     # stage0_fused, the b32 tail pass for conv3x3_bt (on no detect path),
-    # and the copy-engine tools' mains for conv_dma and tma_probe
+    # the copy-engine tools' mains for conv_dma and tma_probe, and the
+    # YOLOv2 b32 fp32 detect (EngineConfig()'s defaults) for gemm_f32
     counts["tail"] = {"conv3x3_bt": tail_launches}
     counts["tools"] = tools_launches
     path_of = {"stem_fused_dg": "yolov3-tiny", "quant_space_to_depth4": "S1",
                "gmax_shift_s2d2": "S1", "conv3x3_rs": "S1",
                "stage0_fused": "S3", "conv3x3_bt": "tail",
-               "conv_dma": "tools", "tma_probe": "tools"}
+               "conv_dma": "tools", "tma_probe": "tools",
+               "gemm_f32": "fp32"}
     kernels = []
     for kname, meta in KERNELS.items():
         path = path_of.get(kname, "yolov2-tiny")

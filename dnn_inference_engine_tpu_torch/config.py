@@ -54,8 +54,11 @@ class EngineConfig:
     """Engine configuration (the fields this port supports so far)."""
 
     model: str = "yolov2-tiny"          # yolov2-tiny | yolov3-tiny
-    mode: str = "w8a8"                  # w8a8
-    kernel: str = "auto"                # auto (the fused stage plan)
+    mode: str = "fp32"                  # fp32 | w8 | w8a8
+    # auto: the fused stage plan (w8 and w8a8) or the per-layer tier
+    # choice (fp32, and where no plan applies); xla | pallas: every conv
+    # on that tier, layer by layer
+    kernel: str = "auto"
     batch: int = 1
     input_size: int = INPUT_SIZE
     num_classes: int = NUM_CLASSES

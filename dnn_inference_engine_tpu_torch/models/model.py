@@ -1,4 +1,4 @@
-"""Generic layer-list model with fp32 and w8a8 forward passes.
+"""Generic layer-list model with fp32, w8 and w8a8 forward passes.
 
 Counterpart of ``dnn_inference_engine_tpu/models/model.py``. Params are
 a list with one dict per layer:
@@ -10,10 +10,15 @@ a list with one dict per layer:
 li (``act_scales[n_layers]``: the final output). The w8a8 forward keeps
 tensors int8 between convs; max pools and upsamples are scale-preserving,
 and a route rescales its pieces to its own output scale in f32.
+
+Every forward takes the JAX package's ``kernel`` tier: ``xla`` (the
+default), ``pallas`` (the port's gemm tier, forced on every conv) or
+``auto`` (per layer, ops/dispatch.py).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -21,7 +26,10 @@ import torch
 from dnn_inference_engine_tpu_torch.models.layers import (
     Conv, Dense, MaxPool, Route, Shortcut, Upsample,
 )
-from dnn_inference_engine_tpu_torch.ops.conv import conv2d_fp32, conv2d_w8a8
+from dnn_inference_engine_tpu_torch.ops.conv import (
+    conv2d_fp32, conv2d_w8, conv2d_w8a8)
+from dnn_inference_engine_tpu_torch.ops.dispatch import (
+    conv2d_fp32_dispatch, conv2d_w8_dispatch, conv2d_w8a8_dispatch)
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import dequantize, quantize_act
 
@@ -107,18 +115,20 @@ class Model:
         return x
 
     @torch.no_grad()
-    def forward_fp32(self, params, x, capture_inputs: bool = False):
+    def forward_fp32(self, params, x, capture_inputs: bool = False,
+                     kernel: str = "xla"):
         """FP32 forward: the head, or the tuple of ``out_layers`` outputs.
         ``capture_inputs``: also return the tensor entering every layer
         plus the final output (calibration)."""
+        conv_fn = _get_conv_fn("fp32", kernel)
         captured: List[torch.Tensor] = []
         outs: List[torch.Tensor] = []
         for li, layer in enumerate(self.layers):
             captured.append(x)
             p = params[li]
             if isinstance(layer, Conv):
-                x = conv2d_fp32(x, p["w"], p["b"], act=layer.act,
-                                stride=layer.stride, padding=layer.padding)
+                x = conv_fn(x, p["w"], p["b"], act=layer.act,
+                            stride=layer.stride, padding=layer.padding)
             elif isinstance(layer, MaxPool):
                 x = maxpool(x, layer.size, layer.stride, layer.padding)
             elif isinstance(layer, Route):
@@ -135,11 +145,34 @@ class Model:
         return result
 
     @torch.no_grad()
-    def forward_w8a8(self, qparams, act_scales, x):
+    def forward_w8(self, qparams, x, kernel: str = "xla"):
+        """INT8 weight-only forward: f32 activations, int8 weights with
+        per-channel scales applied to each conv's output."""
+        conv_fn = _get_conv_fn("w8", kernel)
+        outs: List[torch.Tensor] = []
+        for li, layer in enumerate(self.layers):
+            p = qparams[li]
+            if isinstance(layer, Conv):
+                x = conv_fn(x, p["wq"], p["s_w"], p["b"], act=layer.act,
+                            stride=layer.stride, padding=layer.padding)
+            elif isinstance(layer, MaxPool):
+                x = maxpool(x, layer.size, layer.stride, layer.padding)
+            elif isinstance(layer, Route):
+                x = torch.cat([outs[j] for j in layer.layers], dim=-1)
+            elif isinstance(layer, Upsample):
+                x = _upsample_nearest(x, layer.stride)
+            else:
+                raise _unported(layer)
+            outs.append(x)
+        return self._select_outputs(outs, x)
+
+    @torch.no_grad()
+    def forward_w8a8(self, qparams, act_scales, x, kernel: str = "xla"):
         """Layer-by-layer W8A8 forward: x enters f32, is quantized with
         the first conv's input scale and stays int8 across the chain;
         linear convs (the heads) emit f32. Returns the head, or the tuple
         of ``out_layers`` outputs."""
+        conv_fn = _get_conv_fn("w8a8", kernel)
         cur_scale: Optional[float] = None      # None: x is f32
         outs: List[Tuple[torch.Tensor, Optional[float]]] = []
         for li, layer in enumerate(self.layers):
@@ -150,10 +183,10 @@ class Model:
                     cur_scale = act_scales[li]
                     x = quantize_act(x, cur_scale)
                 requant = layer.act != "linear"
-                x = conv2d_w8a8(x, cur_scale, p["wq"], p["s_w"], p["b"],
-                                act=layer.act, stride=layer.stride,
-                                padding=layer.padding,
-                                s_out=s_next if requant else None)
+                x = conv_fn(x, cur_scale, p["wq"], p["s_w"], p["b"],
+                            act=layer.act, stride=layer.stride,
+                            padding=layer.padding,
+                            s_out=s_next if requant else None)
                 cur_scale = s_next if requant else None
             elif isinstance(layer, MaxPool):
                 x = maxpool(x, layer.size, layer.stride, layer.padding)
@@ -170,3 +203,35 @@ class Model:
         if self.out_layers is not None:
             return tuple(_to_f32(*outs[j]) for j in self.out_layers)
         return _to_f32(x, cur_scale)
+
+    def forward(self, params, x, mode: str = "fp32", act_scales=None,
+                kernel: str = "xla"):
+        """The forward of ``mode`` (fp32 | w8 | w8a8) on ``kernel``'s tier;
+        w8a8 needs the calibration scales."""
+        if mode == "fp32":
+            return self.forward_fp32(params, x, kernel=kernel)
+        if mode == "w8":
+            return self.forward_w8(params, x, kernel=kernel)
+        if mode == "w8a8":
+            if act_scales is None:
+                raise ValueError("w8a8 needs calibration scales")
+            return self.forward_w8a8(params, act_scales, x, kernel=kernel)
+        raise ValueError(f"unknown mode {mode!r}; have fp32, w8, w8a8")
+
+
+_XLA_TIER = {"fp32": conv2d_fp32, "w8": conv2d_w8, "w8a8": conv2d_w8a8}
+_DISPATCH = {"fp32": conv2d_fp32_dispatch, "w8": conv2d_w8_dispatch,
+             "w8a8": conv2d_w8a8_dispatch}
+
+
+def _get_conv_fn(mode: str, kernel: str):
+    """The conv of ``mode`` on tier ``kernel``: ``xla`` the xla-tier conv,
+    ``pallas`` the dispatch forced onto the gemm tier, ``auto`` the
+    dispatch's own choice per layer."""
+    if kernel == "xla":
+        return _XLA_TIER[mode]
+    if kernel in ("pallas", "auto"):
+        return functools.partial(_DISPATCH[mode],
+                                 force_pallas=kernel == "pallas")
+    raise ValueError(f"unknown kernel tier {kernel!r}; have xla, pallas, "
+                     "auto")

@@ -1,4 +1,4 @@
-"""Conv -> GEMM lowering: im2col patch extraction and the gemm conv tier.
+"""Conv -> GEMM lowering: im2col patch extraction and the gemm conv tiers.
 
 Counterpart of ``dnn_inference_engine_tpu/ops/conv_lowering.py``. Patches
 are ordered (kh-major, kw, cin) along K, matching a plain
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from dnn_inference_engine_tpu_torch.ops.fused_conv import _pad_hw
-from dnn_inference_engine_tpu_torch.ops.gemm import int8_gemm_fused
+from dnn_inference_engine_tpu_torch.ops.gemm import gemm_f32, int8_gemm_fused
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
 
 
@@ -84,4 +84,33 @@ def conv2d_w8a8_gemm(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
     out = int8_gemm_fused(patches.reshape(n * ho * wo, k), wt,
                           f32_scalar(s_in, dev) * s_w, b, act=act,
                           s_out=s_out)
+    return out.reshape(n, ho, wo, cout)
+
+
+def conv2d_w8_pallas(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+                     b: torch.Tensor, act: str = "leaky", stride: int = 1,
+                     padding="SAME") -> torch.Tensor:
+    """The weight-only gemm tier: f32 activations x int8 codes, im2col
+    then ``gemm_f32`` with an int8 B (the codes become exact f32 in the
+    kernel), ``s_w`` as the column scale. Counterpart of the JAX
+    ``conv_lowering.conv2d_w8_pallas``."""
+    kh, kw, _, cout = wq.shape
+    patches = extract_patches(x, kh, kw, stride, padding)
+    n, ho, wo, k = patches.shape
+    out = gemm_f32(patches.reshape(n * ho * wo, k), gemm_weights(wq),
+                   s_w.to(torch.float32), b, act=act)
+    return out.reshape(n, ho, wo, cout)
+
+
+def conv2d_fp32_pallas(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       act: str = "leaky", stride: int = 1,
+                       padding="SAME") -> torch.Tensor:
+    """The fp32 gemm tier: im2col then ``gemm_f32`` with unit column
+    scales. Counterpart of the JAX ``conv_lowering.conv2d_fp32_pallas``."""
+    kh, kw, _, cout = w.shape
+    patches = extract_patches(x, kh, kw, stride, padding)
+    n, ho, wo, k = patches.shape
+    ones = torch.ones(cout, dtype=torch.float32, device=x.device)
+    out = gemm_f32(patches.reshape(n * ho * wo, k), gemm_weights(w), ones, b,
+                   act=act)
     return out.reshape(n, ho, wo, cout)

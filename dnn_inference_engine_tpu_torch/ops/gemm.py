@@ -1,11 +1,21 @@
-"""Fused int8 GEMM: act(A @ B * scale[col] + bias[col]), with int8
-requantization, f32 output, or the raw int32 accumulator.
+"""Fused GEMMs: act(A @ B * scale[col] + bias[col]).
 
-Counterpart of ``dnn_inference_engine_tpu/ops/pallas_gemm.py``. The
-kernel is ``csrc/gemm_fused.cu``; beside it, ``gemm_fused_plain`` is the
-plain PyTorch version of the same function, which the CPU path and the
+Counterpart of ``dnn_inference_engine_tpu/ops/pallas_gemm.py``, whose
+``gemm_fused`` takes int8 or float operands. The port has one kernel per
+form:
+
+- int8 x int8 -> int32, with int8 requantization, f32 output or the raw
+  accumulator: ``gemm_fused`` (``csrc/gemm_fused.cu``);
+- f32 x f32, or f32 x int8 codes (the weight-only form), accumulated in
+  f32, f32 out: ``gemm_f32`` (``csrc/gemm_f32.cu``). Its raw f32
+  accumulator (``raw_acc``) has no ported caller yet: the tensor-parallel
+  conv that reads it is ROADMAP item A14. A bf16 A has no caller in the
+  JAX package and is refused (ROADMAP B13).
+
+Beside each kernel, ``gemm_fused_plain`` and ``gemm_f32_plain`` are the
+plain PyTorch versions of the same functions, which the CPU path and the
 tests use. B is passed K-major, as ``bt`` of shape (N, K), which is the
-layout the kernel reads; the plan stores that copy once per layer.
+layout the kernels read; the plan stores that copy once per layer.
 
 Epilogue orders (both exist in the JAX package and differ by 1 LSB near
 round-half boundaries, so each caller gets its own):
@@ -117,11 +127,15 @@ def gemm_fused(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
              s, out.data_ptr(), m, n, k, mode, KERNEL_ACT_CODES[act], vec,
              _build.stream_ptr(a.device))
     gemm_fused.launches += 1
+    gemm_fused.folded_launches += mode == 1
     _build.check(err, "gemm_fused")
     return out
 
 
 gemm_fused.launches = 0
+# launches in the folded order (quantize_out): the int8 convs of the gemm
+# tier (conv_lowering.conv2d_w8a8_gemm), which the xla tier never makes
+gemm_fused.folded_launches = 0
 
 
 def int8_gemm_fused(a_q, bt_q, scale, bias, act="leaky", s_out=None):
@@ -135,3 +149,68 @@ def int8_gemm_fused(a_q, bt_q, scale, bias, act="leaky", s_out=None):
         return gemm_fused(a_q, bt_q, scale * inv, bias * inv, act=act,
                           quantize_out=True)
     return gemm_fused(a_q, bt_q, scale, bias, act=act)
+
+
+def gemm_f32_plain(a, bt, scale, bias, act="leaky"):
+    """Plain PyTorch version of ``gemm_f32`` (same arguments). The product
+    is summed in float64 and rounded once to float32, so it is the exact
+    product to within one rounding; the kernel's and the JAX package's
+    float32 sums differ from it by their own summation error."""
+    acc = (a.to(torch.float64) @ bt.to(torch.float64).T).to(torch.float32)
+    return apply_activation(acc * scale + bias, act)
+
+
+def _check_f32(a, bt, scale, bias):
+    if torch.bfloat16 in (a.dtype, bt.dtype):
+        raise TypeError("gemm_f32: the bf16 form of gemm_fused has no "
+                        "caller in the JAX package and is not ported "
+                        "(ROADMAP B13)")
+    if a.dtype != torch.float32 or bt.dtype not in (torch.float32,
+                                                    torch.int8):
+        raise TypeError(f"gemm_f32 takes a float32 A and a float32 or int8 "
+                        f"B, got {a.dtype} and {bt.dtype}")
+    if a.ndim != 2 or bt.ndim != 2 or a.shape[1] != bt.shape[1]:
+        raise ValueError(f"need a (M,K) and bt (N,K), got {tuple(a.shape)} "
+                         f"and {tuple(bt.shape)}")
+    n = bt.shape[0]
+    for name, v in (("scale", scale), ("bias", bias)):
+        if v.dtype != torch.float32 or tuple(v.shape) != (n,):
+            raise ValueError(f"{name} must be float32 ({n},), got "
+                             f"{v.dtype} {tuple(v.shape)}")
+
+
+def gemm_f32(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor, act: str = "leaky") -> torch.Tensor:
+    """a (M,K) f32, bt (N,K) f32 or int8 codes, scale/bias (N,) f32 ->
+    (M,N) f32 ``act(a @ bt.T * scale + bias)``.
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it
+    launches the kernel (or raises), which sums in float32 with no TF32:
+    the JAX kernel runs at Precision.HIGHEST."""
+    _check_f32(a, bt, scale, bias)
+    if a.device.type == "cpu":
+        return gemm_f32_plain(a, bt, scale, bias, act)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_f32: unsupported device {a.device}")
+    for t in (bt, scale, bias):
+        if t.device != a.device:
+            raise ValueError("gemm_f32: all operands on one device")
+    a, bt = a.contiguous(), bt.contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    m, k = a.shape
+    n = bt.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("gemm_f32", "gemm_f32",
+                         [p, p, p, p, p, i, i, i, i, i, p])
+    err = fn(a.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), m, n, k, KERNEL_ACT_CODES[act],
+             int(bt.dtype == torch.int8), _build.stream_ptr(a.device))
+    gemm_f32.launches += 1
+    _build.check(err, "gemm_f32")
+    return out
+
+
+gemm_f32.launches = 0

@@ -1,10 +1,13 @@
 """Engine: the inference runtime for one model/mode/batch configuration.
 
-Counterpart of ``dnn_inference_engine_tpu/runtime/engine.py``, for the
-W8A8 fused-plan path: the forward (runtime/plan.py), the columnar
-decode and the fixpoint NMS (postprocess.py) all run on the engine's
-device. The engine runs on the card unless ``device="cpu"`` is passed;
-without a card and without that, it raises rather than run on the CPU.
+Counterpart of ``dnn_inference_engine_tpu/runtime/engine.py``. The
+forward is the fused stage plan (runtime/plan.py) for w8 and w8a8 with
+``kernel="auto"``, else the generic layer-by-layer forward on the
+``kernel`` tier (``Model.forward``): always for fp32, and where the plan
+is illegal or, in w8, holds an int8-only kind. The columnar decode and
+the fixpoint NMS (postprocess.py) follow, all on the engine's device.
+The engine runs on the card unless ``device="cpu"`` is passed; without a
+card and without that, it raises rather than run on the CPU.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from dnn_inference_engine_tpu_torch.quant.quantize import (
     calibrate, f32_scalar, quantize_model_params,
 )
 from dnn_inference_engine_tpu_torch.runtime.plan import (
-    plan_forward_w8a8, plan_input_uint8_ok, plan_or_reason,
+    plan_forward_w8, plan_forward_w8a8, plan_input_uint8_ok, plan_or_reason,
     prepare_plan_params,
 )
 from dnn_inference_engine_tpu_torch.runtime.plan_sweep import load_strategy
@@ -47,10 +50,12 @@ class Engine:
     """Inference engine for one model/mode/batch configuration."""
 
     def __init__(self, config: EngineConfig, device=None):
-        if config.mode != "w8a8" or config.kernel != "auto":
-            raise NotImplementedError(
-                "only mode='w8a8' with kernel='auto' is ported; fp32 and w8 "
-                "are ROADMAP item A9")
+        if config.mode not in ("fp32", "w8", "w8a8"):
+            raise ValueError(f"unknown mode {config.mode!r}; have fp32, w8, "
+                             "w8a8")
+        if config.kernel not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown kernel tier {config.kernel!r}; have "
+                             "auto, xla, pallas")
         self.config = config
         self.device = resolve_device(device)
         self.model = build_model(config.model, num_classes=config.num_classes)
@@ -59,6 +64,7 @@ class Engine:
         self.act_scales: Optional[List[float]] = None
         self._plan = None
         self._plan_params = None
+        self._prepared = False
 
     # ------------------------------------------------------------------
     # Weights
@@ -86,28 +92,28 @@ class Engine:
         return self
 
     def prepare(self, calib_images: Optional[np.ndarray] = None) -> "Engine":
-        """Quantize, calibrate, and build the fused plan: from the
-        strategy file ``config.strategy`` when one is set, else from the
-        pinned table."""
+        """Quantize and calibrate as the mode needs, and build the fused
+        plan for w8 and w8a8 with ``kernel="auto"``: from the strategy file
+        ``config.strategy`` when one is set, else from the pinned table.
+        Where that plan is illegal (or, in w8, holds an int8-only kind)
+        the engine warns, naming the file and the layer, and falls back
+        to the generic forward, as the JAX engine does."""
+        mode = self.config.mode
+        self._plan = self._plan_params = None
+        if mode == "fp32":
+            if self.fp32_params is None:
+                raise RuntimeError("load_weights first (fp32 params)")
+            self.params = self.fp32_params
+            self._prepared = True
+            return self
         if self.params is None:
             if self.fp32_params is None:
                 raise RuntimeError("load_weights first")
             self.params = quantize_model_params(self.fp32_params,
                                                 self.model.layers)
-        path = self.config.strategy
-        strategy = load_strategy(path) if path else None
-        self._plan, why = plan_or_reason(self.model, strategy,
-                                         batch=self.config.batch)
-        if self._plan is None:
-            # the JAX engine falls back to its generic dispatch forward
-            # here; the port has none yet
-            raise ValueError(
-                f"no fused plan for {self.model.name} under "
-                f"{path or 'the pinned strategy'}: {why}; the generic "
-                "kernel='auto' forward is ROADMAP item A3")
-        self._plan_params = prepare_plan_params(self.model, self.params,
-                                                self._plan)
-        if self.act_scales is None:
+        if self.config.kernel == "auto":
+            self._build_plan()
+        if mode == "w8a8" and self.act_scales is None:
             if calib_images is None:
                 # uniform-noise calibration, the same batch the JAX engine
                 # draws: fine for synthetic weights only
@@ -122,7 +128,31 @@ class Engine:
                 raise RuntimeError("w8a8 calibration needs fp32 params")
             self.act_scales = calibrate(self.model, self.fp32_params,
                                         calib_images, device=self.device)
+        self._prepared = True
         return self
+
+    def _build_plan(self) -> None:
+        """The fused plan of ``config.mode``, or None and a warning."""
+        mode, path = self.config.mode, self.config.strategy
+        strategy = load_strategy(path) if path else None
+        plan, why = plan_or_reason(self.model, strategy,
+                                   batch=self.config.batch, mode=mode)
+        if plan is not None and mode == "w8":
+            int8_only = [st for st in plan if st.kind in ("rs", "s0")]
+            if int8_only:
+                plan, why = None, (f"layer {int8_only[0].conv_li}: "
+                                   f"{int8_only[0].kind} is an int8 kernel "
+                                   "with no w8 form")
+        if plan is None:
+            warnings.warn(
+                f"no fused {mode} plan for {self.model.name} under "
+                f"{path or 'the pinned strategy'}: {why}; running the "
+                "generic layer-by-layer forward (kernel='auto' tiers)",
+                stacklevel=3)
+            return
+        self._plan = plan
+        self._plan_params = prepare_plan_params(self.model, self.params,
+                                                plan)
 
     # ------------------------------------------------------------------
     # Forward, decode, NMS
@@ -130,9 +160,21 @@ class Engine:
 
     @torch.no_grad()
     def _fwd(self, x: torch.Tensor):
-        """The f32 head, or the tuple of heads (YOLOv3-tiny)."""
-        if x.dtype == torch.uint8 and not plan_input_uint8_ok(self._plan):
+        """The f32 head, or the tuple of heads (YOLOv3-tiny). A uint8
+        batch is divided by 255 here unless a w8a8 plan's entry stage
+        ingests it."""
+        mode = self.config.mode
+        if x.dtype == torch.uint8 and not (
+                self._plan is not None and mode == "w8a8"
+                and plan_input_uint8_ok(self._plan)):
             x = x.to(torch.float32) / f32_scalar(255.0, x.device)
+        if self._plan is None:
+            return self.model.forward(self.params, x, mode=mode,
+                                      act_scales=self.act_scales,
+                                      kernel=self.config.kernel)
+        if mode == "w8":
+            return plan_forward_w8(self.model, self._plan, self._plan_params,
+                                   x)
         return plan_forward_w8a8(self.model, self._plan, self._plan_params,
                                  self.act_scales, x)
 
@@ -163,7 +205,7 @@ class Engine:
     def detect_fn(self):
         """The device detect function: image batch tensor -> (boxes,
         scores, classes) tensors on the engine's device."""
-        if self._plan is None:
+        if not self._prepared:
             raise RuntimeError("prepare first")
 
         def run(x):
@@ -186,6 +228,8 @@ class Engine:
 
     def classify(self, images):
         """Image batch -> the f32 head as numpy, or a tuple of them."""
+        if not self._prepared:
+            raise RuntimeError("prepare first")
         heads = self._fwd(self._device_batch(images))
         if isinstance(heads, tuple):
             return tuple(h.cpu().numpy() for h in heads)

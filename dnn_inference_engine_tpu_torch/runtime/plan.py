@@ -1,4 +1,4 @@
-"""Execution plans: the fused W8A8 stage pipeline.
+"""Execution plans: the fused W8A8 and w8 stage pipelines.
 
 Counterpart of ``dnn_inference_engine_tpu/runtime/plan.py``. A plan
 rewrites the layer list into stages; folded stages absorb the following
@@ -6,7 +6,9 @@ rewrites the layer list into stages; folded stages absorb the following
 scales follow ``Model.forward_w8a8``: each conv requantizes to the
 calibrated scale of its own output; pools preserve scale.
 
-Stage kinds, with what runs them on the card:
+The w8 plan (``plan_forward_w8``) runs the same stages on bf16 tensors
+with ops/conv.py's bf16 conv (cuDNN on the card); its kinds are listed
+there. Stage kinds of the W8A8 plan, with what runs them on the card:
 
   stem_rs      ops/fused_conv.stem_fused_k2 (kernel)
   stem_dg      ops/fused_conv.stem_fused_dg (kernel)
@@ -61,7 +63,8 @@ from dnn_inference_engine_tpu_torch.models.model import (
 )
 from dnn_inference_engine_tpu_torch.ops.attic.stage0 import (
     build_stage0_weights_v2, dense_k_from_v2, stage0_fused_v2)
-from dnn_inference_engine_tpu_torch.ops.conv import conv2d_w8a8
+from dnn_inference_engine_tpu_torch.ops.conv import (
+    conv2d_w8_bf16, conv2d_w8a8)
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
     conv2d_w8a8_gemm, gemm_weights)
 from dnn_inference_engine_tpu_torch.ops.dispatch import conv2d_w8a8_dispatch
@@ -161,12 +164,36 @@ _BATCH_STRATEGIES: Dict[Tuple[str, int], Dict] = {
 }
 
 
+# The JAX package's w8 (weight-only, bf16) pins, keyed (model, batch).
+_W8_BATCH_STRATEGIES: Dict[Tuple[str, int], Dict] = {
+    ("yolov2-tiny", 1): {
+        0: ("fold_xla_k2", 4, {"cin_pad": 64}),
+        2: ("fold_xla", 2),
+        4: ("xla", 1),
+        6: ("gemm", 1),
+        8: ("xla", 1), 10: ("xla", 1),
+        12: ("xla", 1), 13: ("xla", 1), 14: ("xla", 1),
+    },
+    ("yolov3-tiny", 16): {
+        0: ("fold_xla", 4, {"cin_pad": 64}),
+        2: ("fold_xla", 2),
+        4: ("xla", 1),
+        6: ("xla", 1), 8: ("xla", 1), 10: ("xla", 1),
+        12: ("xla", 1), 13: ("xla", 1), 14: ("xla", 1),
+        15: ("xla", 1), 17: ("xla", 1), 20: ("xla", 1), 21: ("xla", 1),
+    },
+}
+
+
 def default_strategy(model_name: str, batch: Optional[int] = None,
                      mode: str = "w8a8") -> Dict:
-    """The pinned strategy for (model, batch): the per-batch pin when one
-    exists, else the model's default table. Only w8a8 is ported."""
-    if mode != "w8a8":
-        raise NotImplementedError("w8 plans are ROADMAP item A9")
+    """The pinned strategy for (model, mode, batch): the w8 pin of the
+    batch in w8 when one exists, else the per-batch w8a8 pin, else the
+    model's default table."""
+    if mode == "w8" and batch is not None:
+        s = _W8_BATCH_STRATEGIES.get((model_name, batch))
+        if s is not None:
+            return s
     if batch is not None:
         s = _BATCH_STRATEGIES.get((model_name, batch))
         if s is not None:
@@ -377,6 +404,85 @@ def plan_input_uint8_ok(stages: Sequence[Stage]) -> bool:
     st = stages[0]
     return (st.kind in ("fold_xla", "fold_xla_k2", "stem_rs", "stem_dg")
             and st.fold == 4)
+
+
+@torch.no_grad()
+def plan_forward_w8(model, stages: Sequence[Stage],
+                    plan_params: Sequence[Dict], x):
+    """Run the weight-only (w8) plan: the same stages on bf16 tensors.
+    x: (N,H,W,3) uint8 (divided by 255) or f32; returns the f32 head, or
+    the tuple of heads.
+
+    As in the JAX plan: the input and every inter-stage tensor is bf16;
+    each conv is ``conv2d_w8_bf16`` (f32 sums and epilogue); a fold stage
+    rounds its conv output to bf16 before the group-max; the head stays
+    f32.
+    ``fold_xla_k2`` and the stem kinds run the shifted k=2 fold on the
+    padded s2d(f) input, ``fold_xla`` and ``fold_xla_s2`` the k=3 fold
+    (no shifted emission: the next k2 stage shifts for itself), ``xla``,
+    ``gemm`` and ``auto`` the plain conv. ``rs`` and ``s0`` are int8
+    kernels with no w8 form and raise (the engine drops such plans)."""
+    refs = _referenced_layers(model)
+    layers = model.layers
+    cur_fold = 1
+    saved: Dict[int, torch.Tensor] = {}
+    x = _entry_u8_to_f32(x).to(torch.bfloat16)
+
+    def conv(xb, pp, act, stride=1, padding="SAME"):
+        return conv2d_w8_bf16(xb, pp["wq"], pp["s_w"], pp["b"], act=act,
+                              stride=stride, padding=padding)
+
+    def gmax_bf16(y):
+        return group_max4(y.to(torch.bfloat16))
+
+    for si, st in enumerate(stages):
+        pp = plan_params[si]
+        li = st.conv_li
+        if st.kind == "pool":
+            x, cur_fold = _defold(x, cur_fold)
+            lay = layers[li]
+            x = maxpool(x, lay.size, lay.stride, lay.padding)
+        elif st.kind == "route":
+            x = torch.cat([saved[j] for j in layers[li].layers], dim=-1)
+        elif st.kind == "upsample":
+            x, cur_fold = _defold(x, cur_fold)
+            x = _upsample_nearest(x, layers[li].stride)
+        elif st.kind in ("fold_xla_k2", "stem_rs", "stem_dg"):
+            f = st.fold
+            if cur_fold != 1:
+                raise ValueError(f"{st.kind} reads the plain tensor: {st}")
+            x = space_to_depth(_pad_hw(x, 1, 2 * f - 1, 1, 2 * f - 1), f)
+            if st.cin_pad:
+                x = _pad_channels(x, st.cin_pad)
+            ho, wo = x.shape[1] - 2, x.shape[2] - 2
+            y = conv(x, pp, st.act, padding="VALID")[:, :ho, :wo]
+            x, cur_fold = gmax_bf16(y), f // 2
+        elif st.kind in ("fold_xla", "fold_xla_s2"):
+            f = st.fold
+            if cur_fold != f:
+                x, cur_fold = _defold(x, cur_fold)
+                x, cur_fold = space_to_depth(x, f), f
+            if st.cin_pad:
+                x = _pad_channels(x, st.cin_pad)
+            x, cur_fold = gmax_bf16(conv(x, pp, st.act)), f // 2
+        elif st.kind in ("xla", "gemm", "auto"):
+            x, cur_fold = _defold(x, cur_fold)
+            y = conv(x, pp, st.act, stride=st.stride,
+                           padding=st.padding)
+            x = y if st.s_out_is_final else y.to(torch.bfloat16)
+        else:
+            raise ValueError(
+                f"stage kind {st.kind!r} has no w8 implementation; use a "
+                "strategy without rs/s0 kinds for w8 plans")
+        out_li = st.pool_li if st.pool_li is not None else st.conv_li
+        if out_li in refs:
+            saved[out_li] = (depth_to_space(x, cur_fold) if cur_fold > 1
+                             else x)
+    if model.out_layers is not None:
+        return tuple(saved[j].to(torch.float32) for j in model.out_layers)
+    if cur_fold > 1:
+        x = depth_to_space(x, cur_fold)
+    return x.to(torch.float32)
 
 
 def _defold(x, cur_fold):

@@ -14,10 +14,11 @@ the all-xla head is ``"PARITY..."`` (a fast wrong kernel never wins) and
 one that raised is ``"CRASHED: ..."``. ``EngineConfig.strategy`` (a path
 to the artifact) makes ``Engine.prepare`` use the result.
 
-Only w8a8 is swept: w8 plans are ROADMAP item A9, weight files and
-calibration images A4 and A11; weights are random from seed 0 and the
-scales come from the engine's uniform-noise calibration, as in the JAX
-sweep.
+Both quantized plans are swept: w8a8 and the weight-only w8, whose
+candidates leave out the int8 kernel kinds (rs, rs2, the stems and
+fold_xla_s2). Weight files and calibration images are ROADMAP items A4
+and A11; weights are random from seed 0 and the w8a8 scales come from
+the engine's uniform-noise calibration, as in the JAX sweep.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ import torch
 
 from dnn_inference_engine_tpu_torch.models.layers import Conv, MaxPool
 from dnn_inference_engine_tpu_torch.runtime.plan import (
-    _referenced_layers, build_plan, plan_forward_w8a8, plan_input_uint8_ok,
-    prepare_plan_params,
+    _referenced_layers, build_plan, plan_forward_w8, plan_forward_w8a8,
+    plan_input_uint8_ok, prepare_plan_params,
 )
 
 StrategyEntry = Tuple  # (kind, fold) or (kind, fold, opts)
@@ -119,10 +120,9 @@ class _SweepContext:
                  input_size: Optional[int], seed: int = 0, device=None):
         from dnn_inference_engine_tpu_torch.config import EngineConfig
         from dnn_inference_engine_tpu_torch.runtime.engine import Engine
-        if mode != "w8a8":
-            raise NotImplementedError("w8 plans and their sweep are ROADMAP "
-                                      "item A9")
-        kw = dict(model=model_name, batch=batch)
+        # kernel="xla" builds no plan: the candidates are built here from
+        # the same quantized params and scales
+        kw = dict(model=model_name, mode=mode, kernel="xla", batch=batch)
         if input_size:
             kw["input_size"] = input_size
         with warnings.catch_warnings():
@@ -130,6 +130,7 @@ class _SweepContext:
             self.eng = Engine(EngineConfig(**kw), device=device).load_weights(
                 seed=0).prepare()
         self.model = self.eng.model
+        self.mode = mode
         s = self.eng.config.input_size
         rng = np.random.default_rng(seed)
         xf = rng.uniform(0, 1, (batch, s, s, 3)).astype(np.float32)
@@ -145,12 +146,17 @@ class _SweepContext:
         plan = build_plan(self.model, strategy)
         if plan is None:
             return None
+        if self.mode == "w8" and any(st.kind in ("rs", "s0") for st in plan):
+            return None
         pp = prepare_plan_params(self.model, self.eng.params, plan)
         scales = self.eng.act_scales
 
         def fwd(params, xx):
+            if self.mode == "w8":
+                return plan_forward_w8(self.model, plan, params, xx)
             return plan_forward_w8a8(self.model, plan, params, scales, xx)
-        x = self.x_u8 if plan_input_uint8_ok(plan) else self.x_f32
+        x = (self.x_u8 if self.mode == "w8a8" and plan_input_uint8_ok(plan)
+             else self.x_f32)
         return fwd, pp, x
 
     @staticmethod

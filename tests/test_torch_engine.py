@@ -37,11 +37,11 @@ STRATEGY = {0: ("fold_xla_k2", 4, {"cin_pad": 64}), 2: ("fold_xla_s2", 2),
 
 
 def _engines(batch, score_thresh, model="yolov2-tiny", strategy=None):
-    kw = dict(model=model, batch=batch, input_size=64,
+    kw = dict(model=model, mode="w8a8", batch=batch, input_size=64,
               score_thresh=score_thresh, strategy=strategy)
     calib = np.random.default_rng(11).uniform(
         0, 1, (2, 64, 64, 3)).astype(np.float32)
-    jeng = JEngine(JConfig(mode="w8a8", kernel="auto", **kw)).load_weights(
+    jeng = JEngine(JConfig(kernel="auto", **kw)).load_weights(
         key=jax.random.PRNGKey(0)).prepare(calib)
     teng = Engine(EngineConfig(**kw), device="cpu").load_weights(
         params=jax.tree.map(np.asarray, jeng.params),
@@ -106,7 +106,7 @@ def test_s0_strategy_engine_prepares_stage0_kernel_plan(tmp_path):
     fp32 = [{k: v.numpy() for k, v in p.items()}
             for p in model.init_params(torch.Generator().manual_seed(0),
                                        "cpu")]
-    eng = Engine(EngineConfig(batch=32, strategy=str(path)),
+    eng = Engine(EngineConfig(mode="w8a8", batch=32, strategy=str(path)),
                  device="cpu").load_weights(
         params=fp32, act_scales=[0.01] * (len(model.layers) + 1)).prepare()
     assert [s.kind for s in eng._plan][:3] == ["s0", "fold_xla",
@@ -116,19 +116,25 @@ def test_s0_strategy_engine_prepares_stage0_kernel_plan(tmp_path):
 
 
 def test_engine_needs_a_device_or_a_card(monkeypatch):
+    """Without a card the engine raises unless the caller asks for the
+    CPU; the default engine (fp32, kernel auto) then runs there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(EngineConfig())
-    with pytest.raises(NotImplementedError, match="A9"):
-        Engine(EngineConfig(mode="fp32"), device="cpu")
+    eng = Engine(EngineConfig(batch=1, input_size=64),
+                 device="cpu").load_weights(seed=0).prepare()
+    assert eng.config.mode == "fp32" and eng._plan is None
+    heads = eng.classify(np.zeros((1, 64, 64, 3), np.uint8))
+    assert heads.shape == (1, 2, 2, 125) and np.isfinite(heads).all()
 
 
 def test_engine_seeded_init_and_calibration_on_cpu():
     """The port's own path: seeded weights, noise calibration, detect."""
-    eng = Engine(EngineConfig(batch=1, input_size=64), device="cpu")
+    eng = Engine(EngineConfig(mode="w8a8", batch=1, input_size=64),
+                 device="cpu")
     with pytest.warns(UserWarning, match="uniform noise"):
         eng.load_weights(seed=3).prepare()
-    again = Engine(EngineConfig(batch=1, input_size=64),
+    again = Engine(EngineConfig(mode="w8a8", batch=1, input_size=64),
                    device="cpu").load_weights(seed=3)
     for a, b in zip(eng.fp32_params, again.fp32_params):
         for k in a:

@@ -5,8 +5,11 @@ skips when there is no card. Run on a machine with one:
 
     python -m pytest -m gpu tests/
 
-Every comparison is exact: the kernels round every epilogue operation as
-the plain versions do, and int32 accumulation is order-independent.
+The int8 comparisons are exact: the kernels round every epilogue
+operation as the plain versions do, and int32 accumulation is
+order-independent. The float GEMM (gemm_f32) and the float engines sum
+in float32 in their own order, so each of their tests states its
+tolerance.
 """
 
 import numpy as np
@@ -49,6 +52,68 @@ def test_gemm_fused_kernel_matches_plain(cuda, mode, m, k, n):
         torch.cuda.synchronize()
         assert got.dtype == ref.dtype
         assert torch.equal(got, ref), (mode, act)
+
+
+@pytest.mark.parametrize("b_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("act", ["leaky", "linear", "relu"])
+@pytest.mark.parametrize("m,k,n", [(300, 576, 125), (37, 27, 16),
+                                   (130, 1030, 70), (5408, 1024, 125),
+                                   (1, 9216, 1024)])
+def test_gemm_f32_kernel_matches_plain(cuda, m, k, n, act, b_dtype):
+    """The float GEMM (f32 B, and int8 codes as B) against its plain
+    version, which sums in float64: within 8 sqrt(K) + 4 float32
+    half-ulps of the largest sum |a||b||scale| (the kernel's float32
+    sum in its own order; ragged M, N and K, K = 27 included)."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    a = torch.rand((m, k), generator=g, device=cuda) - 0.25
+    if b_dtype == "int8":
+        bt = _i8(g, cuda, n, k)
+        scale = torch.rand(n, generator=g, device=cuda) * 1e-3
+    else:
+        bt = torch.randn((n, k), generator=g, device=cuda)
+        scale = torch.rand(n, generator=g, device=cuda) + 0.5
+    bias = torch.randn(n, generator=g, device=cuda)
+    before = gm.gemm_f32.launches
+    got = gm.gemm_f32(a, bt, scale, bias, act=act)
+    assert gm.gemm_f32.launches == before + 1
+    ref = gm.gemm_f32_plain(a, bt, scale, bias, act=act)
+    torch.cuda.synchronize()
+    bound = float((a.double().abs() @ bt.double().abs().t()
+                   * scale.double().abs()).max())
+    tol = (8 * k ** 0.5 + 4) * 2.0 ** -24 * bound
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert float((got.double() - ref.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("mode,kernel", [("fp32", "auto"), ("w8", "auto"),
+                                         ("w8", "pallas"), ("w8a8", "xla"),
+                                         ("w8a8", "pallas")])
+def test_mode_engine_card_matches_cpu(cuda, mode, kernel):
+    """The fp32 and w8 engines and the generic W8A8 tiers at 64 px: W8A8
+    heads identical (exact int8 epilogues); fp32 and the f32 w8 gemm tier
+    within 2**-12 of the largest head (float32 sums in other orders); the
+    w8 plan within 2**-7 (a bf16 rounding edge straddled moves a value by
+    a bf16 ulp)."""
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    cfg = EngineConfig(mode=mode, kernel=kernel, batch=2, input_size=64)
+    gpu = Engine(cfg).load_weights(seed=0).prepare()
+    params = [{k: v.cpu().numpy() for k, v in p.items()}
+              for p in gpu.fp32_params]
+    cpu = Engine(cfg, device="cpu").load_weights(
+        params=params, act_scales=gpu.act_scales).prepare()
+    imgs = np.random.default_rng(0).integers(
+        0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    before = gm.gemm_f32.launches
+    hg, hc = gpu.classify(imgs), cpu.classify(imgs)
+    torch.cuda.synchronize()
+    gemm_f32 = {("fp32", "auto"): 5, ("w8", "pallas"): 9}.get((mode, kernel),
+                                                             0)
+    assert gm.gemm_f32.launches == before + gemm_f32
+    rel = {"fp32": 2.0 ** -12, "w8": 2.0 ** -12 if kernel == "pallas"
+           else 2.0 ** -7, "w8a8": 0.0}[mode]
+    np.testing.assert_allclose(hg, hc, rtol=0,
+                               atol=rel * float(np.abs(hc).max()))
 
 
 @pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
@@ -197,7 +262,8 @@ def test_conv3x3_rs_kernel_refuses_what_it_does_not_take(cuda):
 def test_engine_card_matches_cpu(cuda):
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
-    cfg = EngineConfig(batch=2, input_size=64, score_thresh=0.02)
+    cfg = EngineConfig(mode="w8a8", batch=2, input_size=64,
+                       score_thresh=0.02)
     gpu = Engine(cfg).load_weights(seed=0).prepare()
     params = [{k: v.cpu().numpy() for k, v in p.items()} for p in gpu.params]
     cpu = Engine(cfg, device="cpu").load_weights(
@@ -216,8 +282,8 @@ def test_yolov3_engine_card_matches_cpu(cuda):
     """YOLOv3-tiny at 64 px: both heads identical, detections equal."""
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
-    cfg = EngineConfig(model="yolov3-tiny", batch=2, input_size=64,
-                       score_thresh=0.02)
+    cfg = EngineConfig(model="yolov3-tiny", mode="w8a8", batch=2,
+                       input_size=64, score_thresh=0.02)
     gpu = Engine(cfg).load_weights(seed=0).prepare()
     params = [{k: v.cpu().numpy() for k, v in p.items()} for p in gpu.params]
     cpu = Engine(cfg, device="cpu").load_weights(
@@ -256,8 +322,8 @@ def test_strategy_engine_card_matches_cpu(cuda, tmp_path, name):
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
     path = tmp_path / f"{name}.json"
     path.write_text(json.dumps({"strategy": STRATEGIES[name]}))
-    cfg = EngineConfig(batch=2, input_size=64, score_thresh=0.02,
-                       strategy=str(path))
+    cfg = EngineConfig(mode="w8a8", batch=2, input_size=64,
+                       score_thresh=0.02, strategy=str(path))
     gpu = Engine(cfg).load_weights(seed=0).prepare()
     params = [{k: v.cpu().numpy() for k, v in p.items()} for p in gpu.params]
     cpu = Engine(cfg, device="cpu").load_weights(

@@ -67,8 +67,7 @@ def test_constants_match_jax():
         assert getattr(tcfg, name) == getattr(jcfg, name), name
     jdef = {f.name: f.default for f in dataclasses.fields(jcfg.EngineConfig)}
     for f in dataclasses.fields(tcfg.EngineConfig):
-        if f.name != "mode":          # the port's default is its one mode
-            assert f.default == jdef[f.name], f.name
+        assert f.default == jdef[f.name], f.name
     for thresh in (0.005, 0.04, 0.25, 0.3):
         for topk in (None, 16):
             kw = dict(score_thresh=thresh, nms_topk=topk)
