@@ -9,14 +9,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    (one nvcc per source, in parallel) and print ptxas' registers and
    shared memory;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes its main path gives it (YOLOv2-tiny at batch 32; the per-tap
-   stem and the GEMM shapes of YOLOv3-tiny at batch 16; the strategy
-   plans S1 and S2 at batch 32 for quant_space_to_depth4,
-   gmax_shift_s2d2 and conv3x3_rs), requiring identical results, and
+   shapes its main path gives it (YOLOv2-tiny at batch 32 and, for the
+   GEMM, batch 1; the per-tap stem and the GEMM shapes of YOLOv3-tiny at
+   batch 16; the strategy plans S1 and S2 at batch 32 for
+   quant_space_to_depth4, gmax_shift_s2d2 and conv3x3_rs, and S1 at
+   batch 1 for conv3x3_rs), requiring identical results, and
    time kernel, plain version and (for the GEMM and conv3x3_rs)
-   ``torch._int_mm``; the per-tap stem is timed beside the k2 stem on
-   the same inputs; then the attic kernels: stage0_fused through both of
-   its wrappers (b32 and b2, v1's operand at ht 4 and 8) and conv3x3_bt
+   ``torch._int_mm``, printing each GEMM and conv3x3_rs row's form, tile,
+   K-split and grid (``gemm_form``, ``rs_form``), and the host time of a
+   ``gemm_fused`` call in both forms; the per-tap stem is timed beside
+   the k2 stem on the same inputs; then the attic kernels: stage0_fused
+   through both of its wrappers (b32 and b2, v1's operand at ht 4 and 8)
+   and conv3x3_bt
    at YOLOv2-tiny's tail shapes (b32 and b1, also held equal to
    conv3x3_rs), whose b32 tail pass gives its launch count; and
    gemm_f32 (the float form of gemm_fused) at the fp32 gemm tier's
@@ -45,7 +49,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    defaults: the generic forward, gemm_f32 on the deep layers) and in w8
    (the bf16 plans) at the same batches. The
    launch counters, set to 0 just before each detect and read just
-   after, must show it ran through its kernels and no others; then
+   after, must show it ran through its kernels and no others (in W8A8 no
+   gemm_fused launch in the ragged form); the (M, K, N) of the GEMMs of
+   a second detect must be the tables' (YOLOv2-tiny b32 and b1,
+   YOLOv3-tiny b16); then
    throughput (forwards and detects back to back), latency (each call
    synced), and the device time and operations per forward by kernel
    from ``torch.profiler`` (a trace must hold every kernel as many times
@@ -157,12 +164,20 @@ RS_SHAPES = [("S1 L6 rs2", (32, 27, 27, 256), 2, 512, 128),
              ("S1 L8 rs", (32, 13, 13, 512), 3, 1024, 256),
              ("S2 L2 rs", (32, 104, 104, 64), 3, 128, 32),
              ("S2 L4 rs2", (32, 53, 53, 128), 2, 256, 64)]
+# ... and at S1's batch-1 stages, where K is split across blocks
+RS_B1_SHAPES = [("S1 b1 L6 rs2", (1, 27, 27, 256), 2, 512, 128),
+                ("S1 b1 L8 rs", (1, 13, 13, 512), 3, 1024, 256)]
 
 # (layer, M, K, N) of every GEMM of one batch-32 forward at 416 px
 B32_GEMMS = [("L2", 346112, 576, 128), ("L4", 86528, 512, 256),
              ("L6", 86528, 576, 128), ("L8", 21632, 1152, 256),
              ("L10", 5408, 2304, 512), ("L12", 5408, 4608, 1024),
              ("L13", 5408, 9216, 1024), ("L14", 5408, 1024, 125)]
+# ... of one batch-1 forward under YOLOv2-tiny's b1 pin (its own folds)
+B1_GEMMS = [("L2", 10816, 576, 128), ("L4", 2704, 1152, 256),
+            ("L6", 2704, 576, 128), ("L8", 676, 1152, 256),
+            ("L10", 169, 2304, 512), ("L12", 169, 4608, 1024),
+            ("L13", 169, 9216, 1024), ("L14", 169, 1024, 125)]
 # ... and of one YOLOv3-tiny batch-16 forward (L15, L21: the f32 heads)
 B16_V3_GEMMS = [("L2", 173056, 576, 128), ("L4", 43264, 512, 256),
                 ("L6", 43264, 576, 128), ("L8", 10816, 1152, 256),
@@ -297,7 +312,9 @@ def gemm_shapes(g, dev, table, heads, ops_peak, bw, tag):
     """gemm_fused against its plain version at each (layer, M, K, N) of
     ``table``, timed beside ``torch._int_mm``: conv-order int8 epilogue,
     f32 for the ``heads``."""
+    from dnn_inference_engine_tpu_torch.ops import _build
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    sms = _build.sm_count(dev)
     shapes = []
     for layer, m, k, n in table:
         a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
@@ -309,9 +326,14 @@ def gemm_shapes(g, dev, table, heads, ops_peak, bw, tag):
         head = layer in heads
         kw = (dict(act="linear") if head
               else dict(act="leaky", s_out=0.05))
+        form = gm.gemm_form(m, n, k, True, sms)
+        ragged = gm.gemm_fused.ragged_launches
         got = gm.gemm_fused(a, bt, scale, bias, **kw)
         ref = gm.gemm_fused_plain(a, bt, scale, bias, **kw)
         err = max_abs_err(got, ref)
+        if gm.gemm_fused.ragged_launches != ragged or form.form != "wgmma":
+            raise AssertionError(f"gemm_fused {tag} {layer}: not the "
+                                 f"wgmma form")
         ms = device_ms(lambda: gm.gemm_fused(a, bt, scale, bias, **kw),
                        10)
         plain_ms = device_ms(
@@ -326,14 +348,47 @@ def gemm_shapes(g, dev, table, heads, ops_peak, bw, tag):
                            ops_peak, bw)
         shapes.append(dict(layer=layer, M=m, K=k, N=n, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound, bound_by=by))
+                           bound_ms=bound, bound_by=by, form=form.form,
+                           tile="128x128", splits=form.splits,
+                           grid=form.grid))
         print(f"  gemm_fused {tag} {layer} M={m} K={k} N={n}: err={err} "
               f"ms={ms:.4f} plain_ms={plain_ms:.3f} int_mm_ms={lib_ms:.4f} "
-              f"bound_ms={bound:.4f} ({by})")
+              f"bound_ms={bound:.4f} ({by}); {form.form} 128x128 "
+              f"split {form.splits} grid {form.grid}")
         if err != 0:
             raise AssertionError(f"gemm_fused {tag} {layer}: kernel != plain")
         del a, bt, ref, got
     return shapes
+
+
+def gemm_host_us(g, dev, reps: int = 200):
+    """Host microseconds a ``gemm_fused`` call takes to queue (wrapper,
+    form choice, tensor-map encodes, launch) at b1's L13 shape, where K is
+    split, and at a small unsplit shape, in the wgmma form and in the
+    ragged form (A one byte off alignment: no encode, no split buffers).
+    The calls run behind a spin kernel (~100 ms), so the host never
+    waits."""
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    out = {}
+    for tag, (m, k, n) in (("b1 L13", (169, 9216, 1024)),
+                           ("b1 L14", (169, 1024, 125))):
+        buf = torch.randint(-127, 128, (m * k + 1,), generator=g,
+                            device=dev, dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        scale = torch.rand(n, generator=g, device=dev) * 2e-5
+        bias = torch.randn(n, generator=g, device=dev)
+        for form, a in (("wgmma", buf[:m * k].view(m, k)),
+                        ("ragged", buf[1:].view(m, k))):
+            gm.gemm_fused(a, bt, scale, bias, s_out=0.05)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                gm.gemm_fused(a, bt, scale, bias, s_out=0.05)
+            out[f"{tag} {form}"] = (time.perf_counter() - t0) / reps * 1e6
+            torch.cuda.synchronize()
+    return out
 
 
 def phase_kernels(dev, ops_peak, bw):
@@ -353,10 +408,13 @@ def phase_kernels(dev, ops_peak, bw):
                          bw, "v2-b32")
     v3_shapes = gemm_shapes(g, dev, B16_V3_GEMMS, HEADS["yolov3-tiny"],
                             ops_peak, bw, "v3-b16")
+    b1_shapes = gemm_shapes(g, dev, B1_GEMMS, HEADS["yolov2-tiny"], ops_peak,
+                            bw, "v2-b1")
     by_ops = sum(s["bound_ms"] for s in shapes
                  if s["bound_by"] == "operations")
     rows["gemm_fused"] = dict(
-        max_abs_err=max(s["max_abs_err"] for s in shapes + v3_shapes),
+        max_abs_err=max(s["max_abs_err"]
+                        for s in shapes + v3_shapes + b1_shapes),
         ms=sum(s["ms"] for s in shapes),
         plain_ms=sum(s["plain_ms"] for s in shapes),
         bound_ms=sum(s["bound_ms"] for s in shapes),
@@ -365,9 +423,18 @@ def phase_kernels(dev, ops_peak, bw):
                   else "bytes"),
         library_ms=sum(s["library_ms"] for s in shapes), shapes=shapes,
         v3_b16_shapes=v3_shapes,
-        v3_b16_ms=sum(s["ms"] for s in v3_shapes))
-    print(f"  gemm_fused sums: v2 b32 {rows['gemm_fused']['ms']:.4f} ms, "
-          f"v3 b16 {rows['gemm_fused']['v3_b16_ms']:.4f} ms")
+        v3_b16_ms=sum(s["ms"] for s in v3_shapes),
+        v3_b16_library_ms=sum(s["library_ms"] for s in v3_shapes),
+        b1_shapes=b1_shapes, b1_ms=sum(s["ms"] for s in b1_shapes),
+        b1_library_ms=sum(s["library_ms"] for s in b1_shapes),
+        b1_bound_ms=sum(s["bound_ms"] for s in b1_shapes),
+        host_us=gemm_host_us(g, dev))
+    r = rows["gemm_fused"]
+    print(f"  gemm_fused sums: v2 b32 {r['ms']:.4f} ms (int_mm "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), v2 b1 "
+          f"{r['b1_ms']:.4f} ms (int_mm {r['b1_library_ms']:.4f}, bound "
+          f"{r['b1_bound_ms']:.4f}), v3 b16 {r['v3_b16_ms']:.4f} ms (int_mm "
+          f"{r['v3_b16_library_ms']:.4f}); host us a call {r['host_us']}")
 
     # --- stem_fused_k2 on (32,416,416,3), uint8 exact and f32 ---
     wq = i8(2, 2, 64, 256)
@@ -634,10 +701,12 @@ def phase_strategy_kernels(dev, ops_peak, bw):
           f"bound_ms={r['bound_ms']:.4f}")
     del y, got
 
-    # --- conv3x3_rs at the four b32 shapes, then pool None (int8 and f32
-    # out) and s2d_out at one shape each ---
+    # --- conv3x3_rs at the four b32 shapes and S1's two b1 shapes, then
+    # pool None (int8 and f32 out) and s2d_out at one shape each ---
+    from dnn_inference_engine_tpu_torch.ops import _build
+    sms = _build.sm_count(dev)
     shapes, errs = [], []
-    for tag, xs, k, cout, co in RS_SHAPES:
+    for tag, xs, k, cout, co in RS_SHAPES + RS_B1_SHAPES:
         x = torch.randint(-127, 128, xs, generator=g, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (k, k, xs[3], cout), generator=g,
@@ -646,7 +715,7 @@ def phase_strategy_kernels(dev, ops_peak, bw):
         bias = torch.randn(cout, generator=g, device=dev)
         kw = dict(quantize_out=True, pool=("gmaxm", 2, co), ksize=k)
         variants = [(tag, kw)]
-        if tag == "S1 L8 rs":
+        if tag in ("S1 L8 rs", "S1 b1 L8 rs"):
             variants += [(tag + " pool None int8", dict(kw, pool=None)),
                          (tag + " pool None f32",
                           dict(kw, pool=None, quantize_out=False))]
@@ -666,7 +735,9 @@ def phase_strategy_kernels(dev, ops_peak, bw):
         bound, by = _bound(2.0 * m * a.shape[1] * cout,
                            x.numel() + w.numel() + 8 * cout + m * cout // 4,
                            ops_peak, bw)
-        row = dict(shape=tag, M=m, K=a.shape[1], N=cout,
+        form = fc.rs_form(m, cout, co, a.shape[1], sms)
+        row = dict(shape=tag, M=m, K=a.shape[1], N=cout, form=form.form,
+                   tile="128x128", splits=form.splits, grid=form.grid,
                    ms=device_ms(lambda: fc.conv3x3_rs(x, w, scale, bias,
                                                       **kw), 10),
                    plain_ms=device_ms(lambda: fc.conv3x3_rs_plain(
@@ -678,9 +749,11 @@ def phase_strategy_kernels(dev, ops_peak, bw):
         print(f"  conv3x3_rs {tag} M={m} K={a.shape[1]} N={cout}: "
               f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
               f"int_mm_ms={row['library_ms']:.4f} bound_ms={bound:.4f} "
-              f"({by})")
+              f"({by}); wgmma 128x128 split {form.splits} grid "
+              f"{form.grid}")
         del x, w, a, wt
-    s1 = [r for r in shapes if r["shape"].startswith("S1")]
+    s1 = [r for r in shapes if r["shape"] in ("S1 L6 rs2", "S1 L8 rs")]
+    s1b1 = [r for r in shapes if r["shape"].startswith("S1 b1")]
     rows["conv3x3_rs"] = dict(
         max_abs_err=max(errs), ms=sum(r["ms"] for r in s1),
         plain_ms=sum(r["plain_ms"] for r in s1),
@@ -688,10 +761,14 @@ def phase_strategy_kernels(dev, ops_peak, bw):
         bound_ms=sum(r["bound_ms"] for r in s1),
         bound_by=("operations" if all(r["bound_by"] == "operations"
                                       for r in s1) else "bytes"),
-        shapes=shapes)
-    print(f"  conv3x3_rs sums over S1's 2 launches: "
-          f"ms={rows['conv3x3_rs']['ms']:.4f} "
-          f"bound_ms={rows['conv3x3_rs']['bound_ms']:.4f}")
+        shapes=shapes, b1_ms=sum(r["ms"] for r in s1b1),
+        b1_library_ms=sum(r["library_ms"] for r in s1b1),
+        b1_bound_ms=sum(r["bound_ms"] for r in s1b1))
+    r = rows["conv3x3_rs"]
+    print(f"  conv3x3_rs sums over S1's 2 launches: b32 ms={r['ms']:.4f} "
+          f"(int_mm {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}); b1 "
+          f"ms={r['b1_ms']:.4f} (int_mm {r['b1_library_ms']:.4f}, bound "
+          f"{r['b1_bound_ms']:.4f})")
     return rows
 
 
@@ -970,6 +1047,35 @@ def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
     gm.gemm_fused.folded_launches = 0
+    gm.gemm_fused.ragged_launches = 0
+
+
+class GemmShapes:
+    """While active, records the (M, K, N) of every ``gemm_fused`` call:
+    each module of the port that holds the wrapper gets a recorder in its
+    place, which calls the wrapper (so its counters still count)."""
+
+    def __enter__(self):
+        from dnn_inference_engine_tpu_torch.ops import gemm as gm
+        self.fn, self.shapes, self.mods = gm.gemm_fused, [], []
+
+        def record(a, bt, *args, **kw):
+            self.shapes.append((int(a.shape[0]), int(a.shape[1]),
+                                int(bt.shape[0])))
+            return self.fn(a, bt, *args, **kw)
+        # the wrapper counts through its module's name, the recorder here
+        record.launches = record.ragged_launches = 0
+        record.folded_launches = 0
+        for name, mod in list(sys.modules.items()):
+            if (name.startswith("dnn_inference_engine_tpu_torch.")
+                    and getattr(mod, "gemm_fused", None) is self.fn):
+                mod.gemm_fused = record
+                self.mods.append(mod)
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.gemm_fused = self.fn
 
 
 def _read_counts():
@@ -1293,12 +1399,16 @@ def upload_wait_ms() -> float:
 
 
 def phase_main_path(model: str, batch: int, want: dict, card: str,
-                    strategy=None, mode="w8a8"):
+                    strategy=None, mode="w8a8", gemms=None):
     """Build the engine (pinned plan, or STRATEGIES[strategy]; in fp32 the
     default ``EngineConfig()``'s generic auto forward), drive detect once
     with the launch counters set to 0 just before and read just after
-    (they must equal ``want``, every counter named), then time it and
-    break its device time down."""
+    (they must equal ``want``, every counter named; in W8A8 no
+    ``gemm_fused`` launch may take the ragged form), then time it and
+    break its device time down. ``gemms``: the (layer, M, K, N) table the
+    detect's ``gemm_fused`` calls must match, in order (a second detect,
+    under ``GemmShapes``)."""
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
@@ -1321,6 +1431,16 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
         raise AssertionError(f"{tag}: bad detections {b.shape}")
     if counts != want:
         raise AssertionError(f"{tag} launches {counts} != {want}")
+    if mode == "w8a8" and gm.gemm_fused.ragged_launches:
+        raise AssertionError(f"{tag}: {gm.gemm_fused.ragged_launches} "
+                             f"gemm_fused launches took the ragged form")
+    if gemms is not None:
+        with GemmShapes() as rec:
+            eng.detect(imgs)
+        if sorted(rec.shapes) != sorted(tuple(r[1:]) for r in gemms):
+            raise AssertionError(f"{tag}: gemm_fused shapes {rec.shapes} "
+                                 f"!= the table's {gemms}")
+        print(f"{tag}: the detect's gemm_fused (M, K, N) equal the table's")
     run = eng.detect_fn()
 
     def fwd():
@@ -1631,10 +1751,12 @@ def main() -> int:
     def main_paths():
         counts = {
             "yolov2-tiny": phase_main_path("yolov2-tiny", 32,
-                                           dict(v2, shift_s2d2=1), card),
-            "yolov3-tiny": phase_main_path("yolov3-tiny", 16, v3, card),
+                                           dict(v2, shift_s2d2=1), card,
+                                           gemms=B32_GEMMS),
+            "yolov3-tiny": phase_main_path("yolov3-tiny", 16, v3, card,
+                                           gemms=B16_V3_GEMMS),
         }
-        phase_main_path("yolov2-tiny", 1, v2, card)
+        phase_main_path("yolov2-tiny", 1, v2, card, gemms=B1_GEMMS)
         phase_main_path("yolov3-tiny", 1, v3, card)
         counts["S1"] = phase_main_path("yolov2-tiny", 32, s1, card, "S1")
         phase_main_path("yolov2-tiny", 1, s1, card, "S1")

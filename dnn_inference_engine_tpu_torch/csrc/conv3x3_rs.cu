@@ -20,212 +20,137 @@
 // computed; the TPU kernel's junk columns have no counterpart here.
 //
 // What bounds it on an H100 (SXM data sheet at 700 W: 1,979 int8 TOP/s,
-// 3.35 TB/s): the int8 tensor-core rate, at every plan shape (2.0-2.3 K
-// operations per byte moved, against the card's ~590). So the design feeds
-// mma.sync m16n8k32 (s8 x s8 -> s32) as the GEMM kernel does: 128 pixels x
-// 128 accumulator columns x 64 bytes of K per block tile, a two-stage
-// cp.async pipeline, 8 warps of 64 x 32. What it removes is the im2col
-// copy: A is read straight from the NHWC input, one 16-byte cp.async per
-// (pixel, 16 channels of one tap) -- Cin % 16 == 0, so a chunk never
-// straddles a tap -- with the SAME halo and the row/column edges
-// zero-filled by bounds, not by a padded copy. B is the (Cout, k*k*Cin)
-// K-major weight matrix the wrapper lays out once. For 'gmaxm' the block's
-// 128 columns are 32 channels of each of the 4 pool groups, and warp wn's
-// n8 tile ni holds group ni, channels wn*8..wn*8+7: the group-max is a max
-// over the thread's own registers. wgmma, TMA and a persistent schedule
-// are later work.
+// 3.35 TB/s): the int8 tensor-core rate at every b32 plan shape (2.0-2.3 K
+// operations per byte moved, against the card's ~590); at batch 1 (M =
+// 169 at L8) the weight bytes. So the design is the shared Hopper mainloop
+// of wgmma_s8.cuh: 128 pixels x 128 accumulator columns a tile, K walked
+// in 128-byte stages through a ring of 6, wgmma m64n128k32 from two
+// consumer warpgroups that take the tiles in turn (one's epilogue under
+// the other's mainloop), a persistent grid, and K split across blocks
+// where the tiles alone leave SMs idle (batch 1).
+//
+// A is an implicit im2col: the producer warpgroup reads the NHWC input in
+// place, one 16-byte cp.async per (pixel, 16 channels of one tap) -- Cin %
+// 16 == 0, so a chunk never straddles a tap -- into the stage's swizzled
+// layout, and each thread's copies complete on the stage's full barrier
+// (cp.async.mbarrier.arrive.noinc: the producer never waits for its own
+// copies, so it runs up to the ring's depth ahead). A thread owns one
+// 16-byte column of the stage (its byte offset in K is fixed) and 8
+// pixels (rows r, r + 16, ...); their base offsets are computed once a
+// tile, and the tap and channel of its column advance by steps from one
+// stage to the next, so the K loop has no division. The SAME halo and the
+// row and column edges are zero-filled by bounds (a cp.async of source
+// size 0), not by a padded copy. TMA's im2col mode would need a 4-D map
+// per call and its own halo rules for the k = 2 VALID fold; the gather
+// keeps both forms on one path. (Measured on an H100: with the gather's
+// copies and address work left out, S1's two b32 stages ran 15-25%
+// faster; the rest of the gap to the GEMM's mainloop is not measured.)
+//
+// B is the K-major weight matrix the wrapper lays out once
+// (rs_tile_matrix), one 128-row block a tile, and comes by TMA in one box
+// a stage (128-byte swizzle, rows past the matrix zero-filled). Without a
+// pool it is (Cout, k*k*Cin). For 'gmaxm' block j holds channels
+// 32j..32j+31 of each of the 4 pool groups, group k in rows 32k..32k+31.
+// Under wgmma's accumulator layout (wgmma_s8.cuh) a thread holds columns
+// 8i + 2t + e for every i, so it holds channel 8i' + 2t + e (i' < 4) of
+// group k at i = i' + 4k: the same channel of all four groups, and the
+// group-max is a max over the thread's own registers. (Four boxes of 32
+// rows from the unpermuted matrix give the same stage, 10% slower.)
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "mma_s8.cuh"
+#include "tma.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
 using s8mma::cp_async16;
-using s8mma::cp_async_commit;
-using s8mma::cp_async_wait;
 using s8mma::epilogue_f32;
-using s8mma::mma_s8;
-using s8mma::to_code;
 
-constexpr int BM = 128;         // output pixels per block
-constexpr int BN = 128;         // accumulator columns per block
-constexpr int GN = BN / 4;      // channels of each pool group per block
-constexpr int BK = 64;          // bytes of K per stage
-constexpr int LDS = BK + 16;    // shared row stride in bytes
-constexpr int THREADS = 256;
+constexpr int BN = wg::BN;      // accumulator columns a tile
+constexpr int GN = BN / 4;      // channels of each pool group a tile
+constexpr int STAGES = 6;
 
 struct Conv {
   const int8_t* x;              // (N, H, W, Cin)
-  const int8_t* wt;             // (Cout, K), K = ks*ks*Cin in (dh, dw, ci)
   const float* scale;
   const float* bias;
   void* out;
+  int* ws;                      // split-K partial sums (splits > 1)
+  int* counters;                // split-K arrival counters, zero
   int N, H, W, Cin, Cout, ks, pad, Ho, Wo, K, M, go, quantize, act, s2d;
+  int n_tiles, splits, units, kt;
 };
 
-__global__ void __launch_bounds__(THREADS) conv_rs_kernel(const Conv p) {
-  __shared__ __align__(16) int8_t As[2][BM * LDS];
-  __shared__ __align__(16) int8_t Bs[2][BN * LDS];
-
-  const int m0 = blockIdx.x * BM;
-  const int j = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / 4;      // 2 warps along M, 64 pixels each
-  const int wn = warp % 4;      // 4 warps along N
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  // The two A rows (pixels) and two B rows this thread loads, and its
-  // 16-byte column of the K tile; fixed over the K loop.
-  const int kc = (tid % 4) * 16;
-  int a_y[2], a_x[2];
-  bool a_ok[2], b_ok[2];
-  const int8_t* a_img[2];
-  const int8_t* b_row[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = tid / 4 + i * 64;
-    const int m = m0 + r;
-    a_ok[i] = m < p.M;
-    const int mm = a_ok[i] ? m : 0;
-    const int ox = mm % p.Wo, rest = mm / p.Wo;
-    const int oy = rest % p.Ho, n = rest / p.Ho;
-    a_y[i] = oy - p.pad;
-    a_x[i] = ox - p.pad;
-    a_img[i] = p.x + static_cast<size_t>(n) * p.H * p.W * p.Cin;
-    int o;
-    if (p.go) {
-      const int c = j * GN + r % GN;
-      b_ok[i] = c < p.go;
-      o = (r / GN) * p.go + c;
-    } else {
-      o = j * BN + r;
-      b_ok[i] = o < p.Cout;
-    }
-    b_row[i] = p.wt + static_cast<size_t>(b_ok[i] ? o : 0) * p.K;
-  }
-
-  auto load = [&](int stage, int k0) {
-    const int gk = k0 + kc;
-    const int tap = gk / p.Cin;
-    const int ci = gk - tap * p.Cin;
-    const int dh = tap / p.ks, dw = tap - (tap / p.ks) * p.ks;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = tid / 4 + i * 64;
-      const int iy = a_y[i] + dh, ix = a_x[i] + dw;
-      const bool va = a_ok[i] && gk < p.K && iy >= 0 && iy < p.H && ix >= 0 &&
-                      ix < p.W;
-      const int8_t* sa =
-          va ? a_img[i] + (static_cast<size_t>(iy) * p.W + ix) * p.Cin + ci
-             : p.x;
-      cp_async16(As[stage] + r * LDS + kc, sa, va);
-      const bool vb = b_ok[i] && gk < p.K;
-      cp_async16(Bs[stage] + r * LDS + kc, vb ? b_row[i] + gk : p.wt, vb);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][n][r] = 0;
-
-  const int kt_n = (p.K + BK - 1) / BK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_n; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < kt_n) load(s ^ 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const int8_t* as = As[s];
-    const int8_t* bs = Bs[s];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned b[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* q = bs + (ni * GN + wn * 8 + g) * LDS + kk + t * 4;
-        b[ni][0] = *reinterpret_cast<const unsigned*>(q);
-        b[ni][1] = *reinterpret_cast<const unsigned*>(q + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* q = as + (wm * 64 + mi * 16 + g) * LDS + kk + t * 4;
-        unsigned a0 = *reinterpret_cast<const unsigned*>(q);
-        unsigned a1 = *reinterpret_cast<const unsigned*>(q + 8 * LDS);
-        unsigned a2 = *reinterpret_cast<const unsigned*>(q + 16);
-        unsigned a3 = *reinterpret_cast<const unsigned*>(q + 8 * LDS + 16);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_s8(acc[mi][ni], a0, a1, a2, a3, b[ni][0], b[ni][1]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue. Fragment r of n8 tile ni: pixel row g + 8*(r/2), column
-  // ni*GN + wn*8 + 2t + r%2 of the block's 128.
-  const int cg = p.go ? p.go : p.Cout;        // output channels
+// Consumer c's tile (row block mt, column block j): acc[64q + 4i + 2h +
+// e] is pixel 64q + 16w + g + 8h of the tile, column 8i + 2t + e of its
+// 128. QUANT and ACT are template arguments so that a thread's codes are
+// straight-line code.
+template <bool QUANT, int ACT>
+__device__ __forceinline__ void conv_epilogue(const int (&acc)[wg::NREG],
+                                              const Conv& p, int mt, int j) {
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int cg = p.go ? p.go : p.Cout;          // output channels
   int8_t* out8 = static_cast<int8_t*>(p.out);
   float* outf = static_cast<float*>(p.out);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int q = 0; q < 2; ++q) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 64 + mi * 16 + g + half * 8;
+    for (int h = 0; h < 2; ++h) {
+      const int m = mt * wg::BM + 64 * q + 16 * w + g + 8 * h;
       if (m >= p.M) continue;
       const int ox = m % p.Wo, rest = m / p.Wo;
       const int oy = rest % p.Ho, n = rest / p.Ho;
       size_t pix;
       if (p.s2d) {
         const int wo2 = p.Wo / 2;
-        if (ox / 2 >= wo2) continue;          // odd last column: dropped
-        pix = ((static_cast<size_t>(n) * (p.Ho / 2) + oy / 2) * wo2 + ox / 2) *
-                  4 * cg +
+        if (ox / 2 >= wo2) continue;            // odd last column: dropped
+        pix = ((static_cast<size_t>(n) * (p.Ho / 2) + oy / 2) * wo2 +
+               ox / 2) * 4 * cg +
               static_cast<size_t>(((oy & 1) * 2 + (ox & 1)) * cg);
       } else {
         pix = ((static_cast<size_t>(n) * p.Ho + oy) * p.Wo + ox) * cg;
       }
+      if (p.go) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = half * 2 + e;
-        if (p.go) {
-          const int c = j * GN + wn * 8 + t * 2 + e;
-          if (c >= p.go) continue;
-          if (p.quantize) {
-            const int a = max(max(acc[mi][0][r], acc[mi][1][r]),
-                              max(acc[mi][2][r], acc[mi][3][r]));
-            out8[pix + c] =
-                to_code(epilogue_f32(a, p.scale[c], p.bias[c], p.act));
-          } else {
-            float y[4];
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-              const int o = ni * p.go + c;
-              y[ni] = epilogue_f32(acc[mi][ni][r], p.scale[o], p.bias[o],
-                                   p.act);
+          for (int e = 0; e < 2; ++e) {
+            const int ch = j * GN + 8 * i + 2 * t + e;
+            if (ch >= p.go) continue;
+            const int r = 64 * q + 4 * i + 2 * h + e;   // group k at r + 16k
+            if (QUANT) {
+              const int a = max(max(acc[r], acc[r + 16]),
+                                max(acc[r + 32], acc[r + 48]));
+              out8[pix + ch] = static_cast<int8_t>(wg::code_bits(
+                  epilogue_f32(a, p.scale[ch], p.bias[ch], ACT)));
+            } else {
+              float y[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int o = k * p.go + ch;
+                y[k] = epilogue_f32(acc[r + 16 * k], p.scale[o], p.bias[o],
+                                    ACT);
+              }
+              outf[pix + ch] = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
             }
-            outf[pix + c] = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
           }
-        } else {
+        }
+      } else {
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int o = j * BN + ni * GN + wn * 8 + t * 2 + e;
+        for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = j * BN + 8 * i + 2 * t + e;
             if (o >= p.Cout) continue;
-            const float y =
-                epilogue_f32(acc[mi][ni][r], p.scale[o], p.bias[o], p.act);
-            if (p.quantize) {
-              out8[pix + o] = to_code(y);
+            const float y = epilogue_f32(acc[64 * q + 4 * i + 2 * h + e],
+                                         p.scale[o], p.bias[o], ACT);
+            if (QUANT) {
+              out8[pix + o] = static_cast<int8_t>(wg::code_bits(y));
             } else {
               outf[pix + o] = y;
             }
@@ -236,20 +161,134 @@ __global__ void __launch_bounds__(THREADS) conv_rs_kernel(const Conv p) {
   }
 }
 
+__global__ void __launch_bounds__(wg::THREADS, 1)
+conv_rs_kernel(const __grid_constant__ CUtensorMap map_b, const Conv p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const wg::Ring<STAGES> ring(smem, 0);
+  if (threadIdx.x == 0) {
+    ring.init(128 + 1);         // each producer thread's copies + B's bytes
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // --- producer warpgroup: A gathered by cp.async, B by TMA ---
+    wg::setmaxnreg_dec<96>();
+    const int tid = threadIdx.x;
+    const int kc = tid % 8;                     // 16-byte column of a stage
+    const int rsub = tid / 8;                   // rows rsub + 16 i
+    const int dst = rsub * wg::BK + ((kc ^ (rsub & 7)) * 16);
+    wg::Pipe<STAGES> pipe;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+      const wg::Unit x = wg::unit(u, p.splits, p.n_tiles, p.kt);
+      long long base[8];                        // pixel (oy-pad, ox-pad)
+      int py[8], px[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = x.mt * wg::BM + rsub + 16 * i;
+        if (m < p.M) {
+          const int ox = m % p.Wo, rest = m / p.Wo;
+          const int oy = rest % p.Ho, n = rest / p.Ho;
+          py[i] = oy - p.pad;
+          px[i] = ox - p.pad;
+          base[i] = ((static_cast<long long>(n) * p.H + py[i]) * p.W +
+                     px[i]) * p.Cin;
+        } else {
+          py[i] = -(1 << 20);                   // every tap out of bounds
+          px[i] = 0;
+          base[i] = 0;
+        }
+      }
+      int gk = x.kb * wg::BK + kc * 16;         // this thread's K byte
+      const int tap = gk / p.Cin;
+      int ci = gk - tap * p.Cin;
+      int dh = tap / p.ks, dw = tap - (tap / p.ks) * p.ks;
+      for (int kt = x.kb; kt < x.ke; ++kt) {
+        uint64_t* full = &ring.full[pipe.stage];
+        wg::wait(&ring.empty[pipe.stage], pipe.phase ^ 1);
+        uint8_t* sb = ring.b(pipe.stage);
+        if (tid == 0) {
+          tma::mbar_expect_tx(full, BN * wg::BK);
+          wg::tma_load_2d(sb, &map_b, full, kt * wg::BK, x.nt * BN);
+        }
+        uint8_t* sa = ring.a(pipe.stage) + dst;
+        const bool kin = gk < p.K;
+        const int off = (dh * p.W + dw) * p.Cin + ci;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int iy = py[i] + dh, ix = px[i] + dw;
+          const bool v = kin && static_cast<unsigned>(iy) < p.H &&
+                         static_cast<unsigned>(ix) < p.W;
+          const int8_t* src = v ? p.x + base[i] + off : p.x;
+          cp_async16(sa + i * 16 * wg::BK, src, v);
+        }
+        wg::cp_async_arrive_noinc(full);
+        gk += wg::BK;
+        ci += wg::BK;
+        while (ci >= p.Cin) {
+          ci -= p.Cin;
+          if (++dw == p.ks) {
+            dw = 0;
+            ++dh;
+          }
+        }
+        pipe.advance();
+      }
+    }
+  } else {
+    // --- consumers: c takes the block's units 2k + c, whole tiles ---
+    wg::setmaxnreg_inc<200>();
+    const int c = threadIdx.x / 128 - 1;
+    wg::Pipe<STAGES> pipe;
+    int acc[wg::NREG];
+    int i = 0;
+    for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++i) {
+      const wg::Unit x = wg::unit(u, p.splits, p.n_tiles, p.kt);
+      if ((i & 1) != c) {
+        pipe.skip(x.ke - x.kb);
+        continue;
+      }
+      wg::mma_unit<STAGES, true>(acc, ring, pipe, x.ke - x.kb, c, i >> 1);
+      if (p.splits > 1 &&
+          !wg::splitk_fixup(acc, p.ws, p.counters, &ring.flags[c], c,
+                            x.tile, x.s, p.splits,
+                            p.M - x.mt * wg::BM)) {
+        continue;
+      }
+      switch (p.quantize * 3 + p.act) {
+        case 0: conv_epilogue<false, 0>(acc, p, x.mt, x.nt); break;
+        case 1: conv_epilogue<false, 1>(acc, p, x.mt, x.nt); break;
+        case 2: conv_epilogue<false, 2>(acc, p, x.mt, x.nt); break;
+        case 3: conv_epilogue<true, 0>(acc, p, x.mt, x.nt); break;
+        case 4: conv_epilogue<true, 1>(acc, p, x.mt, x.nt); break;
+        default: conv_epilogue<true, 2>(acc, p, x.mt, x.nt); break;
+      }
+    }
+  }
+}
+
 }  // namespace
 
-// go > 0: the 'gmaxm' group-max with Cout == 4*go; go == 0: no pool.
-// Needs Cin % 16 == 0 and a 16-byte aligned x (the wrapper checks).
+// go > 0: the 'gmaxm' group-max with Cout == 4*go, wt the pool-major
+// (ceil(go/32)*128, K) matrix; go == 0: no pool, wt (Cout, K).
+// Needs Cin % 16 == 0 and a 16-byte aligned x and wt (the wrapper checks).
+// `splits` K-splits over `grid` persistent blocks; ws holds tiles * splits
+// * 128 * 128 int32 and counters `tiles` zeroed int32 when splits > 1.
+// Returns a cudaError_t, or minus the CUresult of a failed tensor-map
+// encode.
 extern "C" int conv3x3_rs(const void* x, const void* wt, const void* scale,
                           const void* bias, void* out, int N, int H, int W,
                           int Cin, int Cout, int ks, int go, int quantize,
-                          int act, int s2d, void* stream) {
+                          int act, int s2d, int splits, int grid, void* ws,
+                          void* counters, void* stream) {
   Conv p;
   p.x = static_cast<const int8_t*>(x);
-  p.wt = static_cast<const int8_t*>(wt);
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
   p.out = out;
+  p.ws = static_cast<int*>(ws);
+  p.counters = static_cast<int*>(counters);
   p.N = N;
   p.H = H;
   p.W = W;
@@ -266,8 +305,34 @@ extern "C" int conv3x3_rs(const void* x, const void* wt, const void* scale,
   p.act = act;
   p.s2d = s2d;
   if (p.M <= 0 || Cout <= 0) return static_cast<int>(cudaGetLastError());
-  const int ntiles = go ? (go + GN - 1) / GN : (Cout + BN - 1) / BN;
-  dim3 grid((p.M + BM - 1) / BM, ntiles);
-  conv_rs_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  p.n_tiles = go ? (go + GN - 1) / GN : (Cout + BN - 1) / BN;
+  p.kt = (p.K + wg::BK - 1) / wg::BK;
+  p.splits = splits;
+  p.units = (p.M + wg::BM - 1) / wg::BM * p.n_tiles * splits;
+  if (Cin % 16 != 0 || splits < 1 || splits > p.kt || grid < 1 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mb;
+  const uint64_t dims[2] = {static_cast<uint64_t>(p.K),
+                            static_cast<uint64_t>(go ? p.n_tiles * BN : Cout)};
+  const uint64_t stride[1] = {static_cast<uint64_t>(p.K)};
+  const uint32_t box[2] = {wg::BK, BN};
+  const CUresult r = tma::encode_s8(&mb, wt, 2, dims, stride, box,
+                                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  constexpr int smem = wg::smem_bytes(STAGES, 0);
+  static unsigned done = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && !(done & (1u << (dev & 31)))) {
+    err = cudaFuncSetAttribute(conv_rs_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess) done |= 1u << (dev & 31);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_rs_kernel<<<grid, wg::THREADS, smem,
+                   static_cast<cudaStream_t>(stream)>>>(mb, p);
   return static_cast<int>(cudaGetLastError());
 }

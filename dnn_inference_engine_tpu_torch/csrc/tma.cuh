@@ -1,6 +1,7 @@
-// TMA plumbing shared by the TMA-fed kernels (tma_probe.cu, conv_dma.cu):
-// the host encoding of a tiled int8 tensor map, the mbarrier helpers and
-// the cp.async.bulk.tensor issue for ranks 1 to 5.
+// TMA plumbing shared by the TMA-fed kernels (tma_probe.cu, conv_dma.cu,
+// and through wgmma_s8.cuh gemm_fused.cu and conv3x3_rs.cu): the host
+// encoding of a tiled int8 tensor map, the mbarrier helpers and the
+// cp.async.bulk.tensor issue for ranks 1 to 5.
 //
 // The encode function comes through cudaGetDriverEntryPoint, so no
 // library links libcuda (-lcuda) and the build flags stay those of every
@@ -31,11 +32,14 @@ namespace tma {
 // Encodes a tiled tensor map of an int8 tensor of rank 1-5. dims, box
 // (both rank long) and strides (bytes, rank - 1 long: dims 1..rank-1) are
 // innermost first; the innermost elements are dense. Out-of-bounds
-// elements of a box read as zeros (FLOAT_OOB_FILL_NONE). Returns the
-// encode's CUresult.
-inline CUresult encode_s8(CUtensorMap* map, const void* base, int rank,
-                          const uint64_t* dims, const uint64_t* strides,
-                          const uint32_t* box) {
+// elements of a box read as zeros (FLOAT_OOB_FILL_NONE). `swizzle` is the
+// shared-memory layout of the box (CU_TENSOR_MAP_SWIZZLE_128B for a wgmma
+// operand: the box's inner extent is then at most 128 bytes, and its
+// destination 1024-byte aligned). Returns the encode's CUresult.
+inline CUresult encode_s8(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -64,8 +68,8 @@ inline CUresult encode_s8(CUtensorMap* map, const void* base, int rank,
   for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
                 static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s,
-                b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -117,7 +117,11 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a launch."""
+    """Raise on a nonzero cudaError_t returned by a launch (a negative
+    code is minus the CUresult of a failed tensor-map encode)."""
+    if err < 0:
+        raise RuntimeError(f"{name}: tensor-map encode failed with "
+                           f"CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
@@ -125,3 +129,16 @@ def check(err: int, name: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (cached)."""
+    import torch
+    index = torch.device(device).index or 0
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]

@@ -40,7 +40,9 @@ from dnn_inference_engine_tpu_torch.config import QMAX
 from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
-from dnn_inference_engine_tpu_torch.ops.gemm import int32_acc_plain
+from dnn_inference_engine_tpu_torch.ops.gemm import (
+    H100_SMS, WG_BK, WG_BM, GemmForm, int32_acc_plain, k_splits,
+    ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
 
 
@@ -637,6 +639,44 @@ def rs_weight_matrix(w: torch.Tensor) -> torch.Tensor:
     return wt
 
 
+def rs_tile_matrix(w: torch.Tensor, go: int) -> torch.Tensor:
+    """The weight rows the conv3x3_rs kernel reads, one 128-row block per
+    tile of output columns. Without a pool (``go`` 0) that is
+    ``rs_weight_matrix(w)``. With 'gmaxm' (``go`` > 0 channels in each of
+    the 4 pool groups) block j holds channels 32j..32j+31 of every group:
+    row 128j + 32k + i is column k*go + 32j + i (zeros past ``go``), so a
+    tile's weights come in one TMA box, and under wgmma's accumulator
+    layout a thread holds the same channel of all four groups. Made once
+    per ``go`` and cached on ``w`` (until ``w`` is written in place)."""
+    wt = rs_weight_matrix(w)
+    if not go:
+        return wt
+    cached = getattr(w, "_rs_tiles", None)
+    if cached is not None and cached[:2] == (w._version, go):
+        return cached[2]
+    n_tiles = _round_up(go, 32) // 32
+    ch = (32 * torch.arange(n_tiles).view(-1, 1, 1)
+          + torch.arange(32).view(1, 1, -1)).expand(n_tiles, 4, 32)
+    rows = (torch.arange(4).view(1, -1, 1) * go + ch).reshape(-1)
+    valid = (ch < go).reshape(-1)
+    out = wt.new_zeros((n_tiles * 128, wt.shape[1]))
+    out[valid.to(wt.device)] = wt[rows[valid].to(wt.device)]
+    w._rs_tiles = (w._version, go, out)
+    return out
+
+
+def rs_form(m: int, cout: int, go: int, k: int,
+            sms: int = H100_SMS) -> GemmForm:
+    """How ``conv3x3_rs`` launches on a card of ``sms`` SMs: M = ``m``
+    output pixels, K = ``k`` bytes (k*k*Cin), tiles of 128 pixels x 128
+    accumulator columns (with 'gmaxm', ``go`` > 0, 32 channels of each of
+    the 4 pool groups), K split as ``gemm_fused`` splits it."""
+    n_tiles = _round_up(go, 32) // 32 if go else _round_up(cout, 128) // 128
+    tiles = _round_up(m, WG_BM) // WG_BM * n_tiles
+    splits = k_splits(tiles, _round_up(k, WG_BK) // WG_BK, sms)
+    return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
+
+
 def conv3x3_rs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, act: str = "leaky",
                quantize_out: bool = True, pool=None, ksize: int = 3,
@@ -679,19 +719,25 @@ def conv3x3_rs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
-    wt = rs_weight_matrix(w)
+    go = cg if kind == "gmaxm" else 0
+    wt = rs_tile_matrix(w, go)
     scale, bias = scale.contiguous(), bias.contiguous()
     ho, wo = (h, wd) if ksize == 3 else (h - 1, wd - 1)
     shape = ((n, ho // 2, wo // 2, 4 * cg) if s2d_out else (n, ho, wo, cg))
     out = torch.empty(shape, device=x.device,
                       dtype=torch.int8 if quantize_out else torch.float32)
+    f = rs_form(n * ho * wo, int(w.shape[3]), go, ksize * ksize * cin,
+                _build.sm_count(x.device))
+    ws, cnt = split_buffers(x.device, f)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("conv3x3_rs", "conv3x3_rs",
-                         [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p])
+                         [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i,
+                          p, p, p])
     err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), n, h, wd, cin, int(w.shape[3]), ksize,
-             cg if kind == "gmaxm" else 0, int(quantize_out),
-             KERNEL_ACT_CODES[act], int(s2d_out), _build.stream_ptr(x.device))
+             out.data_ptr(), n, h, wd, cin, int(w.shape[3]), ksize, go,
+             int(quantize_out), KERNEL_ACT_CODES[act], int(s2d_out),
+             f.splits, f.grid, ptr_or_none(ws), ptr_or_none(cnt),
+             _build.stream_ptr(x.device))
     conv3x3_rs.launches += 1
     _build.check(err, "conv3x3_rs")
     return out

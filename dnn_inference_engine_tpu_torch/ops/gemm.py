@@ -5,7 +5,12 @@ Counterpart of ``dnn_inference_engine_tpu/ops/pallas_gemm.py``, whose
 form:
 
 - int8 x int8 -> int32, with int8 requantization, f32 output or the raw
-  accumulator: ``gemm_fused`` (``csrc/gemm_fused.cu``);
+  accumulator: ``gemm_fused`` (``csrc/gemm_fused.cu``), in two forms
+  that ``gemm_form`` picks from the shape alone: the ``wgmma`` form
+  (Hopper's warpgroup product fed by TMA, K split across blocks where the
+  tiles alone leave SMs idle) for K % 16 == 0 and 16-byte aligned
+  operands, every main-path shape; the ``ragged`` form (``mma.sync``,
+  byte loads) for the rest;
 - f32 x f32, or f32 x int8 codes (the weight-only form), accumulated in
   f32, f32 out: ``gemm_f32`` (``csrc/gemm_f32.cu``). Its raw f32
   accumulator (``raw_acc``) has no ported caller yet: the tensor-parallel
@@ -31,7 +36,8 @@ round-half boundaries, so each caller gets its own):
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +46,86 @@ from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, quantize_act
+
+
+# The block tile of the wgmma mainloop (csrc/wgmma_s8.cuh): 128 x 128, K
+# in stages of 128 bytes.
+WG_BM = 128
+WG_BN = 128
+WG_BK = 128
+H100_SMS = 132                  # SMs of an H100 SXM
+
+
+class GemmForm(NamedTuple):
+    """How a product is launched: ``form`` "wgmma" or "ragged" (both on
+    128 x 128 block tiles), ``splits`` of K across blocks, ``tiles`` block
+    tiles, ``grid`` blocks (persistent in the wgmma form)."""
+    form: str
+    splits: int
+    tiles: int
+    grid: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k_splits(tiles: int, kt: int, sms: int) -> int:
+    """K-splits for ``tiles`` block tiles over ``kt`` stages of K: none
+    when the tiles fill the card. Else each split costs its mainloop,
+    about kt/splits stages, plus its share of the split-K fixup, about two
+    stages' worth for each other split (the last unit of a tile reads
+    every other partial sum): splits near sqrt(kt/2) balance the two. At
+    least 2 splits (the heads' short K too), each at least 2 stages; no
+    more than fill the card."""
+    if tiles >= sms:
+        return 1
+    best = max(2, int(math.sqrt(kt / 2) + 0.5))
+    return max(1, min(sms // tiles, kt // 2, best, 16))
+
+
+def split_ranges(k: int, splits: int) -> List[Tuple[int, int]]:
+    """The byte ranges [k0, k1) of K that the ``splits`` splits of the
+    wgmma form sum (``wg::unit`` in csrc/wgmma_s8.cuh)."""
+    kt = _cdiv(k, WG_BK)
+    return [(s * kt // splits * WG_BK, min((s + 1) * kt // splits * WG_BK, k))
+            for s in range(splits)]
+
+
+def gemm_form(m: int, n: int, k: int, aligned: bool,
+              sms: int = H100_SMS) -> GemmForm:
+    """The form ``gemm_fused`` launches for an (m, k) x (k, n) product on
+    a card of ``sms`` SMs. ``aligned``: both operands start on 16 bytes.
+    The wgmma form splits K when the tiles alone leave SMs idle."""
+    tiles = _cdiv(m, WG_BM) * _cdiv(n, WG_BN)
+    if not aligned or k % 16:
+        return GemmForm("ragged", 1, tiles, tiles)
+    splits = k_splits(tiles, _cdiv(k, WG_BK), sms)
+    return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
+
+
+_counter_bufs: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_buffers(device: torch.device, f: GemmForm):
+    """(workspace, counters) for a launch of form ``f``: the int32 partial
+    sums of its splits (``torch.empty``, per call) and the per-tile
+    arrival counters, one zeroed buffer per device that every kernel
+    leaves zero; (None, None) without a split."""
+    if f.splits == 1:
+        return None, None
+    ws = torch.empty(f.tiles * f.splits * WG_BM * WG_BN, dtype=torch.int32,
+                     device=device)
+    cnt = _counter_bufs.get(device)
+    if cnt is None or cnt.numel() < f.tiles:
+        cnt = torch.zeros(max(f.tiles, 4096), dtype=torch.int32,
+                          device=device)
+        _counter_bufs[device] = cnt
+    return ws, cnt
+
+
+def ptr_or_none(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _mode(quantize_out: bool, raw_acc: bool, s_out) -> int:
@@ -117,22 +203,29 @@ def gemm_fused(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    vec = int(k % 16 == 0 and a.data_ptr() % 16 == 0
-              and bt.data_ptr() % 16 == 0)
+    aligned = a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0
+    f = gemm_form(m, n, k, aligned, _build.sm_count(a.device))
+    ws, cnt = split_buffers(a.device, f)
     s = float(s_out) if s_out is not None else 1.0
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("gemm_fused", "gemm_fused_s8",
-                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, p])
+                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, i,
+                          i, p, p, p])
     err = fn(a.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             s, out.data_ptr(), m, n, k, mode, KERNEL_ACT_CODES[act], vec,
-             _build.stream_ptr(a.device))
+             s, out.data_ptr(), m, n, k, mode, KERNEL_ACT_CODES[act],
+             int(f.form == "wgmma"), f.splits, f.grid, ptr_or_none(ws),
+             ptr_or_none(cnt), _build.stream_ptr(a.device))
     gemm_fused.launches += 1
+    gemm_fused.ragged_launches += f.form == "ragged"
     gemm_fused.folded_launches += mode == 1
     _build.check(err, "gemm_fused")
     return out
 
 
 gemm_fused.launches = 0
+# launches of the ragged form (gemm_form): K % 16 != 0 or a misaligned
+# operand; every main-path shape takes the wgmma form
+gemm_fused.ragged_launches = 0
 # launches in the folded order (quantize_out): the int8 convs of the gemm
 # tier (conv_lowering.conv2d_w8a8_gemm), which the xla tier never makes
 gemm_fused.folded_launches = 0

@@ -12,6 +12,8 @@ in float32 in their own order, so each of their tests states its
 tolerance.
 """
 
+import faulthandler
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def deadline():
+    """Ends the process (with every thread's traceback) if the test runs
+    past 120 s: a kernel that never finishes blocks the host inside CUDA,
+    where no Python exception can reach it."""
+    faulthandler.dump_traceback_later(120, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 def _i8(g, dev, *shape):
@@ -52,6 +64,122 @@ def test_gemm_fused_kernel_matches_plain(cuda, mode, m, k, n):
         torch.cuda.synchronize()
         assert got.dtype == ref.dtype
         assert torch.equal(got, ref), (mode, act)
+
+
+# (K, N) of every gemm_fused launch on the W8A8 main paths: the YOLOv2-tiny
+# pin (b32 and b1) and YOLOv3-tiny's (b16 and b1); N = 125 and 75 are the
+# f32 heads
+MAIN_KN = [(576, 128), (512, 256), (1152, 256), (2304, 512), (4608, 1024),
+           (9216, 1024), (1024, 125), (1024, 256), (512, 75), (256, 128),
+           (3456, 256), (256, 75)]
+# (M, K, N) of those launches at full size: YOLOv2-tiny b32 and b1,
+# YOLOv3-tiny b16
+MAIN_SHAPES = [(346112, 576, 128), (86528, 512, 256), (86528, 576, 128),
+               (21632, 1152, 256), (5408, 2304, 512), (5408, 4608, 1024),
+               (5408, 9216, 1024), (5408, 1024, 125),
+               (10816, 576, 128), (2704, 1152, 256), (2704, 576, 128),
+               (676, 1152, 256), (169, 2304, 512), (169, 4608, 1024),
+               (169, 9216, 1024), (169, 1024, 125),
+               (173056, 576, 128), (43264, 512, 256), (43264, 576, 128),
+               (10816, 1152, 256), (2704, 2304, 512), (2704, 4608, 1024),
+               (2704, 1024, 256), (2704, 512, 75), (2704, 256, 128),
+               (10816, 3456, 256), (10816, 256, 75)]
+GEMM_MODES = {"conv": dict(s_out=0.037), "folded": dict(quantize_out=True),
+              "f32": {}, "raw_acc": dict(raw_acc=True)}
+
+
+@pytest.mark.parametrize("mode", list(GEMM_MODES))
+@pytest.mark.parametrize("m", [169, 2053])
+@pytest.mark.parametrize("k,n", MAIN_KN)
+def test_gemm_fused_main_path_widths_match_plain(cuda, deadline, k, n, m,
+                                                 mode):
+    """Every main-path (K, N) at a reduced M with ragged M and N edges, in
+    all four epilogues, bit for bit; M = 169 (b1) takes the split-K path
+    for every K past 576, M = 2053 a wider grid."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, bt = _i8(g, cuda, m, k), _i8(g, cuda, n, k)
+    scale = torch.rand(n, generator=g, device=cuda) * 2e-4
+    bias = torch.randn(n, generator=g, device=cuda)
+    form = gm.gemm_form(m, n, k, True, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert form.form == "wgmma"
+    if m == 169 and k > 576:
+        assert form.splits > 1
+    before = gm.gemm_fused.ragged_launches
+    for act in ("leaky", "linear"):
+        got = gm.gemm_fused(a, bt, scale, bias, act=act, **GEMM_MODES[mode])
+        ref = gm.gemm_fused_plain(a, bt, scale, bias, act=act,
+                                  **GEMM_MODES[mode])
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (act, form)
+    assert gm.gemm_fused.ragged_launches == before
+
+
+def test_gemm_fused_main_path_shapes_take_the_wgmma_form(cuda, deadline):
+    """Each main-path launch at full size takes the wgmma form (by the
+    form counter), and its output is equal to the same launch repeated (a
+    split-K counter left nonzero would show here)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for m, k, n in MAIN_SHAPES:
+        a, bt = _i8(g, cuda, m, k), _i8(g, cuda, n, k)
+        scale = torch.rand(n, generator=g, device=cuda) * 2e-5
+        bias = torch.randn(n, generator=g, device=cuda)
+        launches = gm.gemm_fused.launches
+        ragged = gm.gemm_fused.ragged_launches
+        first = gm.gemm_fused(a, bt, scale, bias, s_out=0.05)
+        again = gm.gemm_fused(a, bt, scale, bias, s_out=0.05)
+        torch.cuda.synchronize()
+        assert gm.gemm_fused.launches == launches + 2
+        assert gm.gemm_fused.ragged_launches == ragged, (m, k, n)
+        assert torch.equal(first, again), (m, k, n)
+
+
+@pytest.mark.parametrize("s_out", [2.0, 6.0, 10.0, 14.0, 254.0, 0.5, 3.0,
+                                   7.0, 0.1, 0.3, 1.7, 97.5, 127.5, 100.1,
+                                   255.0, 0.037, 1e-40, -0.5, 3e38])
+def test_gemm_fused_conv_order_quotients_are_exact(cuda, deadline, s_out):
+    """The conv-order epilogue divides by s_out without a division
+    instruction (two corrections of y times RN(1/s_out); a double product
+    when s_out is not a positive normal float): its codes equal the plain
+    version's, whose quotient is PyTorch's IEEE division, for sums that
+    are products of two codes (one nonzero a row of A), so quotients land
+    on and beside the rounding ties (k + 0.5; with an inexact reciprocal
+    at s_out 6, 10, 14 and 254) and the clip (127.5)."""
+    m, k, n = 2048, 32, 256
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.zeros((m, k), dtype=torch.int8, device=cuda)
+    rows = torch.arange(m, device=cuda)
+    a[rows, rows % k] = _i8(g, cuda, m)
+    bt = _i8(g, cuda, n, k)
+    ones = torch.ones(n, device=cuda)
+    for scale, bias in ((ones, torch.zeros(n, device=cuda)),
+                        (ones * 0.25, torch.full((n,), 0.125, device=cuda))):
+        for act in ("linear", "leaky"):
+            got = gm.gemm_fused(a, bt, scale, bias, act=act, s_out=s_out)
+            ref = gm.gemm_fused_plain(a, bt, scale, bias, act=act,
+                                      s_out=s_out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (act, float(scale[0]))
+
+
+@pytest.mark.parametrize("mode", list(GEMM_MODES))
+def test_gemm_fused_misaligned_a_takes_the_ragged_form(cuda, deadline, mode):
+    """An A view that starts 1 byte past 16-byte alignment (K % 16 == 0)
+    takes the ragged form, by counter, and matches the plain version;
+    K = 100 takes it too."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for m, k, n in ((300, 576, 125), (130, 100, 64)):
+        buf = _i8(g, cuda, m * k + 1)
+        a = buf[1:].view(m, k) if k % 16 == 0 else buf[:m * k].view(m, k)
+        bt = _i8(g, cuda, n, k)
+        scale = torch.rand(n, generator=g, device=cuda) * 1e-3
+        bias = torch.randn(n, generator=g, device=cuda)
+        before = gm.gemm_fused.ragged_launches
+        got = gm.gemm_fused(a, bt, scale, bias, **GEMM_MODES[mode])
+        torch.cuda.synchronize()
+        assert gm.gemm_fused.ragged_launches == before + 1
+        assert torch.equal(got, gm.gemm_fused_plain(a, bt, scale, bias,
+                                                    **GEMM_MODES[mode]))
 
 
 @pytest.mark.parametrize("b_dtype", ["f32", "int8"])
@@ -244,6 +372,36 @@ def test_conv3x3_rs_kernel_matches_plain(cuda, case, act):
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert torch.equal(got, ref)
+
+
+# conv3x3_rs at S1's batch-1 stages (L6 rs2, L8 rs) and S2's batch-32
+# stage L4 at batch 1: (x shape, ksize, Cout, pool-major group-max co)
+RS_B1_CASES = [((1, 27, 27, 256), 2, 512, 128),
+               ((1, 13, 13, 512), 3, 1024, 256),
+               ((1, 53, 53, 128), 2, 256, 64)]
+
+
+@pytest.mark.parametrize("qo", [True, False])
+@pytest.mark.parametrize("case", RS_B1_CASES)
+def test_conv3x3_rs_split_k_matches_plain(cuda, deadline, case, qo):
+    """The batch-1 shapes, where the tiles leave SMs idle and K is split
+    across blocks: equal to the plain version with int8 and f32 out, and
+    to a second launch (the split-K counters are left zero)."""
+    xs, k, cout, co = case
+    g = torch.Generator(device=cuda).manual_seed(cout)
+    x, wq = _i8(g, cuda, *xs), _i8(g, cuda, k, k, xs[3], cout)
+    scale = torch.rand(cout, generator=g, device=cuda) * 2e-5 + 1e-5
+    bias = torch.randn(cout, generator=g, device=cuda)
+    n, h, w, cin = xs
+    m = n * (h - (k == 2)) * (w - (k == 2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kw = dict(quantize_out=qo, pool=("gmaxm", 2, co), ksize=k)
+    got = fc.conv3x3_rs(x, wq, scale, bias, **kw)
+    again = fc.conv3x3_rs(x, wq, scale, bias, **kw)
+    ref = fc.conv3x3_rs_plain(x, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert fc.rs_form(m, cout, cout // 4, k * k * cin, sms).splits > 1
+    assert torch.equal(got, ref) and torch.equal(got, again)
 
 
 def test_conv3x3_rs_kernel_refuses_what_it_does_not_take(cuda):
