@@ -1,10 +1,13 @@
-// Shared by the two fused-stem kernels (stem_fused_k2.cu, stem_fused_dg.cu):
-// the band's input staging, the A-fragment addressing, the mma.sync
-// wrappers and the group-max epilogue. Both kernels compute the same
+// Shared by the fused-stem kernels (stem_fused_k2.cu, stem_fused_dg.cu,
+// stage0_fused.cu): the band's input staging, the A-fragment addressing,
+// the mma.sync wrappers and the group-max epilogue. They compute the same
 // function (see stem_fused_k2.cu for the contract); they differ in how
-// the folded weights reach shared memory and how K is cut into mmas.
+// the folded weights reach shared memory and how K is cut into products.
+// The persistent k2 stem (wgmma) takes the staged layout and the
+// addressing only, and stages with its producer warpgroup.
 //
-// One block per (image, band of `rows` output rows), 8 warps. Each block
+// stem_fused_dg and stage0_fused: one block per (image, band of `rows`
+// output rows), 8 warps. Each block
 // stages input rows 4*y0-1 .. 4*y0+4*rows+2 (with the halo), columns
 // -1 .. W+2, as int8 codes: element e = 3*col + c of a row sits at staged
 // byte e + 3. Folded input lane l = p*12 + q*3 + c of tap (dh, dw) at

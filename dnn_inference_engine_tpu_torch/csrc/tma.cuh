@@ -1,7 +1,8 @@
 // TMA plumbing shared by the TMA-fed kernels (tma_probe.cu, conv_dma.cu,
-// and through wgmma_s8.cuh gemm_fused.cu and conv3x3_rs.cu): the host
-// encoding of a tiled int8 tensor map, the mbarrier helpers and the
-// cp.async.bulk.tensor issue for ranks 1 to 5.
+// gemm_f32.cu, stem_fused_k2.cu, and through wgmma_s8.cuh gemm_fused.cu
+// and conv3x3_rs.cu): the host encoding of a tiled int8 tensor map, the
+// mbarrier helpers, the cp.async.bulk.tensor issue for ranks 1 to 5 and
+// the plain bulk copy.
 //
 // The encode function comes through cudaGetDriverEntryPoint, so no
 // library links libcuda (-lcuda) and the build flags stay those of every
@@ -182,6 +183,19 @@ __device__ __forceinline__ void load(void* dst, const CUtensorMap* map,
           : "memory");
       break;
   }
+}
+
+// One thread: a bulk copy (no tensor map) of `bytes` (a multiple of 16)
+// from global memory at `src` to shared memory at `dst` (both 16-byte
+// aligned), completing its bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace tma

@@ -8,7 +8,7 @@ f32 and for symmetric int8 (zero-point 0).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -89,28 +89,51 @@ def conv2d_w8a8_gemm(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
 
 def conv2d_w8_pallas(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                      b: torch.Tensor, act: str = "leaky", stride: int = 1,
-                     padding="SAME") -> torch.Tensor:
+                     padding="SAME",
+                     wt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The weight-only gemm tier: f32 activations x int8 codes, im2col
     then ``gemm_f32`` with an int8 B (the codes become exact f32 in the
     kernel), ``s_w`` as the column scale. Counterpart of the JAX
-    ``conv_lowering.conv2d_w8_pallas``."""
+    ``conv_lowering.conv2d_w8_pallas``. ``wt``: the precomputed
+    ``gemm_weights(wq)`` (the forwards pass ``kmajor_weights(wq)``, made
+    once, whose float32 codes ``gemm_f32`` also caches)."""
     kh, kw, _, cout = wq.shape
     patches = extract_patches(x, kh, kw, stride, padding)
     n, ho, wo, k = patches.shape
-    out = gemm_f32(patches.reshape(n * ho * wo, k), gemm_weights(wq),
+    if wt is None:
+        wt = gemm_weights(wq)
+    out = gemm_f32(patches.reshape(n * ho * wo, k), wt,
                    s_w.to(torch.float32), b, act=act)
     return out.reshape(n, ho, wo, cout)
 
 
+_unit_scales: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def unit_scale(n: int, device) -> torch.Tensor:
+    """The (n,) float32 column scale of ones, made once per (n, device)."""
+    key = (n, torch.device(device))
+    ones = _unit_scales.get(key)
+    if ones is None:
+        ones = torch.ones(n, dtype=torch.float32, device=device)
+        _unit_scales[key] = ones
+    return ones
+
+
 def conv2d_fp32_pallas(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        act: str = "leaky", stride: int = 1,
-                       padding="SAME") -> torch.Tensor:
+                       padding="SAME",
+                       wt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fp32 gemm tier: im2col then ``gemm_f32`` with unit column
-    scales. Counterpart of the JAX ``conv_lowering.conv2d_fp32_pallas``."""
+    scales. Counterpart of the JAX ``conv_lowering.conv2d_fp32_pallas``.
+    ``wt``: the precomputed ``gemm_weights(w)`` (the forwards pass
+    ``kmajor_weights(w)``, made once, whose TF32 split ``gemm_f32`` also
+    caches)."""
     kh, kw, _, cout = w.shape
     patches = extract_patches(x, kh, kw, stride, padding)
     n, ho, wo, k = patches.shape
-    ones = torch.ones(cout, dtype=torch.float32, device=x.device)
-    out = gemm_f32(patches.reshape(n * ho * wo, k), gemm_weights(w), ones, b,
-                   act=act)
+    if wt is None:
+        wt = gemm_weights(w)
+    out = gemm_f32(patches.reshape(n * ho * wo, k), wt,
+                   unit_scale(cout, x.device), b, act=act)
     return out.reshape(n, ho, wo, cout)

@@ -22,6 +22,7 @@ from dnn_inference_engine_tpu_torch.ops.conv import (
     conv2d_fp32, conv2d_w8_bf16, conv2d_w8a8)
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
     conv2d_fp32_pallas, conv2d_w8_pallas, conv2d_w8a8_gemm)
+from dnn_inference_engine_tpu_torch.ops.gemm import kmajor_weights
 
 # auto-policy thresholds
 _MAX_SPATIAL = 32 * 32      # output positions per image
@@ -56,19 +57,24 @@ def conv2d_w8a8_dispatch(xq, s_in, wq, s_w, b, act="leaky", stride=1,
 def conv2d_w8_dispatch(x, wq, s_w, b, act="leaky", stride=1, padding="SAME",
                        force_pallas=False):
     """The w8 conv of the ``auto`` and ``pallas`` tiers: the bf16 conv
-    everywhere, the gemm tier only when forced."""
-    conv = conv2d_w8_pallas if force_pallas else conv2d_w8_bf16
-    return conv(x, wq, s_w, b, act=act, stride=stride, padding=padding)
+    everywhere, the gemm tier only when forced (with the weight matrix
+    made once per weight tensor, ``kmajor_weights``)."""
+    if force_pallas:
+        return conv2d_w8_pallas(x, wq, s_w, b, act=act, stride=stride,
+                                padding=padding, wt=kmajor_weights(wq))
+    return conv2d_w8_bf16(x, wq, s_w, b, act=act, stride=stride,
+                          padding=padding)
 
 
 def conv2d_fp32_dispatch(x, w, b, act="leaky", stride=1, padding="SAME",
                          force_pallas=False):
     """The ``auto`` fp32 conv: the gemm tier where ``use_pallas`` says so
-    (or ``force_pallas``), else cuDNN's conv."""
-    conv = (conv2d_fp32_pallas
-            if force_pallas or use_pallas(x.shape, w.shape, stride)
-            else conv2d_fp32)
-    return conv(x, w, b, act=act, stride=stride, padding=padding)
+    (or ``force_pallas``; with the weight matrix made once per weight
+    tensor, ``kmajor_weights``), else cuDNN's conv."""
+    if force_pallas or use_pallas(x.shape, w.shape, stride):
+        return conv2d_fp32_pallas(x, w, b, act=act, stride=stride,
+                                  padding=padding, wt=kmajor_weights(w))
+    return conv2d_fp32(x, w, b, act=act, stride=stride, padding=padding)
 
 
 def tier_report(model, batch: int = 1, mode: str = "w8a8"):

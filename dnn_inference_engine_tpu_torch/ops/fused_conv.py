@@ -7,7 +7,9 @@ torch. Six of its Pallas kernels have Hopper ports here, each a wrapper
 beside its plain PyTorch version:
 
 - ``stem_fused_k2`` (``csrc/stem_fused_k2.cu``): quantize + shifted
-  s2d(4) + 2x2 folded int8 conv + int32 group-max + epilogue, in one pass;
+  s2d(4) + 2x2 folded int8 conv + int32 group-max + epilogue, in one pass
+  of a persistent ``wgmma`` kernel (its weights laid out once,
+  ``stem_tile_matrix``; its schedule ``stem_k2_schedule``);
 - ``stem_fused_dg`` (``csrc/stem_fused_dg.cu``): the same function in the
   per-tap formulation, reading host-prepared K-major weight slabs;
 - ``shift_s2d2`` (``csrc/shift_s2d2.cu``, for ``shift_s2d2_pallas``):
@@ -32,6 +34,7 @@ layout of the pooled tensor, so folds chain through pools.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.ops.gemm import (
     H100_SMS, WG_BK, WG_BM, GemmForm, int32_acc_plain, k_splits,
-    ptr_or_none, split_buffers)
+    kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
 
 
@@ -278,10 +281,8 @@ def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return stem_fused_k2_plain(x, w, scale, bias, s_in, act, exact_u8)
     _stem_card_check(x, w, scale, bias, "stem_fused_k2")
-    x, w = x.contiguous(), w.contiguous()
-    # the kernel reads w in 32-bit words and x in 4-element vectors
-    if w.data_ptr() % 4:
-        w = w.clone()
+    x = x.contiguous()
+    # the kernel reads x in 4-element vectors
     if x.data_ptr() % 16:
         x = x.clone()
     scale, bias = scale.contiguous(), bias.contiguous()
@@ -290,15 +291,17 @@ def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((n, h // 4, wd // 4, go), dtype=torch.int8,
                       device=x.device)
     s = float(s_in) if not exact_u8 else 1.0
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _build.sm_count(x.device)
+    rows = _stem_k2_rows(n, h // 4, wd // 4, sms, 8 if exact_u8 else 4)
+    units = n * -(-(h // 4) // rows)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("stem_fused_k2", "stem_fused_k2",
                          [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, i,
                           p])
-    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             s, out.data_ptr(), n, h, wd, int(w.shape[2]),
-             _stem_band_rows(n, h // 4, sms), int(exact_u8),
-             KERNEL_ACT_CODES[act], _build.stream_ptr(x.device))
+    err = fn(x.data_ptr(), stem_tile_matrix(w).data_ptr(), scale.data_ptr(),
+             bias.data_ptr(), s, out.data_ptr(), n, h, wd, rows,
+             max(1, min(units, sms)), int(exact_u8), KERNEL_ACT_CODES[act],
+             _build.stream_ptr(x.device))
     stem_fused_k2.launches += 1
     _build.check(err, "stem_fused_k2")
     return out
@@ -308,13 +311,94 @@ stem_fused_k2.launches = 0
 
 
 def _stem_band_rows(n: int, hout: int, sms: int) -> int:
-    """Output rows per block of the stem kernel: 4, or fewer while the grid
-    would not give every SM two blocks (one block stages its band's input
-    rows and the folded weights once)."""
+    """Output rows per block of the per-tap stem and ``stage0_fused``: 4,
+    or fewer while the grid would not give every SM two blocks (one block
+    stages its band's input rows and the folded weights once)."""
     rows = 4
     while rows > 1 and n * -(-hout // rows) < 2 * sms:
         rows //= 2
     return rows
+
+
+# The persistent k2 stem's shared-memory layout of the folded weights
+# (csrc/stem_fused_k2.cu): 256 rows (the pool-major outputs) of two
+# 128-byte K atoms, 128-byte swizzle.
+STEM_K2_TILE_BYTES = 2 * 256 * 128
+STEM_K2_TILE = 64                # output pixels of one wgmma tile
+
+
+def _stem_k2_rows(n: int, hout: int, wout: int, sms: int,
+                  max_rows: int = 8) -> int:
+    """Output rows of one unit (an image's band) of the persistent k2 stem
+    on ``sms`` SMs: of 8, 4, 2 and 1 (at most ``max_rows``: 4 for f32
+    input, whose raw rows take four times the shared memory), the one
+    whose busiest block runs the fewest 64-pixel tiles (units are dealt
+    out in turn; a band's last tile may be ragged), the most rows on a tie
+    (less halo to stage)."""
+    def cost(rows):
+        units = n * -(-hout // rows)
+        return (-(-units // sms) * -(-(rows * wout) // STEM_K2_TILE), -rows)
+    return min((r for r in (8, 4, 2, 1) if r <= max_rows), key=cost)
+
+
+def stem_k2_schedule(n: int, hout: int, wout: int, rows: int,
+                     grid: int) -> List[List[Tuple[int, int, int, int]]]:
+    """The persistent k2 stem's schedule, as the kernel walks it: for each
+    block, its (image, first output row, consumer, first pixel of the
+    band) tiles in order. Block b takes units b, b + grid, ... (unit u:
+    image u // bands, band u % bands); consumer c takes the band's 64-pixel
+    tiles c, c + 2, ..."""
+    bands = -(-hout // rows)
+    blocks = []
+    for b in range(grid):
+        tiles = []
+        for u in range(b, n * bands, grid):
+            img, y0 = u // bands, (u % bands) * rows
+            band_px = min(rows, hout - y0) * wout
+            for c in (0, 1):
+                tiles += [(img, y0, c, m0) for m0 in
+                          range(STEM_K2_TILE * c, band_px, 2 * STEM_K2_TILE)]
+        blocks.append(tiles)
+    return blocks
+
+
+def stem_k2_row(o: torch.Tensor) -> torch.Tensor:
+    """The shared-memory row of pool-major folded output ``o`` (group o //
+    64, channel o % 64) in the persistent k2 stem's weights: half hf =
+    channel // 32 holds rows 128 hf .. 128 hf + 127, channel c of group gi
+    at row 128 hf + 32 gi + c % 32. Each half is one wgmma n128 tile, and
+    under wgmma's accumulator layout a thread holds the same channel of
+    all four groups."""
+    return (o % 64) // 32 * 128 + (o // 64) * 32 + o % 32
+
+
+def stem_k2_tile_index() -> torch.Tensor:
+    """(256, 192) int64: where byte (o, k) of the folded weight matrix
+    (output o, K index k = tap*48 + lane) lies in ``stem_tile_matrix``:
+    K atom k // 128, row ``stem_k2_row(o)``, 16-byte chunk (k % 128) // 16
+    XOR row % 8 (the 128-byte swizzle)."""
+    row = stem_k2_row(torch.arange(256)).view(-1, 1)
+    k = torch.arange(192).view(1, -1)
+    kk = k % 128
+    return ((k // 128) * 256 * 128 + row * 128
+            + (((kk // 16) ^ (row % 8)) * 16) + kk % 16)
+
+
+def stem_tile_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(2, 2, C>=48, 256) folded stem weights -> the STEM_K2_TILE_BYTES
+    the persistent k2 stem loads into shared memory once a block: lanes
+    0..47 of the 4 taps (tap = 2 dh + dw) as a (256, 192) K-major matrix
+    in wgmma's 128-byte swizzled layout (``stem_k2_tile_index``), zeros
+    elsewhere. Made once and cached on ``w`` (until ``w`` is written in
+    place)."""
+    cached = getattr(w, "_stem_tiles", None)
+    if cached is not None and cached[0] == w._version:
+        return cached[1]
+    b = w[:, :, :48, :].reshape(4 * 48, 256).T
+    out = w.new_zeros(STEM_K2_TILE_BYTES)
+    out[stem_k2_tile_index().reshape(-1).to(w.device)] = b.reshape(-1)
+    w._stem_tiles = (w._version, out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -630,13 +714,7 @@ def rs_weight_matrix(w: torch.Tensor) -> torch.Tensor:
     """(k, k, Cin, Cout) weights -> the (Cout, k*k*Cin) K-major matrix the
     conv3x3_rs kernel reads. Made once and cached on ``w`` (until ``w`` is
     written in place)."""
-    cached = getattr(w, "_rs_wt", None)
-    if cached is not None and cached[0] == w._version:
-        return cached[1]
-    kh, kw, cin, cout = w.shape
-    wt = w.reshape(kh * kw * cin, cout).T.contiguous()
-    w._rs_wt = (w._version, wt)
-    return wt
+    return kmajor_weights(w)
 
 
 def rs_tile_matrix(w: torch.Tensor, go: int) -> torch.Tensor:

@@ -12,10 +12,16 @@ form:
   operands, every main-path shape; the ``ragged`` form (``mma.sync``,
   byte loads) for the rest;
 - f32 x f32, or f32 x int8 codes (the weight-only form), accumulated in
-  f32, f32 out: ``gemm_f32`` (``csrc/gemm_f32.cu``). Its raw f32
-  accumulator (``raw_acc``) has no ported caller yet: the tensor-parallel
-  conv that reads it is ROADMAP item A14. A bf16 A has no caller in the
-  JAX package and is refused (ROADMAP B13).
+  f32, f32 out: ``gemm_f32`` (``csrc/gemm_f32.cu``), in two forms that
+  ``gemm_f32_form`` picks from the shape alone: the ``wgmma`` form (three
+  TF32 tensor-core products of the operands' halves, two for int8 codes;
+  B split once by ``tf32_split``, A in the kernel as ``tf32_split_a``
+  gives it; K split where the tiles leave SMs idle) for K % 4 == 0 and
+  16-byte aligned operands, every detect shape; the ``ragged`` form
+  (float32 FMA) for the rest. Its raw f32 accumulator (``raw_acc``) has no
+  ported caller yet: the tensor-parallel conv that reads it is ROADMAP
+  item A14. A bf16 A has no caller in the JAX package and is refused
+  (ROADMAP B13).
 
 Beside each kernel, ``gemm_fused_plain`` and ``gemm_f32_plain`` are the
 plain PyTorch versions of the same functions, which the CPU path and the
@@ -101,6 +107,57 @@ def gemm_form(m: int, n: int, k: int, aligned: bool,
     if not aligned or k % 16:
         return GemmForm("ragged", 1, tiles, tiles)
     splits = k_splits(tiles, _cdiv(k, WG_BK), sms)
+    return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
+
+
+# The block tile of gemm_f32's wgmma form (csrc/gemm_f32.cu): 128 x 128,
+# K in stages of 16 floats (64 bytes); a fixup's read of one partial sum
+# (64 KB, from L2) costs about as much as two stages (24-32 KB each, three
+# TF32 products)
+F32_BK = 16
+F32_FIXUP_STAGES = 2.0
+F32_MAX_SPLITS = 8              # MAXS in csrc/gemm_f32.cu
+
+
+def f32_k_splits(tiles: int, kt: int, sms: int) -> int:
+    """K-splits of gemm_f32's wgmma form for ``tiles`` block tiles over
+    ``kt`` stages of 16 floats on ``sms`` SMs: the split s (1..8, each
+    split at least 2 stages) that minimises the busiest SM's work, waves
+    ceil(tiles s / sms) times a unit's kt/s stages plus the fixup's
+    ``F32_FIXUP_STAGES`` for each other split (the last unit of a tile
+    adds every other partial sum), if that beats no split by 15%. The
+    batch-1 shapes split to fill the SMs; a tile count just past a wave
+    (172 tiles on 132 SMs) splits to even the waves out; nearly full
+    waves do not split."""
+    def cost(s):
+        waves = -(-tiles * s // sms)
+        return waves * (kt / s + F32_FIXUP_STAGES * (s - 1))
+    best = min(range(1, max(1, min(F32_MAX_SPLITS, kt // 2)) + 1),
+               key=lambda s: (cost(s), s))
+    # a split costs workspace and an epilogue's worth of traffic the
+    # model leaves out: take one only for a clear gain
+    return best if cost(best) < 0.85 * cost(1) else 1
+
+
+def f32_split_ranges(k: int, splits: int) -> List[Tuple[int, int]]:
+    """The element ranges [k0, k1) of K that the ``splits`` splits of
+    gemm_f32's wgmma form sum (``wg::unit`` over stages of 16 floats)."""
+    kt = _cdiv(k, F32_BK)
+    return [(s * kt // splits * F32_BK, min((s + 1) * kt // splits * F32_BK,
+                                            k))
+            for s in range(splits)]
+
+
+def gemm_f32_form(m: int, n: int, k: int, aligned: bool,
+                  sms: int = H100_SMS) -> GemmForm:
+    """The form ``gemm_f32`` launches for an (m, k) x (k, n) float product
+    on a card of ``sms`` SMs. ``aligned``: every operand starts on 16
+    bytes. The wgmma form needs K % 4 == 0 (a TMA row stride is a multiple
+    of 16 bytes) and splits K when the tiles alone leave SMs idle."""
+    tiles = _cdiv(m, WG_BM) * _cdiv(n, WG_BN)
+    if not aligned or k % 4:
+        return GemmForm("ragged", 1, tiles, tiles)
+    splits = f32_k_splits(tiles, _cdiv(k, F32_BK), sms)
     return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
 
 
@@ -253,6 +310,82 @@ def gemm_f32_plain(a, bt, scale, bias, act="leaky"):
     return apply_activation(acc * scale + bias, act)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to the nearest TF32 value (10 mantissa bits,
+    ties to even): the low 13 bits of each word zero. Subnormals round the
+    same way; inf passes through and a NaN stays a quiet NaN; a finite
+    value that would round past the largest float is truncated instead
+    (``tf32_rn`` in csrc/gemm_f32.cu)."""
+    b = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    b = b & 0xFFFFFFFF
+    special = (b & 0x7F800000) == 0x7F800000
+    r = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
+    r = torch.where((r & 0x7F800000) == 0x7F800000, b & ~0x1FFF, r)
+    nan = special & ((b & 0x7FFFFF) != 0)
+    r = torch.where(special, torch.where(nan, (b | 0x400000) & ~0x1FFF, b),
+                    r)
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
+    return r.view(torch.float32).view(x.shape)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32_round(x) and lo = tf32_round(x - hi) (0
+    where hi is inf or NaN): hi + lo is x to within 2**-22 |x|, and the
+    three TF32 products hi*hi + hi*lo + lo*hi of two such splits are the
+    float32 product to a few 2**-22 of |a||b|. The split of B that
+    ``tf32_operands`` caches."""
+    hi = tf32_round(x)
+    lo = torch.where(torch.isfinite(hi), tf32_round(x.to(torch.float32)
+                                                    - hi),
+                     torch.zeros((), dtype=torch.float32, device=x.device))
+    return hi, lo
+
+
+def tf32_split_a(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's split of A (plain version of ``lo_of`` in
+    csrc/gemm_f32.cu): the tensor cores read a float32 operand as TF32 by
+    dropping its low 13 bits, so hi = trunc(x) is A as it lies, and lo =
+    tf32_round(x - hi) (0 where x is inf or NaN) is all the kernel
+    computes (into registers): hi + lo is x to within 2**-21 |x|."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    hi = (b & ~0x1FFF).view(torch.float32).view(x.shape)
+    lo = torch.where(torch.isfinite(x), tf32_round(x.to(torch.float32) - hi),
+                     torch.zeros((), dtype=torch.float32, device=x.device))
+    return hi, lo
+
+
+def tf32_operands(bt: torch.Tensor) -> Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]:
+    """The B operands of gemm_f32's wgmma form: ``tf32_split(bt)`` for a
+    float32 bt, or (its codes as float32, None) for int8 codes (exact in
+    TF32: no lo half). Made once and cached on ``bt`` (until ``bt`` is
+    written in place): the forwards pass the cached weight matrix
+    (``kmajor_weights``), so a weight tensor is split once."""
+    cached = getattr(bt, "_tf32_ops", None)
+    if cached is not None and cached[0] == bt._version:
+        return cached[1]
+    if bt.dtype == torch.int8:
+        ops = (bt.to(torch.float32).contiguous(), None)
+    else:
+        hi, lo = tf32_split(bt)
+        ops = (hi.contiguous(), lo.contiguous())
+    bt._tf32_ops = (bt._version, ops)
+    return ops
+
+
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (kh,kw,Cin,Cout) weights -> the (Cout, kh*kw*Cin) K-major
+    matrix the GEMM kernels read. Made once and cached on ``w`` (until
+    ``w`` is written in place)."""
+    cached = getattr(w, "_kmajor", None)
+    if cached is not None and cached[0] == w._version:
+        return cached[1]
+    kh, kw, cin, cout = w.shape
+    wt = w.reshape(kh * kw * cin, cout).T.contiguous()
+    w._kmajor = (w._version, wt)
+    return wt
+
+
 def _check_f32(a, bt, scale, bias):
     if torch.bfloat16 in (a.dtype, bt.dtype):
         raise TypeError("gemm_f32: the bf16 form of gemm_fused has no "
@@ -278,8 +411,10 @@ def gemm_f32(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     (M,N) f32 ``act(a @ bt.T * scale + bias)``.
 
     On a CPU tensor this is the plain version; on a CUDA tensor it
-    launches the kernel (or raises), which sums in float32 with no TF32:
-    the JAX kernel runs at Precision.HIGHEST."""
+    launches the kernel (or raises), in the form ``gemm_f32_form`` picks:
+    three TF32 products of the operands' halves in the wgmma form, float32
+    FMA in the ragged one. Both keep the JAX kernel's Precision.HIGHEST
+    to within the float32 sum's own error."""
     _check_f32(a, bt, scale, bias)
     if a.device.type == "cpu":
         return gemm_f32_plain(a, bt, scale, bias, act)
@@ -288,22 +423,37 @@ def gemm_f32(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     for t in (bt, scale, bias):
         if t.device != a.device:
             raise ValueError("gemm_f32: all operands on one device")
-    a, bt = a.contiguous(), bt.contiguous()
+    a = a.contiguous()
     scale, bias = scale.contiguous(), bias.contiguous()
     m, k = a.shape
     n = bt.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
+    f = gemm_f32_form(m, n, k, a.data_ptr() % 16 == 0,
+                      _build.sm_count(a.device))
+    # the wgmma form reads B's halves (tf32_operands: fresh tensors,
+    # 16-byte aligned), the ragged form B as it is
+    if f.form == "wgmma":
+        b0, b1 = tf32_operands(bt)
+    else:
+        b0, b1 = bt.contiguous(), None
+    ws, cnt = split_buffers(a.device, f)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("gemm_f32", "gemm_f32",
-                         [p, p, p, p, p, i, i, i, i, i, p])
-    err = fn(a.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), m, n, k, KERNEL_ACT_CODES[act],
-             int(bt.dtype == torch.int8), _build.stream_ptr(a.device))
+                         [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p])
+    err = fn(a.data_ptr(), b0.data_ptr(), ptr_or_none(b1), scale.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), m, n, k, KERNEL_ACT_CODES[act],
+             int(bt.dtype == torch.int8), int(f.form == "wgmma"), f.splits,
+             f.grid, ptr_or_none(ws), ptr_or_none(cnt),
+             _build.stream_ptr(a.device))
     gemm_f32.launches += 1
+    gemm_f32.ragged_launches += f.form == "ragged"
     _build.check(err, "gemm_f32")
     return out
 
 
 gemm_f32.launches = 0
+# launches of the ragged form (gemm_f32_form): K % 4 != 0 or a misaligned
+# A; every fp32 and w8 detect shape takes the wgmma form
+gemm_f32.ragged_launches = 0

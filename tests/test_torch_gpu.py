@@ -182,16 +182,38 @@ def test_gemm_fused_misaligned_a_takes_the_ragged_form(cuda, deadline, mode):
                                                     **GEMM_MODES[mode]))
 
 
+# (M, K, N) of the gemm_f32 launches of the fp32 auto forward (and the
+# w8 gemm tier's deep layers) at 416 px: YOLOv2-tiny b32 and b1,
+# YOLOv3-tiny b16 and b1
+F32_DETECT_SHAPES = [(21632, 1152, 256), (5408, 2304, 512),
+                     (5408, 4608, 1024), (5408, 9216, 1024),
+                     (5408, 1024, 125),
+                     (676, 1152, 256), (169, 2304, 512), (169, 4608, 1024),
+                     (169, 9216, 1024), (169, 1024, 125),
+                     (10816, 1152, 256), (2704, 2304, 512),
+                     (2704, 4608, 1024), (2704, 1024, 256),
+                     (2704, 2304, 512), (10816, 3456, 256),
+                     (169, 1024, 256), (169, 2304, 512), (676, 3456, 256)]
+
+
 @pytest.mark.parametrize("b_dtype", ["f32", "int8"])
 @pytest.mark.parametrize("act", ["leaky", "linear", "relu"])
 @pytest.mark.parametrize("m,k,n", [(300, 576, 125), (37, 27, 16),
                                    (130, 1030, 70), (5408, 1024, 125),
-                                   (1, 9216, 1024)])
+                                   (1, 9216, 1024), (169, 9216, 1024),
+                                   (169, 4608, 1024), (169, 2304, 512),
+                                   (676, 1152, 256), (169, 1024, 125),
+                                   (2053, 1028, 200)])
 def test_gemm_f32_kernel_matches_plain(cuda, m, k, n, act, b_dtype):
     """The float GEMM (f32 B, and int8 codes as B) against its plain
     version, which sums in float64: within 8 sqrt(K) + 4 float32
     half-ulps of the largest sum |a||b||scale| (the kernel's float32
-    sum in its own order; ragged M, N and K, K = 27 included)."""
+    sum in its own order; ragged M, N and K, K = 27 included; the b1
+    shapes, M = 169 and K = 9216 among them, split K)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    form = gm.gemm_f32_form(m, n, k, True, sms)
+    if m == 169:
+        assert form.form == "wgmma" and form.splits > 1
     g = torch.Generator(device=cuda).manual_seed(m * k + n)
     a = torch.rand((m, k), generator=g, device=cuda) - 0.25
     if b_dtype == "int8":
@@ -211,6 +233,68 @@ def test_gemm_f32_kernel_matches_plain(cuda, m, k, n, act, b_dtype):
     tol = (8 * k ** 0.5 + 4) * 2.0 ** -24 * bound
     assert got.dtype == torch.float32 and got.shape == (m, n)
     assert float((got.double() - ref.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("b_dtype", ["f32", "int8"])
+def test_gemm_f32_detect_shapes_take_the_wgmma_form(cuda, deadline,
+                                                    b_dtype):
+    """Every fp32 and w8 detect shape at full size takes the wgmma form
+    (by the form counter), within the tolerance of the test above, and
+    its output equals the same launch repeated (the split-K sum is taken
+    in split order, and a counter left nonzero would show here)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m, k, n in F32_DETECT_SHAPES:
+        form = gm.gemm_f32_form(m, n, k, True, sms)
+        assert form.form == "wgmma"
+        assert form.splits > 1 or m > 676        # every b1 shape splits
+        a = torch.rand((m, k), generator=g, device=cuda) - 0.25
+        if b_dtype == "int8":
+            bt = _i8(g, cuda, n, k)
+            scale = torch.rand(n, generator=g, device=cuda) * 1e-3
+        else:
+            bt = torch.randn((n, k), generator=g, device=cuda)
+            scale = torch.rand(n, generator=g, device=cuda) + 0.5
+        bias = torch.randn(n, generator=g, device=cuda)
+        launches = gm.gemm_f32.launches
+        ragged = gm.gemm_f32.ragged_launches
+        first = gm.gemm_f32(a, bt, scale, bias, act="leaky")
+        again = gm.gemm_f32(a, bt, scale, bias, act="leaky")
+        ref = gm.gemm_f32_plain(a, bt, scale, bias, act="leaky")
+        torch.cuda.synchronize()
+        assert gm.gemm_f32.launches == launches + 2
+        assert gm.gemm_f32.ragged_launches == ragged, (m, k, n)
+        assert torch.equal(first, again), (m, k, n)
+        bound = float((a.double().abs() @ bt.double().abs().t()
+                       * scale.double().abs()).max())
+        tol = (8 * k ** 0.5 + 4) * 2.0 ** -24 * bound
+        err = float((first.double() - ref.double()).abs().max())
+        assert err <= tol, (m, k, n, err, tol)
+
+
+@pytest.mark.parametrize("m,k,n,ragged", [(37, 27, 16, True),
+                                          (130, 1030, 70, True),
+                                          (130, 1028, 70, False),
+                                          (300, 576, 125, False)])
+def test_gemm_f32_ragged_form_only_where_tma_cannot_map(cuda, deadline, m,
+                                                        k, n, ragged):
+    """K % 4 != 0 (27, 1030) takes the ragged form, and so does an A that
+    does not start on 16 bytes; every other shape the wgmma form."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    a = torch.rand((m, k + 1), generator=g, device=cuda)
+    bt = torch.randn((n, k), generator=g, device=cuda)
+    scale = torch.ones(n, device=cuda)
+    bias = torch.zeros(n, device=cuda)
+    for view, want in ((a[:, :k].contiguous(), ragged),
+                       (a.reshape(-1)[1:1 + m * k].view(m, k), True)):
+        before = gm.gemm_f32.ragged_launches
+        got = gm.gemm_f32(view, bt, scale, bias, act="linear")
+        ref = gm.gemm_f32_plain(view, bt, scale, bias, act="linear")
+        torch.cuda.synchronize()
+        assert gm.gemm_f32.ragged_launches == before + want
+        bound = float((view.double().abs() @ bt.double().abs().t()).max())
+        tol = (8 * k ** 0.5 + 4) * 2.0 ** -24 * bound
+        assert float((got.double() - ref.double()).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("mode,kernel", [("fp32", "auto"), ("w8", "auto"),
@@ -233,11 +317,15 @@ def test_mode_engine_card_matches_cpu(cuda, mode, kernel):
     imgs = np.random.default_rng(0).integers(
         0, 256, (2, 64, 64, 3)).astype(np.uint8)
     before = gm.gemm_f32.launches
+    ragged = gm.gemm_f32.ragged_launches
     hg, hc = gpu.classify(imgs), cpu.classify(imgs)
     torch.cuda.synchronize()
     gemm_f32 = {("fp32", "auto"): 5, ("w8", "pallas"): 9}.get((mode, kernel),
                                                              0)
     assert gm.gemm_f32.launches == before + gemm_f32
+    # only layer 0's K = 27 (w8 on the gemm tier) takes the ragged form
+    assert gm.gemm_f32.ragged_launches == ragged + (
+        (mode, kernel) == ("w8", "pallas"))
     rel = {"fp32": 2.0 ** -12, "w8": 2.0 ** -12 if kernel == "pallas"
            else 2.0 ** -7, "w8a8": 0.0}[mode]
     np.testing.assert_allclose(hg, hc, rtol=0,
@@ -250,7 +338,8 @@ def test_mode_engine_card_matches_cpu(cuda, mode, kernel):
 def test_stem_kernel_matches_plain(cuda, monkeypatch, ingest, cin, rows):
     """Every band height, on 56 px rows (14 output rows: the last band of
     4 is partial)."""
-    monkeypatch.setattr(fc, "_stem_band_rows", lambda n, hout, sms: rows)
+    monkeypatch.setattr(fc, "_stem_k2_rows",
+                        lambda n, hout, wout, sms, max_rows: rows)
     g = torch.Generator(device=cuda).manual_seed(cin)
     w = _i8(g, cuda, 2, 2, cin, 256)
     scale = torch.rand(256, generator=g, device=cuda) * 1e-2
@@ -263,6 +352,32 @@ def test_stem_kernel_matches_plain(cuda, monkeypatch, ingest, cin, rows):
     ref = fc.stem_fused_k2_plain(x, w, scale, bias, 0.0123, exact_u8=exact)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_stem_kernel_main_path_batches_match_plain(cuda, deadline, batch,
+                                                   ingest):
+    """The persistent schedule at 416 px with the band height and grid
+    the wrapper picks at b1, b8 and b32 (1, 8 (f32: 4) and 4 rows), bit
+    for bit, and the same codes launched again: the bands come by one
+    bulk copy of raw rows each."""
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    w = _i8(g, cuda, 2, 2, 64, 256)
+    scale = torch.rand(256, generator=g, device=cuda) * 1e-2
+    bias = torch.randn(256, generator=g, device=cuda)
+    xu = torch.randint(0, 256, (batch, 416, 416, 3), generator=g,
+                       device=cuda, dtype=torch.uint8)
+    x = xu.float() / 255.0 if ingest == "f32" else xu
+    exact = ingest == "exact_u8"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fc._stem_k2_rows(batch, 104, 104, sms, 8 if exact else 4) == {
+        1: 1, 8: 8 if exact else 4, 32: 4}[batch]
+    got = fc.stem_fused_k2(x, w, scale, bias, 0.0123, exact_u8=exact)
+    again = fc.stem_fused_k2(x, w, scale, bias, 0.0123, exact_u8=exact)
+    ref = fc.stem_fused_k2_plain(x, w, scale, bias, 0.0123, exact_u8=exact)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(again, ref)
 
 
 @pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
