@@ -18,9 +18,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``torch._int_mm``, printing each GEMM and conv3x3_rs row's form, tile,
    K-split and grid (``gemm_form``, ``rs_form``), and the host time of a
    ``gemm_fused`` call in both forms; the per-tap stem is timed beside
-   the k2 stem on the same inputs; then the attic kernels: stage0_fused
-   through both of its wrappers (b32 and b2, v1's operand at ht 4 and 8)
-   and conv3x3_bt
+   the k2 stem on the same inputs (b16 and b1), with the k2 stem's own
+   b32 time beside them; then the attic kernels: stage0_fused
+   through both of its wrappers (b32, b2 and b1, v1's operand at ht 4
+   and 8) and conv3x3_bt
    at YOLOv2-tiny's tail shapes (b32 and b1, also held equal to
    conv3x3_rs), whose b32 tail pass gives its launch count; and
    gemm_f32 (the float form of gemm_fused: three TF32 products on
@@ -29,8 +30,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    an int8 B, each launch in the wgmma form (K split at b1), within
    ``sum_tol`` of its float64-summed plain version, timed beside
    ``torch.matmul`` with TF32 off and both bounds (the three TF32
-   products' and one float32 product's on the FMA pipe); the k2 stem
-   also at b1;
+   products' and one float32 product's on the FMA pipe); the three
+   stems also at b1;
 4. the copy-engine tools' path: ``probe_dma_rules.main`` (every TMA
    encode verdict equal to ``tma_box_legal``, every accepted box equal to
    the slice) and ``proto_conv_dma.main`` (conv_dma at (32,104,104,64) ->
@@ -530,16 +531,26 @@ def phase_kernels(dev, ops_peak, bw):
                                                0.00787, exact_u8=True), 50)
     b1_k2_ms = device_ms(lambda: fc.stem_fused_k2(x1, w48, scale, bias,
                                                   0.00787, exact_u8=True), 50)
+    b1_err = max_abs_err(
+        fc.stem_fused_dg(x1, w48, scale, bias, 0.00787, exact_u8=True),
+        fc.stem_fused_dg_plain(x1, w48, scale, bias, 0.00787, exact_u8=True))
+    if b1_err != 0:
+        raise AssertionError("stem_fused_dg b1: kernel != plain")
     m = got.numel() // 64
     bound, by = _bound(2.0 * m * 192 * 256,
                        xu.numel() + w48.numel() + 2 * 64 * 4 + got.numel(),
                        ops_peak, bw)
+    b1_bound, _ = _bound(2.0 * m / 16 * 192 * 256,
+                         x1.numel() + w48.numel() + 2 * 64 * 4
+                         + got.numel() // 16, ops_peak, bw)
     rows["stem_fused_dg"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
-        bound_ms=bound, bound_by=by, k2_ms=k2_ms, b1_ms=b1_ms,
-        b1_k2_ms=b1_k2_ms)
+        max_abs_err=max(errs + [b1_err]), ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=bound, bound_by=by, k2_ms=k2_ms,
+        b1_ms=b1_ms, b1_k2_ms=b1_k2_ms, b1_bound_ms=b1_bound)
     print(f"  stem at v3 shapes, exact-u8: b16 dg {ms:.4f} ms vs k2 "
-          f"{k2_ms:.4f} ms; b1 dg {b1_ms:.4f} ms vs k2 {b1_k2_ms:.4f} ms")
+          f"{k2_ms:.4f} ms (bound {bound:.4f}); b1 dg {b1_ms:.4f} ms vs k2 "
+          f"{b1_k2_ms:.4f} ms (bound {b1_bound:.4f}); k2 at v2 b32 "
+          f"{rows['stem_fused_k2']['ms']:.4f} ms")
     del xu, xf, x1
 
     # --- shift_s2d2 on (32,104,104,32) ---
@@ -861,8 +872,8 @@ def phase_attic_kernels(dev, ops_peak, bw):
             raise AssertionError(f"{name} {what}: kernel != reference")
         return err
 
-    # --- stage0_fused: v2 at (32,416,416,3) and (2,64,64,3), v1 at
-    # (32,416,416,3) with ht 4 and 8 ---
+    # --- stage0_fused: v2 at (32,416,416,3), (2,64,64,3) and
+    # (1,416,416,3), v1 at (32,416,416,3) with ht 4 and 8 ---
     r = np.random.default_rng(4)
     wq = torch.as_tensor(r.integers(-127, 128, (3, 3, 3, 16)).astype(
         np.int8), device=dev)
@@ -886,6 +897,10 @@ def phase_attic_kernels(dev, ops_peak, bw):
             st0.stage0_fused_plain(x32, st0.dense_k_from_v1(wb, ht), scale,
                                    bias, s_in), f"(32,416,416,3) ht={ht}"))
     x1 = x32[:1].clone()
+    errs.append(check("stage0_fused_v2",
+                      st0.stage0_fused_v2(x1, wv, scale, bias, s_in),
+                      st0.stage0_fused_plain(x1, bv, scale, bias, s_in),
+                      str(tuple(x1.shape))))
 
     def s0_work(x):
         """(useful operations, executed operations, bytes) of one call on
@@ -1383,7 +1398,9 @@ def phase_card_vs_cpu(model: str, batch: int, check_calibration: bool,
 
 
 # (group, substring of the kernel's name); first match wins, so
-# gmax_shift_s2d2 comes before shift_s2d2
+# gmax_shift_s2d2 comes before shift_s2d2. The three stems are
+# instantiations of one mainloop (csrc/stem_common.cuh), each under its own
+# kernel name.
 KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("gemm_f32", "gemm_f32_kernel"),
                  ("stem_fused_k2", "stem_k2_kernel"),

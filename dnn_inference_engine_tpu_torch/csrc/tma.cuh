@@ -1,6 +1,8 @@
 // TMA plumbing shared by the TMA-fed kernels (tma_probe.cu, conv_dma.cu,
-// gemm_f32.cu, stem_fused_k2.cu, and through wgmma_s8.cuh gemm_fused.cu
-// and conv3x3_rs.cu): the host encoding of a tiled int8 tensor map, the
+// gemm_f32.cu, and through wgmma_s8.cuh gemm_fused.cu and conv3x3_rs.cu,
+// and through stem_common.cuh the three stems, stem_fused_k2.cu,
+// stem_fused_dg.cu and stage0_fused.cu): the host encoding of a tiled
+// int8 tensor map, the
 // mbarrier helpers, the cp.async.bulk.tensor issue for ranks 1 to 5 and
 // the plain bulk copy.
 //

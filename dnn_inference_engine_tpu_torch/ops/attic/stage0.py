@@ -8,8 +8,12 @@ byte for byte. Its two Pallas kernels, ``stage0_fused`` (v1) and
 feed the TPU's matrix unit (v1: sublane gathers into a band-rolled
 operand; v2: transposed-LHS GEMMs over three lane shifts). Neither trick
 means anything on Hopper, so both wrappers turn their own operand into
-one dense-K matrix ``B`` (128, 256) by an index gather and launch one
-kernel, ``csrc/stage0_fused.cu``.
+one dense-K matrix ``B`` (128, 256) by an index gather, lay that out once
+as the kernel's shared-memory tile (``stage0_tile_matrix``) and launch
+one kernel, ``csrc/stage0_fused.cu``: the persistent ``wgmma`` stem
+mainloop of ``csrc/stem_common.cuh`` with its own K order (each 18-byte
+patch row a 20-byte run of K) and the stems' schedule
+(``fused_conv.stem_grid``, ``stem_k2_schedule``).
 
 The function. With ``q = clip(round(x / s_in), +-127)`` (zero codes
 outside the image, SAME), fold-2 output pixel (i, j) reads the 6x6x3
@@ -41,7 +45,7 @@ from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
-    _pad_hw, _stem_band_rows, group_max4)
+    _pad_hw, group_max4, stem_grid, stem_k2_row)
 from dnn_inference_engine_tpu_torch.ops.gemm import int32_acc_plain
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
 
@@ -54,6 +58,8 @@ _N_PIECES = len(_PIECES)          # 18
 _BAND = 8                         # nonzero rows per piece: o_r in {-1..4} + 2
 K_TRUE = 108                      # 6 x 6 x 3 patch
 K_PAD = 128                       # rows of the dense-K matrix B
+RUN = 20                          # K lanes of one patch row in the tile
+STAGE0_TILE_BYTES = 256 * 128     # the kernel's B: one 128-byte K atom
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +225,37 @@ def dense_k_from_v2(w: torch.Tensor) -> torch.Tensor:
     return _dense_k(w, w.reshape(3 * 128, 256), _v2_rows(), ("v2",))
 
 
+def stage0_tile_index() -> torch.Tensor:
+    """(256, 108) int64: where byte (o, k) of B (output o, dense K index k
+    = r6*18 + c6*3 + ch) lies in ``stage0_tile_matrix``: the kernel's K
+    lane k' = RUN*r6 + c6*3 + ch (each 18-byte patch row a 20-byte run,
+    whose last 2 lanes are zero, so that every 4-byte group of A is one
+    aligned word of one staged input row), in row ``stem_k2_row(o)`` of
+    the pool-major outputs, 16-byte chunk k' // 16 XOR row % 8 (wgmma's
+    128-byte swizzle)."""
+    row = stem_k2_row(torch.arange(256)).view(-1, 1)
+    k = torch.arange(K_TRUE).view(1, -1)
+    kk = RUN * (k // 18) + k % 18
+    return row * 128 + ((kk // 16) ^ (row % 8)) * 16 + kk % 16
+
+
+def stage0_tile_matrix(b: torch.Tensor) -> torch.Tensor:
+    """B (128, 256) int8 -> the STAGE0_TILE_BYTES the kernel copies into
+    shared memory once a block: B's 108 true rows laid out by
+    ``stage0_tile_index``, zeros elsewhere. Made once and cached on the
+    tensor that holds B's storage (the K-major copy ``dense_k_from_v1`` and
+    ``_v2`` cache on their operand), until it is written in place."""
+    root = b if b._base is None else b._base
+    cached = getattr(root, "_s0_tile", None)
+    if cached is not None and cached[0] == root._version:
+        return cached[1]
+    out = b.new_zeros(STAGE0_TILE_BYTES)
+    out[stage0_tile_index().reshape(-1).to(b.device)] = \
+        b[:K_TRUE].t().reshape(-1)
+    root._s0_tile = (root._version, out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The plain version and the wrappers
 # ---------------------------------------------------------------------------
@@ -255,22 +292,20 @@ def _stage0(x, b, scale, bias, s_in, act, name):
     x = x.contiguous()
     if x.data_ptr() % 16:                 # read in 4-element vectors
         x = x.clone()
-    bt = b.t()                            # the cached K-major copy
-    if not bt.is_contiguous() or bt.data_ptr() % 16:
-        raise ValueError(f"{name}: the dense-K operand must be K-major and "
-                         "16-byte aligned")
+    tile = stage0_tile_matrix(b)          # cached beside B
     scale, bias = scale.contiguous(), bias.contiguous()
     n, h, wd, _ = x.shape
     out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.int8,
                       device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    # f32 rows: at most 4 output rows a band fit in shared memory
+    rows, grid = stem_grid(n, h // 4, wd // 4, _build.sm_count(x.device), 4)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("stage0_fused", "stage0_fused",
-                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, p])
-    err = fn(x.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             float(s_in), out.data_ptr(), n, h, wd,
-             _stem_band_rows(n, h // 4, sms), KERNEL_ACT_CODES[act],
-             _build.stream_ptr(x.device))
+                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i,
+                          p])
+    err = fn(x.data_ptr(), tile.data_ptr(), scale.data_ptr(),
+             bias.data_ptr(), float(s_in), out.data_ptr(), n, h, wd, rows,
+             grid, KERNEL_ACT_CODES[act], _build.stream_ptr(x.device))
     stage0_fused.launches += 1
     _build.check(err, name)
     return out

@@ -10,8 +10,10 @@ beside its plain PyTorch version:
   s2d(4) + 2x2 folded int8 conv + int32 group-max + epilogue, in one pass
   of a persistent ``wgmma`` kernel (its weights laid out once,
   ``stem_tile_matrix``; its schedule ``stem_k2_schedule``);
-- ``stem_fused_dg`` (``csrc/stem_fused_dg.cu``): the same function in the
-  per-tap formulation, reading host-prepared K-major weight slabs;
+- ``stem_fused_dg`` (``csrc/stem_fused_dg.cu``): the same function from
+  the per-tap weight slabs, which the kernel lays into the k2 stem's
+  shared-memory tile itself, on the same mainloop
+  (``csrc/stem_common.cuh``) and schedule;
 - ``shift_s2d2`` (``csrc/shift_s2d2.cu``, for ``shift_s2d2_pallas``):
   pad + shifted space-to-depth(2) of an int8 tensor;
 - ``quant_space_to_depth4`` (``csrc/quant_space_to_depth4.cu``):
@@ -291,16 +293,15 @@ def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((n, h // 4, wd // 4, go), dtype=torch.int8,
                       device=x.device)
     s = float(s_in) if not exact_u8 else 1.0
-    sms = _build.sm_count(x.device)
-    rows = _stem_k2_rows(n, h // 4, wd // 4, sms, 8 if exact_u8 else 4)
-    units = n * -(-(h // 4) // rows)
+    rows, grid = stem_grid(n, h // 4, wd // 4, _build.sm_count(x.device),
+                           8 if exact_u8 else 4)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("stem_fused_k2", "stem_fused_k2",
                          [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, i,
                           p])
     err = fn(x.data_ptr(), stem_tile_matrix(w).data_ptr(), scale.data_ptr(),
-             bias.data_ptr(), s, out.data_ptr(), n, h, wd, rows,
-             max(1, min(units, sms)), int(exact_u8), KERNEL_ACT_CODES[act],
+             bias.data_ptr(), s, out.data_ptr(), n, h, wd, rows, grid,
+             int(exact_u8), KERNEL_ACT_CODES[act],
              _build.stream_ptr(x.device))
     stem_fused_k2.launches += 1
     _build.check(err, "stem_fused_k2")
@@ -310,28 +311,19 @@ def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 stem_fused_k2.launches = 0
 
 
-def _stem_band_rows(n: int, hout: int, sms: int) -> int:
-    """Output rows per block of the per-tap stem and ``stage0_fused``: 4,
-    or fewer while the grid would not give every SM two blocks (one block
-    stages its band's input rows and the folded weights once)."""
-    rows = 4
-    while rows > 1 and n * -(-hout // rows) < 2 * sms:
-        rows //= 2
-    return rows
-
-
-# The persistent k2 stem's shared-memory layout of the folded weights
-# (csrc/stem_fused_k2.cu): 256 rows (the pool-major outputs) of two
-# 128-byte K atoms, 128-byte swizzle.
+# The persistent stem mainloop's shared-memory layout of the folded
+# weights (csrc/stem_common.cuh; the k2 and dg stems): 256 rows (the
+# pool-major outputs) of two 128-byte K atoms, 128-byte swizzle.
 STEM_K2_TILE_BYTES = 2 * 256 * 128
 STEM_K2_TILE = 64                # output pixels of one wgmma tile
 
 
 def _stem_k2_rows(n: int, hout: int, wout: int, sms: int,
                   max_rows: int = 8) -> int:
-    """Output rows of one unit (an image's band) of the persistent k2 stem
-    on ``sms`` SMs: of 8, 4, 2 and 1 (at most ``max_rows``: 4 for f32
-    input, whose raw rows take four times the shared memory), the one
+    """Output rows of one unit (an image's band) of the persistent stem
+    mainloop (the k2 and dg stems, ``stage0_fused``) on ``sms`` SMs: of
+    8, 4, 2 and 1 (at most ``max_rows``: 4 for f32 input, whose raw rows
+    take four times the shared memory), the one
     whose busiest block runs the fewest 64-pixel tiles (units are dealt
     out in turn; a band's last tile may be ragged), the most rows on a tie
     (less halo to stage)."""
@@ -341,9 +333,19 @@ def _stem_k2_rows(n: int, hout: int, wout: int, sms: int,
     return min((r for r in (8, 4, 2, 1) if r <= max_rows), key=cost)
 
 
+def stem_grid(n: int, hout: int, wout: int, sms: int,
+              max_rows: int) -> Tuple[int, int]:
+    """(rows, grid) of a launch of the persistent stem mainloop: the band
+    height ``_stem_k2_rows`` picks and one block an SM, at most one a
+    unit."""
+    rows = _stem_k2_rows(n, hout, wout, sms, max_rows)
+    return rows, max(1, min(n * -(-hout // rows), sms))
+
+
 def stem_k2_schedule(n: int, hout: int, wout: int, rows: int,
                      grid: int) -> List[List[Tuple[int, int, int, int]]]:
-    """The persistent k2 stem's schedule, as the kernel walks it: for each
+    """The persistent stem mainloop's schedule (the k2 and dg stems,
+    ``stage0_fused``), as the kernel walks it: for each
     block, its (image, first output row, consumer, first pixel of the
     band) tiles in order. Block b takes units b, b + grid, ... (unit u:
     image u // bands, band u % bands); consumer c takes the band's 64-pixel
@@ -427,9 +429,12 @@ def stem_fused_dg_plain(x, w, scale, bias, s_in, act="leaky",
 
 def stem_dg_weight_slabs(w: torch.Tensor) -> torch.Tensor:
     """(2, 2, C, 256) folded stem weights -> the (4, 256, 48) per-tap
-    slabs, K-major: the dg kernel's shared-memory layout. Rows 48.. (a
-    cin_pad) are dropped. Made once and cached on ``w`` (until ``w`` is
-    written in place)."""
+    slabs, K-major, which the dg kernel reads: slab row (tap, o) is the
+    16-byte chunks 3 tap .. 3 tap + 2 of ``stem_tile_matrix``'s K for
+    output o, and the kernel lays each chunk into that tile in shared
+    memory (``csrc/stem_common.cuh`` lay_slabs). Rows 48.. (a cin_pad)
+    are dropped. Made once and cached on ``w`` (until ``w`` is written in
+    place)."""
     cached = getattr(w, "_dg_slabs", None)
     if cached is not None and cached[0] == w._version:
         return cached[1]
@@ -445,13 +450,14 @@ def stem_fused_dg(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """``stem_fused_k2`` in the per-tap formulation: the same arguments
     and the same result, bit for bit. Any cin_pad rows of ``w`` are
     dropped (their input lanes are zero). On the card the kernel reads
-    the weights as ``stem_dg_weight_slabs(w)``."""
+    the weights as ``stem_dg_weight_slabs(w)`` and runs the k2 stem's
+    mainloop, band height and grid (``stem_grid``)."""
     _stem_check(x, w, scale, bias, exact_u8, "stem_fused_dg")
     if x.device.type == "cpu":
         return stem_fused_dg_plain(x, w, scale, bias, s_in, act, exact_u8)
     _stem_card_check(x, w, scale, bias, "stem_fused_dg")
     slabs = stem_dg_weight_slabs(w)
-    if slabs.data_ptr() % 16:        # read by 16-byte cp.async
+    if slabs.data_ptr() % 16:        # read 16 bytes at a time
         raise ValueError("stem_fused_dg: weight slabs not 16-byte aligned")
     x = x.contiguous()
     if x.data_ptr() % 16:            # read in 4-element vectors
@@ -461,14 +467,16 @@ def stem_fused_dg(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.int8,
                       device=x.device)
     s = float(s_in) if not exact_u8 else 1.0
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, grid = stem_grid(n, h // 4, wd // 4, _build.sm_count(x.device),
+                           8 if exact_u8 else 4)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("stem_fused_dg", "stem_fused_dg",
-                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, p])
+                         [p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, i,
+                          p])
     err = fn(x.data_ptr(), slabs.data_ptr(), scale.data_ptr(),
-             bias.data_ptr(), s, out.data_ptr(), n, h, wd,
-             _stem_band_rows(n, h // 4, sms), int(exact_u8),
-             KERNEL_ACT_CODES[act], _build.stream_ptr(x.device))
+             bias.data_ptr(), s, out.data_ptr(), n, h, wd, rows, grid,
+             int(exact_u8), KERNEL_ACT_CODES[act],
+             _build.stream_ptr(x.device))
     stem_fused_dg.launches += 1
     _build.check(err, "stem_fused_dg")
     return out

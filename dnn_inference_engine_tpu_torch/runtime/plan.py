@@ -62,7 +62,8 @@ from dnn_inference_engine_tpu_torch.models.model import (
     _to_f32, _upsample_nearest,
 )
 from dnn_inference_engine_tpu_torch.ops.attic.stage0 import (
-    build_stage0_weights_v2, dense_k_from_v2, stage0_fused_v2)
+    build_stage0_weights_v2, dense_k_from_v2, stage0_fused_v2,
+    stage0_tile_matrix)
 from dnn_inference_engine_tpu_torch.ops.conv import (
     conv2d_w8_bf16, conv2d_w8a8)
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
@@ -320,7 +321,8 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
     """Pre-fold weights for folded stages (host-side, once), store each
     GEMM stage's K-major weight matrix ``wt`` (gemm_weights), and lay out
     the stem_dg kernel's weight slabs, the rs kernel's K-major matrix and
-    the s0 kernel's dense-K matrix (each cached on its weights)."""
+    the s0 kernel's dense-K matrix and tile (each cached on its
+    weights)."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -332,7 +334,7 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
                 p["wq"].cpu().numpy(), np.ones(16, np.float32),
                 np.zeros(16, np.float32), 1.0, 1.0)
             wv = torch.as_tensor(wv, device=p["wq"].device)
-            dense_k_from_v2(wv)
+            stage0_tile_matrix(dense_k_from_v2(wv))
             out.append({"wv": wv, "s_w": p["s_w"], "b": p["b"]})
             continue
         if st.fold > 1:

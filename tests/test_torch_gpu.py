@@ -382,13 +382,16 @@ def test_stem_kernel_main_path_batches_match_plain(cuda, deadline, batch,
 
 @pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
 @pytest.mark.parametrize("cin", [48, 64])
-@pytest.mark.parametrize("rows", [1, 2, 4])
-@pytest.mark.parametrize("batch", [1, 2, 16])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("batch", [1, 2, 16, 32])
 def test_stem_dg_kernel_matches_plain(cuda, monkeypatch, batch, rows, cin,
                                       ingest):
-    """Every band height at batches 1, 2 and 16, on 56 px rows (14 output
-    rows: the last band of 4 is partial); equal to the k2 kernel too."""
-    monkeypatch.setattr(fc, "_stem_band_rows", lambda n, hout, sms: rows)
+    """Every band height at batches 1, 2, 16 and 32, on 56 px rows (14
+    output rows: the last band of 4 or 8 is partial) 72 px wide (a band's
+    last 64-pixel tile is ragged), each activation; equal to the k2
+    kernel too."""
+    monkeypatch.setattr(fc, "_stem_k2_rows",
+                        lambda n, hout, wout, sms, max_rows: rows)
     g = torch.Generator(device=cuda).manual_seed(batch * 100 + cin)
     w = _i8(g, cuda, 2, 2, cin, 256)
     scale = torch.rand(256, generator=g, device=cuda) * 1e-2
@@ -397,14 +400,44 @@ def test_stem_dg_kernel_matches_plain(cuda, monkeypatch, batch, rows, cin,
                        dtype=torch.uint8)
     x = xu.float() / 255.0 if ingest == "f32" else xu
     exact = ingest == "exact_u8"
-    before = fc.stem_fused_dg.launches
+    for act in ("leaky", "linear", "relu"):
+        before = fc.stem_fused_dg.launches
+        got = fc.stem_fused_dg(x, w, scale, bias, 0.0123, act=act,
+                               exact_u8=exact)
+        assert fc.stem_fused_dg.launches == before + 1
+        ref = fc.stem_fused_dg_plain(x, w, scale, bias, 0.0123, act=act,
+                                     exact_u8=exact)
+        k2 = fc.stem_fused_k2(x, w, scale, bias, 0.0123, act=act,
+                              exact_u8=exact)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), act
+        assert torch.equal(got, k2), act
+
+
+@pytest.mark.parametrize("ingest", ["f32", "exact_u8"])
+@pytest.mark.parametrize("batch", [1, 16, 32])
+def test_stem_dg_kernel_main_path_batches_match_plain(cuda, deadline, batch,
+                                                      ingest):
+    """The slab-fed persistent stem at 416 px with the band height and
+    grid the wrapper picks (exact u8: 1, 8, 4 rows; f32: 1, 1, 4), bit
+    for bit, and the same codes launched again (the slabs laid out anew in
+    every block)."""
+    g = torch.Generator(device=cuda).manual_seed(batch + 7)
+    w = _i8(g, cuda, 2, 2, 64, 256)
+    scale = torch.rand(256, generator=g, device=cuda) * 1e-2
+    bias = torch.randn(256, generator=g, device=cuda)
+    xu = torch.randint(0, 256, (batch, 416, 416, 3), generator=g,
+                       device=cuda, dtype=torch.uint8)
+    x = xu.float() / 255.0 if ingest == "f32" else xu
+    exact = ingest == "exact_u8"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, _ = fc.stem_grid(batch, 104, 104, sms, 8 if exact else 4)
+    assert rows == {1: 1, 16: 8 if exact else 1, 32: 4}[batch]
     got = fc.stem_fused_dg(x, w, scale, bias, 0.0123, exact_u8=exact)
-    assert fc.stem_fused_dg.launches == before + 1
+    again = fc.stem_fused_dg(x, w, scale, bias, 0.0123, exact_u8=exact)
     ref = fc.stem_fused_dg_plain(x, w, scale, bias, 0.0123, exact_u8=exact)
-    k2 = fc.stem_fused_k2(x, w, scale, bias, 0.0123, exact_u8=exact)
     torch.cuda.synchronize()
-    assert torch.equal(got, ref)
-    assert torch.equal(got, k2)
+    assert torch.equal(got, ref) and torch.equal(again, ref)
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 32), (1, 10, 14, 5),
@@ -627,13 +660,16 @@ def _stage0_operands(dev, r):
 
 @pytest.mark.parametrize("act", ["leaky", "linear", "relu"])
 @pytest.mark.parametrize("rows", [1, 2, 4])
-@pytest.mark.parametrize("shape", [(2, 56, 72, 3), (1, 64, 64, 3)])
+@pytest.mark.parametrize("shape", [(2, 56, 72, 3), (1, 64, 64, 3),
+                                   (16, 56, 72, 3), (32, 32, 40, 3)])
 def test_stage0_kernel_matches_plain(cuda, monkeypatch, shape, rows, act):
     """stage0_fused_v2 on the card against the plain version on the same
-    dense-K operand: every band height (56 px: 14 output rows, the last
-    band of 4 partial), one launch counted."""
+    dense-K operand: every band height at batches 1, 2, 16 and 32 (56 px:
+    14 output rows, the last band of 4 partial; 72 and 40 px wide: a
+    band's last 64-pixel tile ragged), one launch counted."""
     from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
-    monkeypatch.setattr(st0, "_stem_band_rows", lambda n, hout, sms: rows)
+    monkeypatch.setattr(fc, "_stem_k2_rows",
+                        lambda n, hout, wout, sms, max_rows: rows)
     g = torch.Generator(device=cuda).manual_seed(rows)
     _, _, _, w, scale, bias = _stage0_operands(
         cuda, np.random.default_rng(rows))
@@ -647,24 +683,60 @@ def test_stage0_kernel_matches_plain(cuda, monkeypatch, shape, rows, act):
     assert got.shape == ref.shape and torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("kernel", ["k2", "dg", "stage0"])
+def test_stem_kernels_stage_from_device_memory_where_raw_rows_do_not_fit(
+        cuda, monkeypatch, kernel):
+    """f32 rows 416 px wide at 8 output rows a band: the raw rows do not
+    fit beside the rest, so the producer stages each band from device
+    memory; the codes are the plain version's all the same."""
+    from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
+    monkeypatch.setattr(fc, "_stem_k2_rows",
+                        lambda n, hout, wout, sms, max_rows: 8)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.rand((2, 72, 416, 3), generator=g, device=cuda)
+    if kernel == "stage0":
+        _, _, _, w, scale, bias = _stage0_operands(
+            cuda, np.random.default_rng(11))
+        got = st0.stage0_fused_v2(x, w, scale, bias, 0.00789)
+        ref = st0.stage0_fused_plain(x, st0.dense_k_from_v2(w), scale, bias,
+                                     0.00789)
+    else:
+        w = _i8(g, cuda, 2, 2, 48, 256)
+        scale = torch.rand(256, generator=g, device=cuda) * 1e-2
+        bias = torch.randn(256, generator=g, device=cuda)
+        fn = fc.stem_fused_k2 if kernel == "k2" else fc.stem_fused_dg
+        got = fn(x, w, scale, bias, 0.0123)
+        ref = fc.stem_fused_k2_plain(x, w, scale, bias, 0.0123)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 32])
 @pytest.mark.parametrize("ht", [4, 8])
-def test_stage0_v1_kernel_matches_plain_and_v2(cuda, ht):
-    """v1's operand at 416 px gives the same codes as v2's on the card."""
+def test_stage0_v1_kernel_matches_plain_and_v2(cuda, deadline, ht, batch):
+    """v1's operand at 416 px gives the same codes as v2's on the card, at
+    the band height and grid the wrapper picks (b1: 1 row, b2: 2, b32:
+    4), and again on a second launch."""
     from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
     r = np.random.default_rng(ht)
     g = torch.Generator(device=cuda).manual_seed(ht)
     wq, s_w, b, w, scale, bias = _stage0_operands(cuda, r)
     wb, _, _ = st0.stage0_params(torch.from_numpy(wq).to(cuda), s_w, b,
                                  0.00789, 0.0511, ht=ht)
-    x = torch.rand((2, 416, 416, 3), generator=g, device=cuda)
+    x = torch.rand((batch, 416, 416, 3), generator=g, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fc.stem_grid(batch, 104, 104, sms, 4)[0] == {1: 1, 2: 2,
+                                                        32: 4}[batch]
     before = st0.stage0_fused.launches
     got = st0.stage0_fused(x, wb, scale, bias, 0.00789, ht=ht)
     assert st0.stage0_fused.launches == before + 1
+    again = st0.stage0_fused(x, wb, scale, bias, 0.00789, ht=ht)
     ref = st0.stage0_fused_plain(x, st0.dense_k_from_v1(wb, ht), scale, bias,
                                  0.00789)
     v2 = st0.stage0_fused_v2(x, w, scale, bias, 0.00789)
     torch.cuda.synchronize()
     assert torch.equal(got, ref) and torch.equal(got, v2)
+    assert torch.equal(again, ref)
 
 
 BT_CASES = [

@@ -311,12 +311,6 @@ def test_stem_dg_weight_slabs_layout_and_cache(r):
     assert s2 is not s and int(s2[2, 7, 5]) == int(w[1, 0, 5, 7])
 
 
-@pytest.mark.parametrize("n,rows", [(32, 4), (8, 2), (4, 1), (1, 1)])
-def test_stem_band_rows_give_every_sm_two_blocks(n, rows):
-    """416 px (104 output rows) on a 132-SM card."""
-    assert tfc._stem_band_rows(n, 104, 132) == rows
-
-
 @pytest.mark.parametrize("shape", [(2, 16, 16, 32), (1, 10, 14, 5),
                                    (2, 26, 26, 128)])
 def test_shift_s2d2_plain_matches_jax(r, shape):
