@@ -23,7 +23,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    through both of its wrappers (b32, b2 and b1, v1's operand at ht 4
    and 8) and conv3x3_bt
    at YOLOv2-tiny's tail shapes (b32 and b1, also held equal to
-   conv3x3_rs), whose b32 tail pass gives its launch count; and
+   conv3x3_rs and timed beside it and ``torch._int_mm``, each row with
+   its K-split and grid), whose b32 tail pass gives its launch count; and
    gemm_f32 (the float form of gemm_fused: three TF32 products on
    wgmma, two for int8 codes) at the fp32 gemm tier's shapes
    (YOLOv2-tiny b32 and b1, YOLOv3-tiny b16 and b1) with a float32 and
@@ -36,7 +37,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    encode verdict equal to ``tma_box_legal``, every accepted box equal to
    the slice) and ``proto_conv_dma.main`` (conv_dma at (32,104,104,64) ->
    128 for each ht, and conv3x3_rs on the same inputs), counters from 0;
-   then conv_dma against its plain version and conv3x3_rs at that shape,
+   then conv_dma against its plain version and conv3x3_rs at that shape
+   for each ht (every ht launches the same kernel, so one is timed),
    timed beside its bound, the plain version, conv3x3_rs and
    ``torch._int_mm``, and tma_probe against its plain copy;
 5. card against CPU, W8A8 at 416 px from seeded random weights:
@@ -856,6 +858,7 @@ def phase_attic_kernels(dev, ops_peak, bw):
     the im2col'd A, product only). conv3x3_bt is on no detect path (the
     JAX package wires it into none): its launches are those of the b32
     tail pass, one call at each b32 shape, counted from 0."""
+    from dnn_inference_engine_tpu_torch.ops import _build
     from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
     from dnn_inference_engine_tpu_torch.ops.attic import stage0 as st0
     from dnn_inference_engine_tpu_torch.ops.attic import tail
@@ -970,8 +973,9 @@ def phase_attic_kernels(dev, ops_peak, bw):
         bound, by = _bound(2.0 * m * k * cout,
                            x.numel() + w.numel() + 8 * cout + m * cout,
                            ops_peak, bw)
+        form = tail.bt_form(m, cout, cin, _build.sm_count(dev))
         row = dict(
-            shape=tag, M=m, K=k, N=cout,
+            shape=tag, M=m, K=k, N=cout, splits=form.splits, grid=form.grid,
             ms=device_ms(lambda: tail.conv3x3_bt(x, w, scale, bias), 10),
             plain_ms=device_ms(lambda: tail.conv3x3_bt_plain(
                 x, w, scale, bias), 2),
@@ -982,7 +986,7 @@ def phase_attic_kernels(dev, ops_peak, bw):
         print(f"  conv3x3_bt {tag} M={m} K={k} N={cout}: ms={row['ms']:.4f} "
               f"rs_ms={row['rs_ms']:.4f} plain_ms={row['plain_ms']:.3f} "
               f"int_mm_ms={row['library_ms']:.4f} bound_ms={bound:.4f} "
-              f"({by})")
+              f"({by}); 128x128 split {form.splits} grid {form.grid}")
         del a, wt
     b32 = [r for r in shapes if r["shape"].endswith("b32")]
     rows["conv3x3_bt"] = dict(
@@ -1008,6 +1012,7 @@ def phase_dma_kernels(dev, ops_peak, bw):
     4x), timed beside them and ``torch._int_mm`` on the im2col'd A
     (product only); tma_probe on every case the encode accepts, timed on
     the largest box inside its source beside a slice's ``clone``."""
+    from dnn_inference_engine_tpu_torch.ops import _build
     from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
     from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
         extract_patches)
@@ -1044,13 +1049,14 @@ def phase_dma_kernels(dev, ops_peak, bw):
     ref = pc.conv_dma_plain(x, w, scale, bias)
     rs = fc.conv3x3_rs(x, w, s4, b4, pool=("gmaxm", 2, go))
     errs = [check("conv3x3_rs", rs, ref, "vs conv_dma_plain")]
-    ht_ms = {}
+    sms = _build.sm_count(dev)
+    f = pc.conv_dma_form(n, h, wd, cin, go, sms)
     for ht in pc.HTS:
         got = pc.conv_dma(x, w, scale, bias, ht=ht)
         errs.append(check("conv_dma", got, ref, f"ht {ht} vs plain"))
         errs.append(check("conv_dma", got, rs, f"ht {ht} vs conv3x3_rs"))
-        ht_ms[ht] = device_ms(
-            lambda ht=ht: pc.conv_dma(x, w, scale, bias, ht=ht), 10)
+    # ht does not shape the launch: one time stands for every ht
+    ht = pc.HTS[0]
     m, k = n * h * wd, 9 * cin
     a = extract_patches(x, 3, 3, 1, "SAME").reshape(m, k)
     wt = fc.rs_weight_matrix(w)
@@ -1058,20 +1064,19 @@ def phase_dma_kernels(dev, ops_peak, bw):
                        x.numel() + w.numel() + 8 * go + ref.numel(),
                        ops_peak, bw)
     rows["conv_dma"] = dict(
-        max_abs_err=max(errs), ms=ht_ms[pc.HTS[0]],
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: pc.conv_dma(x, w, scale, bias, ht=ht), 10),
         plain_ms=device_ms(lambda: pc.conv_dma_plain(x, w, scale, bias), 2),
         library_ms=device_ms(lambda: torch._int_mm(a, wt.t()), 10),
         bound_ms=bound, bound_by=by,
-        ht_ms=ht_ms,
         rs_ms=device_ms(lambda: fc.conv3x3_rs(x, w, s4, b4,
                                               pool=("gmaxm", 2, go)), 10))
     r = rows["conv_dma"]
     print(f"  conv_dma ({n},{h},{wd},{cin}) -> {4 * go}, go {go} (M={m} "
-          f"K={k}): ms by ht " + ", ".join(f"{t} {v:.4f}"
-                                           for t, v in ht_ms.items())
-          + f"; conv3x3_rs {r['rs_ms']:.4f}; plain "
-          f"{r['plain_ms']:.3f}; int_mm {r['library_ms']:.4f}; bound "
-          f"{bound:.4f} ({by})")
+          f"K={k}), every ht of {pc.HTS}: tile {pc.TR}x{pc.TC}, {f.units} "
+          f"units on {f.grid} blocks: ms={r['ms']:.4f} rs_ms="
+          f"{r['rs_ms']:.4f} plain_ms={r['plain_ms']:.3f} int_mm_ms="
+          f"{r['library_ms']:.4f} bound_ms={bound:.4f} ({by})")
     del x, w, a, wt, ref, rs
 
     errs, largest = [], None

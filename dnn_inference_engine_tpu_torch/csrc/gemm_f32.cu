@@ -164,19 +164,6 @@ __device__ __forceinline__ uint32_t lo_of(float x) {
   return (b & 0x7F800000u) == 0x7F800000u ? 0u : r;
 }
 
-// The wgmma descriptor of a K-major operand tile in the 64-byte swizzle:
-// rows of 64 bytes (one swizzle atom), the 16-byte chunk c of row r at
-// chunk c ^ ((r / 2) % 4), as TMA's CU_TENSOR_MAP_SWIZZLE_64B writes it;
-// start address >> 4, leading byte offset 1 (unused), stride byte offset
-// 512 (one 8-row group) >> 4, layout type 2 (64-byte swizzle). Every tile
-// starts on a 1024-byte boundary; the k8 slice kk of a stage is the start
-// advanced by 32 kk bytes.
-__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
-  const uint64_t a = tma::smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(512 >> 4) << 32) | (uint64_t(2) << 62);
-}
-
 __device__ __forceinline__ void fence_acc(float (&acc)[NREG]) {
 #pragma unroll
   for (int i = 0; i < NREG; ++i) asm volatile("" : "+f"(acc[i])::"memory");
@@ -272,9 +259,9 @@ __device__ __forceinline__ void mma_unit(float (&acc)[NREG],
   for (int kt = 0; kt < nk; ++kt) {
     wg::wait(&ring.full[pipe.stage], pipe.phase);
     const uint8_t* as = ring.a(pipe.stage);
-    const uint64_t dh = desc_sw64(as);
-    const uint64_t b0 = desc_sw64(ring.b(pipe.stage, 0));
-    const uint64_t b1 = desc_sw64(ring.b(pipe.stage, NB - 1));
+    const uint64_t dh = wg::desc_sw64(as);
+    const uint64_t b0 = wg::desc_sw64(ring.b(pipe.stage, 0));
+    const uint64_t b1 = wg::desc_sw64(ring.b(pipe.stage, NB - 1));
 #pragma unroll
     for (int kk = 0; kk < KF / 8; ++kk) {
       // lo of this slice's A fragments, from shared memory: element (R,

@@ -1,7 +1,7 @@
-// Shared by the int8 GEMM (gemm_fused.cu, its ragged form), the
-// implicit-im2col conv (conv3x3_rs.cu), the attic tail conv
-// (conv3x3_bt.cu) and the copy-engine conv (conv_dma.cu): 16-byte
-// cp.async, the m16n8k32 s8 mma.sync and the exactly rounded epilogue.
+// Shared by the int8 GEMM (gemm_fused.cu, its ragged form) and the
+// implicit-im2col conv (conv3x3_rs.cu): 16-byte cp.async, the m16n8k32
+// s8 mma.sync; and by them, the attic tail conv (conv3x3_bt.cu) and the
+// copy-engine conv (conv_dma.cu): the exactly rounded epilogue.
 //
 // Every epilogue rounding is explicit (__fmul_rn, __fadd_rn, rintf): nvcc
 // would otherwise contract a*b+c into an FMA, which rounds once where XLA's

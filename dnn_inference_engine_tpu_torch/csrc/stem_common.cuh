@@ -152,33 +152,6 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
                      0x5410);
 }
 
-// d (64 int32) += A (64 x 32 s8, registers a[4]) * B (32 x 128 s8,
-// descriptor b); scale_d 0 overwrites d.
-__device__ __forceinline__ void mma_rs(int* d, const unsigned (&a)[4],
-                                       uint64_t b, int scale_d) {
-  asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d));
-}
-
 __device__ __forceinline__ void fence_acc(int (&acc)[NACC]) {
 #pragma unroll
   for (int i = 0; i < NACC; ++i) asm volatile("" : "+r"(acc[i])::"memory");
@@ -593,12 +566,12 @@ __device__ __forceinline__ void run(const Args& p, uint8_t* smem) {
         wg::wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < KSTEPS; ++kc) {
-          mma_rs(acc0, a[kc], db[kc / 4][0] + 2 * (kc % 4), kc != 0);
+          wg::mma_rs(acc0, a[kc], db[kc / 4][0] + 2 * (kc % 4), kc != 0);
         }
         wg::wgmma_commit();
 #pragma unroll
         for (int kc = 0; kc < KSTEPS; ++kc) {
-          mma_rs(acc1, a[kc], db[kc / 4][1] + 2 * (kc % 4), kc != 0);
+          wg::mma_rs(acc1, a[kc], db[kc / 4][1] + 2 * (kc % 4), kc != 0);
         }
         wg::wgmma_commit();
         uint32_t words[4][2];

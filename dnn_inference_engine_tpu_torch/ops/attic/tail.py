@@ -11,7 +11,10 @@ bias[co])`` and, with ``quantize_out``, ``clip(round(y))``.
 ``conv3x3_bt`` is the wrapper of the Hopper kernel ``csrc/conv3x3_bt.cu``
 beside its plain PyTorch version; a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. The TPU kernel's tiling
-arguments (``tm``, ``tn``, ``interpret``) have no counterpart here.
+arguments (``tm``, ``tn``, ``interpret``) have no counterpart here: the
+kernel's tile is 128 flat rows x 128 channels, and ``bt_form`` says how
+it launches (K split in chunks of 128 channels where the tiles alone
+leave SMs idle).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.ops.fused_conv import rs_weight_matrix
-from dnn_inference_engine_tpu_torch.ops.gemm import int32_acc_plain
+from dnn_inference_engine_tpu_torch.ops.gemm import (
+    H100_SMS, WG_BM, WG_BN, GemmForm, int32_acc_plain, k_splits, ptr_or_none,
+    split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
 
 
@@ -75,6 +80,22 @@ def conv3x3_bt_plain(x, w, scale, bias, act="leaky", quantize_out=True):
     return y.reshape(n, h, wd, cout)
 
 
+BT_KC = 128                      # bytes of Cin a window chunk
+
+
+def bt_form(m: int, cout: int, cin: int, sms: int = H100_SMS) -> GemmForm:
+    """How ``conv3x3_bt`` launches on a card of ``sms`` SMs: tiles of 128
+    of the ``m`` flat output rows x 128 of ``cout`` channels; K (9 taps of
+    ``cin`` channels) split in whole window chunks of 128 channels, as
+    ``gemm_fused`` splits its 128-byte stages where the tiles alone leave
+    SMs idle (each chunk is 9 stages of the ring), at most one split a
+    chunk."""
+    tiles = -(-m // WG_BM) * -(-cout // WG_BN)
+    chunks = cin // BT_KC
+    splits = max(1, min(k_splits(tiles, 9 * chunks, sms), chunks))
+    return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
+
+
 def conv3x3_bt(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, act: str = "leaky",
                quantize_out: bool = True) -> torch.Tensor:
@@ -93,7 +114,7 @@ def conv3x3_bt(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if any(t.device != x.device for t in (w, scale, bias)):
         raise ValueError("conv3x3_bt: all operands on one device")
     x = x.contiguous()
-    if x.data_ptr() % 16:                 # read by 16-byte cp.async
+    if x.data_ptr() % 16:                 # the tensor map's base address
         x = x.clone()
     wt = rs_weight_matrix(w)
     scale, bias = scale.contiguous(), bias.contiguous()
@@ -101,12 +122,15 @@ def conv3x3_bt(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     cout = int(w.shape[3])
     out = torch.empty((n, h, wd, cout), device=x.device,
                       dtype=torch.int8 if quantize_out else torch.float32)
+    f = bt_form(n * h * wd, cout, cin, _build.sm_count(x.device))
+    ws, cnt = split_buffers(x.device, f)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("conv3x3_bt", "conv3x3_bt",
-                         [p, p, p, p, p, i, i, i, i, i, i, i, p])
+                         [p, p, p, p, p] + [i] * 9 + [p, p, p])
     err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
              out.data_ptr(), n, h, wd, cin, cout, int(quantize_out),
-             KERNEL_ACT_CODES[act], _build.stream_ptr(x.device))
+             KERNEL_ACT_CODES[act], f.splits, f.grid, ptr_or_none(ws),
+             ptr_or_none(cnt), _build.stream_ptr(x.device))
     conv3x3_bt.launches += 1
     _build.check(err, "conv3x3_bt")
     return out

@@ -78,13 +78,16 @@ CASES = [
 
 
 def tma_box_legal(shape: Sequence[int], strides: Sequence[int],
-                  box: Sequence[int], base_offset: int) -> Tuple[bool, str]:
+                  box: Sequence[int], base_offset: int,
+                  swizzle: int = 0) -> Tuple[bool, str]:
     """The documented rules of ``cuTensorMapEncodeTiled`` for an int8
-    tensor (no interleave, no swizzle): ``(legal, the first rule broken,
-    or "")``. ``shape``, ``strides`` (bytes) and ``box`` are outermost
-    first; the innermost stride is 1. ``base_offset`` is the source
-    address modulo 16. Coordinates are unconstrained: box elements outside
-    the source read as zeros."""
+    tensor (no interleave): ``(legal, the first rule broken, or "")``.
+    ``shape``, ``strides`` (bytes) and ``box`` are outermost first; the
+    innermost stride is 1. ``base_offset`` is the source address modulo
+    16. ``swizzle``: the shared-memory swizzle's span in bytes (32, 64 or
+    128; 0 for none), which the box's inner extent may not exceed.
+    Coordinates are unconstrained: box elements outside the source read as
+    zeros."""
     rank = len(shape)
     if not 1 <= rank <= 5:
         return False, f"rank {rank} is not 1-5"
@@ -104,6 +107,11 @@ def tma_box_legal(shape: Sequence[int], strides: Sequence[int],
     if box[-1] % 16:
         return False, f"the box's inner extent is {box[-1]} bytes, not a " \
                       f"multiple of 16"
+    if swizzle not in (0, 32, 64, 128):
+        return False, f"swizzle span {swizzle} is not 0, 32, 64 or 128"
+    if swizzle and box[-1] > swizzle:
+        return False, f"the box's inner extent is {box[-1]} bytes, above " \
+                      f"the {swizzle}-byte swizzle span"
     return True, ""
 
 

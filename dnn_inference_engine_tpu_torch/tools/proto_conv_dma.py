@@ -4,9 +4,11 @@ assembles (+ the fused pool-major group-max).
 Counterpart of the JAX repo's ``tools/proto_conv_dma.py``, which asks
 whether the TPU's DMA engines, rather than its vector unit, can build the
 A matrix of ``conv3x3_rs``. On an NVIDIA Hopper card the copy engine is
-TMA: ``conv_dma`` (``csrc/conv_dma.cu``) copies the nine tap boxes of
-each step straight from x into shared memory, the SAME halo zero-filled
-by the copy engine, and multiplies them against resident weights.
+TMA: ``conv_dma`` (``csrc/conv_dma.cu``) copies each tap of a tile of
+output pixels as one box straight from x into ``wgmma``'s swizzled
+operand layout, the SAME halo zero-filled by the copy engine, and
+multiplies it against the weights (resident where they fit) on the
+Hopper int8 mainloop; ``conv_dma_form`` says how it launches.
 
 It computes ``conv3x3_rs(x, w, scale4, bias4, pool=("gmaxm", 2, go))``
 with scale and bias tiled 4x: the int32 3x3 SAME conv, the max over the
@@ -27,6 +29,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,46 +37,69 @@ import torch
 from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import apply_activation
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
-    _pad_hw, _round_up, conv3x3_rs, rs_weight_matrix)
-from dnn_inference_engine_tpu_torch.ops.gemm import int32_acc_plain
+    _pad_hw, conv3x3_rs, rs_tile_matrix)
+from dnn_inference_engine_tpu_torch.ops.gemm import H100_SMS, int32_acc_plain
 from dnn_inference_engine_tpu_torch.runtime.benchlib import per_iter_time
 from dnn_inference_engine_tpu_torch.runtime.engine import resolve_device
 from dnn_inference_engine_tpu_torch.tools.probe_dma_rules import (
-    MAX_BOX, SMEM_LIMIT, tma_box_legal)
+    MAX_BOX, tma_box_legal)
 
 N, H, W, CIN, COUT = 32, 104, 104, 64, 128
 GO = 32          # gmax output channels (pool-major f=2)
 HTS = (13, 26, 8)
-BM = 128         # pixels the kernel multiplies per chunk
-BN = 128         # accumulator columns of a block (4 pool groups x 32)
+TR, TC = 16, 8   # a tile's output rows and columns (csrc/conv_dma.cu): the
+                 # ht of the JAX tool does not shape them
+BN = 128         # accumulator columns of a tile (4 pool groups x 32)
+# A ring stages by (bytes of Cin a step, B resident): csrc/conv_dma.cu Cfg
+STAGES = {(64, True): 12, (128, True): 3, (128, False): 3}
 
 
-def _row_bytes(nbytes: int) -> int:
-    """A shared-memory row of ``nbytes`` (a multiple of 16) padded to 16
-    mod 32 bytes: its 8 rows of an m16n8k32 fragment then start in 8
-    different bank quads."""
-    return nbytes + 16 if nbytes % 32 == 0 else nbytes
+class DmaForm(NamedTuple):
+    """How ``conv_dma`` launches on tiles of TR x TC output pixels of one
+    image by 128 accumulator columns: ``kb`` bytes of Cin a step (the
+    boxes' inner extent and their swizzle), ``steps`` steps a tile (3 tap
+    rows x ceil(Cin / kb): one patch box of x each); B ``resident`` or
+    streamed with the patches; the ring of ``stages`` stages; ``smem``
+    bytes of shared memory; ``units`` tiles in all (pixel tiles x column
+    blocks) over ``grid`` persistent blocks."""
+    kb: int
+    steps: int
+    resident: bool
+    stages: int
+    smem: int
+    units: int
+    grid: int
 
 
-def conv_dma_layout(w: int, cin: int, ht: int, h: int) -> dict:
-    """The kernel's shared-memory layout for width ``w``, ``cin`` input
-    channels and bands of ``ht`` rows of ``h``: output rows a step (up to
-    128 pixels, fewer if the budget needs), tap row ``lda`` (the TMA box's
-    inner extent; past Cin it reads zeros), B's tap spacing ``kt`` and row
-    ``ldb``, the 128-aligned tap ``slot`` and the bytes in all: two stages
-    of nine taps, B, two barriers."""
-    lda = _row_bytes(cin) if cin + 16 <= MAX_BOX else cin
-    kt = _round_up(cin, 32)
-    ldb = _row_bytes(9 * kt)
-    for rows in range(max(1, min(ht, h, BM // w)), 0, -1):
-        slot = _round_up(rows * w * lda, 128)
-        smem = 2 * 9 * slot + BN * ldb + 16
-        if smem <= SMEM_LIMIT:
-            return dict(rows=rows, lda=lda, kt=kt, ldb=ldb, slot=slot,
-                        smem=smem)
-    raise ValueError(f"conv_dma: needs {smem} bytes of shared memory at one "
-                     f"row a step (W {w}, Cin {cin}), above the "
-                     f"{SMEM_LIMIT} a block can use")
+def conv_dma_form(n: int, h: int, w: int, cin: int, go: int,
+                  sms: int = H100_SMS) -> DmaForm:
+    """The launch of ``conv_dma`` on an (n, h, w, cin) input with ``go``
+    channels a pool group: 64-byte steps up to Cin 64, else 128; B
+    resident where one column block of it (9 taps x 128 x kb bytes a step
+    of a tap) fits, that is Cin <= 128, else streamed: each step's three
+    taps of it with the step's patch."""
+    kb = 64 if cin <= 64 else 128
+    kc = -(-cin // kb)
+    resident = kc == 1
+    stages = STAGES[kb, resident]
+    stage = TR * (TC + 2) * kb + (0 if resident else 3 * BN * kb)
+    smem = (1024 + (9 * kc * BN * kb if resident else 0) + stages * stage
+            + (2 * stages + 4) * 8)
+    units = (n * -(-h // TR) * -(-w // TC)) * -(-go // 32)
+    return DmaForm(kb, 3 * kc, resident, stages, smem, units,
+                   min(units, sms))
+
+
+def conv_dma_maps(x_shape, x_strides, go: int, f: DmaForm):
+    """The two tensor maps the kernel encodes, as (shape, strides, box)
+    outermost first: x (N, H, W, Cin) by patch boxes (a tile's rows by
+    its columns and the two halo columns, kb bytes), and the
+    (ceil(go/32)*128, 9*Cin) tile matrix of B by boxes of 128 rows and kb
+    bytes."""
+    cin = x_shape[3]
+    rows = -(-go // 32) * BN
+    return [(tuple(x_shape), tuple(x_strides), (1, TR, TC + 2, f.kb)),
+            ((rows, 9 * cin), (9 * cin, 1), (BN, f.kb))]
 
 
 def _check(x, w, scale, bias) -> int:
@@ -97,19 +123,18 @@ def _check(x, w, scale, bias) -> int:
     return go
 
 
-def _card_check(x, ht):
+def _card_check(x, go, ht):
     """What the card kernel does not take, refused on every device;
-    returns its layout."""
+    returns its form."""
     n, h, wd, cin = x.shape
     if cin % 16 or cin > MAX_BOX:
         raise ValueError(f"conv_dma: Cin must be a multiple of 16 up to "
-                         f"{MAX_BOX} (one box row), got {cin}")
+                         f"{MAX_BOX} (two 128-byte steps a tap), got {cin}")
     if wd > MAX_BOX:
-        raise ValueError(f"conv_dma: W must be at most {MAX_BOX} (one box "
-                         f"extent), got {wd}")
+        raise ValueError(f"conv_dma: W must be at most {MAX_BOX}, got {wd}")
     if ht < 1:
         raise ValueError(f"conv_dma: ht must be >= 1, got {ht}")
-    return conv_dma_layout(wd, cin, ht, h)
+    return conv_dma_form(n, h, wd, cin, go)
 
 
 def conv_dma_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -134,44 +159,44 @@ def conv_dma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """3x3/s1/SAME int8 conv + pool-major group-max + leaky + requant.
 
     x: (N, H, W, Cin) int8; w: (3, 3, Cin, 4*go) int8; scale, bias: (go,)
-    float32. Returns (N, H, W, go) int8. ``ht``: output rows per block
-    (any H; the last band may be short). The card kernel reads w as
-    ``rs_weight_matrix(w)`` (made once, cached on w) and takes Cin % 16 ==
-    0 up to 256, W up to 256, within the shared-memory budget: refused on
-    every device, by name."""
+    float32. Returns (N, H, W, go) int8. ``ht``: output rows of a band
+    of the JAX tool (any H; the last band may be short), checked and the
+    same codes for every value; the card kernel's tiles do not depend on
+    it (``conv_dma_form``). The card kernel reads w as ``rs_tile_matrix(w,
+    go)`` (made once, cached on w) and takes Cin % 16 == 0 up to 256 and
+    W up to 256: refused on every device, by name."""
     go = _check(x, w, scale, bias)
-    lay = _card_check(x, ht)
+    f = _card_check(x, go, ht)
     if x.device.type == "cpu":
         return conv_dma_plain(x, w, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"conv_dma: the kernel needs CUDA tensors, got "
                          f"{x.device}")
+    f = f._replace(grid=min(f.units, _build.sm_count(x.device)))
     if any(t.device != x.device for t in (w, scale, bias)):
         raise ValueError("conv_dma: all operands on one device")
     x = x.contiguous()
     if x.data_ptr() % 16:                 # the tensor map's base address
         x = x.clone()
     n, h, wd, cin = x.shape
-    legal, why = tma_box_legal((n, h, wd, cin), x.stride(),
-                               (1, lay["rows"], wd, lay["lda"]),
-                               x.data_ptr() % 16)
-    if not legal:
-        raise ValueError(f"conv_dma: the tensor map of x breaks a TMA rule: "
-                         f"{why}")
-    wt = rs_weight_matrix(w)
+    wt = rs_tile_matrix(w, go)
+    for shape, strides, box in conv_dma_maps(x.shape, x.stride(), go, f):
+        legal, why = tma_box_legal(shape, strides, box, 0, swizzle=f.kb)
+        if not legal:
+            raise ValueError(f"conv_dma: a tensor map breaks a TMA rule: "
+                             f"{why}")
     scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty((n, h, wd, go), dtype=torch.int8, device=x.device)
     cu = ctypes.c_int(-1)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("conv_dma", "conv_dma",
-                         [p, p, p, p, p] + [i] * 12 + [p, p])
+                         [p, p, p, p, p] + [i] * 7 + [p, p])
     err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), n, h, wd, cin, go, ht, lay["rows"], lay["lda"],
-             lay["kt"], lay["ldb"], lay["slot"], lay["smem"],
+             out.data_ptr(), n, h, wd, cin, go, f.kb, f.grid,
              ctypes.byref(cu), _build.stream_ptr(x.device))
     if cu.value != 0:
-        raise RuntimeError(f"conv_dma: cuTensorMapEncodeTiled refused the "
-                           f"map of x (CUresult {cu.value})")
+        raise RuntimeError(f"conv_dma: cuTensorMapEncodeTiled refused a map "
+                           f"(CUresult {cu.value})")
     _build.check(err, "conv_dma")
     conv_dma.launches += 1
     return out

@@ -120,11 +120,8 @@ def _bad(**kw):
     (_bad(x=torch.zeros(1, 4, 300, 64, dtype=torch.int8)), ValueError,
      "W must be at most 256"),
     (_bad(ht=0), ValueError, "ht must be"),
-    (_bad(x=torch.zeros(1, 4, 104, 128, dtype=torch.int8),
-          w=torch.zeros(3, 3, 128, 128, dtype=torch.int8)), ValueError,
-     "shared memory"),
 ], ids=["x-dtype", "w-shape", "cout", "scale-dtype", "bias-shape", "cin-16",
-        "cin-256", "w-256", "ht", "smem"])
+        "cin-256", "w-256", "ht"])
 def test_conv_dma_refuses_by_name(args, err, words):
     with pytest.raises(err, match="conv_dma") as info:
         pc.conv_dma(**args)
@@ -132,20 +129,54 @@ def test_conv_dma_refuses_by_name(args, err, words):
 
 
 def test_conv_dma_layout_at_the_prototype_shape():
-    """(32,104,104,64) -> 128: one row a step, 80-byte tap rows (16 of them
-    zero-filled past Cin), 592-byte B rows, 225,552 bytes of shared memory
-    in all; the tap box obeys the TMA rules."""
-    lay = pc.conv_dma_layout(104, 64, 13, 104)
-    assert lay == dict(rows=1, lda=80, kt=64, ldb=592, slot=8320,
-                       smem=225_552)
-    assert lay["smem"] <= pr.SMEM_LIMIT
+    """(32,104,104,64) -> 128: tiles of 16 x 8 pixels (2,912 of them over
+    132 persistent blocks), three 64-byte steps a tile (one patch box of
+    16 rows x 10 columns a tap row), B resident beside 12 stages: 197,856
+    bytes of shared memory; both maps the kernel encodes obey the TMA
+    rules with the 64-byte swizzle."""
+    assert (pc.TR, pc.TC) == (16, 8)
+    f = pc.conv_dma_form(32, 104, 104, 64, 32)
+    assert f == pc.DmaForm(kb=64, steps=3, resident=True, stages=12,
+                           smem=197_856, units=2912, grid=132)
+    assert f.smem <= pr.SMEM_LIMIT
     x = torch.zeros(32, 104, 104, 64, dtype=torch.int8)
-    assert pr.tma_box_legal(tuple(x.shape), x.stride(), (1, 1, 104, 80),
-                            0) == (True, "")
-    # fewer pixels than a chunk: several rows a step, capped by ht and H
-    assert pc.conv_dma_layout(17, 16, 4, 7)["rows"] == 4
-    assert pc.conv_dma_layout(9, 48, 13, 5)["rows"] == 5
-    assert pc.conv_dma_layout(13, 128, 5, 12)["rows"] == 2   # the budget
+    maps = pc.conv_dma_maps(x.shape, x.stride(), 32, f)
+    assert [box for _, _, box in maps] == [(1, 16, 10, 64), (128, 64)]
+    for shape, strides, box in maps:
+        assert pr.tma_box_legal(shape, strides, box, 0, swizzle=64) == \
+            (True, "")
+    # fewer pixels than a tile take one; each column block its own units
+    assert pc.conv_dma_form(3, 11, 17, 32, 32).units == 3 * 1 * 3
+    assert pc.conv_dma_form(1, 5, 9, 48, 32).units == 2
+    assert pc.conv_dma_form(1, 6, 256, 16, 64).units == 32 * 2
+
+
+@pytest.mark.parametrize("cin,kb,steps,resident,stages", [
+    (16, 64, 3, True, 12), (64, 64, 3, True, 12), (80, 128, 3, True, 3),
+    (128, 128, 3, True, 3), (144, 128, 6, False, 3),
+    (256, 128, 6, False, 3)])
+def test_conv_dma_form_fits_every_cin(cin, kb, steps, resident, stages):
+    """Every Cin the kernel takes fits one block at W 104: B resident up
+    to Cin 128 (9 x 128 x kb bytes), streamed with the patches above.
+    Both maps obey the TMA rules at the step's swizzle."""
+    f = pc.conv_dma_form(1, 4, 104, cin, 32)
+    assert (f.kb, f.steps, f.resident, f.stages) == (kb, steps, resident,
+                                                     stages)
+    assert f.smem <= pr.SMEM_LIMIT
+    x = torch.zeros(1, 4, 104, cin, dtype=torch.int8)
+    for shape, strides, box in pc.conv_dma_maps(x.shape, x.stride(), 32, f):
+        assert pr.tma_box_legal(shape, strides, box, 0, swizzle=kb)[0]
+
+
+def test_tma_box_legal_swizzle_span():
+    """With a swizzle the box's inner extent may not pass its span."""
+    assert pr.tma_box_legal((4, 256), (256, 1), (8, 128), 0, swizzle=128) \
+        == (True, "")
+    legal, why = pr.tma_box_legal((4, 256), (256, 1), (8, 128), 0,
+                                  swizzle=64)
+    assert not legal and "above the 64-byte swizzle span" in why
+    assert not pr.tma_box_legal((4, 256), (256, 1), (8, 64), 0,
+                                swizzle=48)[0]
 
 
 def test_proto_conv_dma_main_cpu(capsys):

@@ -748,6 +748,16 @@ BT_CASES = [
     (1, 13, 13, 512, 1024, True),
     (2, 5, 31, 128, 64, True),
     (1, 13, 13, 128, 200, False),
+    # YOLOv2-tiny's tail at 416 px (chip_smoke.py BT_SHAPES): b32 L8, L10,
+    # L12 (also f32 out), L13; b1 L12, L13 (K split across blocks)
+    (32, 26, 26, 128, 256, True),
+    (32, 13, 13, 256, 512, True),
+    (32, 13, 13, 512, 1024, True),
+    (32, 13, 13, 512, 1024, False),
+    (32, 13, 13, 1024, 1024, True),
+    (1, 13, 13, 512, 1024, True),
+    (1, 13, 13, 1024, 1024, True),
+    (1, 13, 13, 1024, 1024, False),
 ]
 
 
@@ -801,15 +811,26 @@ def test_s0_plan_card_matches_cpu(cuda):
     assert torch.equal(heads[0], heads[1])
 
 
-# conv_dma: (N, H, W, Cin, go, ht); the prototype's own shape, ht past H,
-# ragged H (the last band short), W past one 128-pixel chunk, Cin % 32 ==
-# 16 (k past Cin meets zero weights), 128 (a 144-byte tap row, 2 rows a
-# step by the budget) and go 64 (two column blocks)
+# conv_dma: (N, H, W, Cin, go, ht); the prototype's width, ht past H,
+# ragged H and W (tiles past the image), W past one 128-pixel tile, Cin
+# 16, 32 and 48 (the box's zero fill past Cin pads K to 64 bytes), 128
+# (128-byte steps) and go 64 (two column blocks, one block each)
 DMA_CASES = [(2, 26, 104, 64, 32, 13), (1, 13, 104, 64, 32, 26),
              (3, 11, 17, 32, 32, 4), (2, 9, 40, 16, 32, 3),
              (1, 7, 24, 48, 32, 5), (2, 8, 8, 64, 64, 8),
              (1, 5, 200, 16, 32, 2), (1, 6, 256, 16, 32, 3),
-             (2, 12, 13, 128, 32, 5)]
+             (2, 12, 13, 128, 32, 5),
+             # Cin above 128: two steps a tap, B streamed with A
+             (1, 9, 21, 144, 32, 4), (2, 7, 11, 256, 64, 7),
+             # the tool's own shape at each of its ht
+             (32, 104, 104, 64, 32, 13), (32, 104, 104, 64, 32, 26),
+             (32, 104, 104, 64, 32, 8)]
+# a block's walk crossing column blocks with B resident: 182 units on 132
+# blocks (blocks 0-49 take a unit of each column block, on their two
+# consumers), 728 (both consumers own units in each), 128-byte steps, and
+# four column blocks
+DMA_HANDOVER_CASES = [(1, 104, 104, 64, 64, 13), (4, 104, 104, 64, 64, 13),
+                      (1, 104, 104, 128, 64, 13), (2, 52, 104, 32, 128, 13)]
 
 
 @pytest.mark.parametrize("case", DMA_CASES)
@@ -829,6 +850,30 @@ def test_conv_dma_kernel_matches_plain_and_rs(cuda, case):
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (n, h, w, go)
     assert torch.equal(got, ref) and torch.equal(got, rs)
+
+
+@pytest.mark.parametrize("case", DMA_HANDOVER_CASES)
+def test_conv_dma_resident_b_handover_matches_plain(cuda, deadline, case):
+    """Where a block's walk reaches another column block, the resident B
+    is copied again only after both consumers released it, and each
+    consumer multiplies against its unit's copy: five launches, each
+    against the plain version and conv3x3_rs."""
+    from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
+    n, h, w, cin, go, ht = case
+    f = pc.conv_dma_form(n, h, w, cin, go)
+    assert f.resident and f.units > f.grid
+    g = torch.Generator(device=cuda).manual_seed(h * w + cin + go)
+    x, wq = _i8(g, cuda, n, h, w, cin), _i8(g, cuda, 3, 3, cin, 4 * go)
+    scale = torch.rand(go, generator=g, device=cuda) * 1e-4 + 1e-5
+    bias = torch.randn(go, generator=g, device=cuda)
+    ref = pc.conv_dma_plain(x, wq, scale, bias)
+    rs = fc.conv3x3_rs(x, wq, scale.repeat(4), bias.repeat(4),
+                       pool=("gmaxm", 2, go))
+    outs = [pc.conv_dma(x, wq, scale, bias, ht=ht) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert torch.equal(ref, rs)
+    for got in outs:
+        assert torch.equal(got, ref)
 
 
 def test_conv_dma_kernel_takes_an_unaligned_x(cuda):
