@@ -10,14 +10,19 @@ Phases (each raises on failure, and the script then exits non-zero):
    shared memory;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it (YOLOv2-tiny at batch 32 and, for the
-   GEMM, batch 1; the per-tap stem and the GEMM shapes of YOLOv3-tiny at
-   batch 16; the strategy plans S1 and S2 at batch 32 for
+   GEMM (the 1x1 convs) and the W8A8 conv, batch 1; the per-tap stem, the
+   GEMM and the W8A8 conv shapes of YOLOv3-tiny at batch 16; the strategy
+   plans S1 and S2 at batch 32 for
    quant_space_to_depth4, gmax_shift_s2d2 and conv3x3_rs, and S1 at
    batch 1 for conv3x3_rs), requiring identical results, and
    time kernel, plain version and (for the GEMM and conv3x3_rs)
    ``torch._int_mm``, printing each GEMM and conv3x3_rs row's form, tile,
    K-split and grid (``gemm_form``, ``rs_form``), and the host time of a
-   ``gemm_fused`` call in both forms; the per-tap stem is timed beside
+   ``gemm_fused`` call in both forms; the W8A8 conv (conv_w8a8, each
+   layer's route, K steps, split and grid printed) also in mode 4 and
+   against the im2col + ``gemm_fused`` route it replaced, timed beside it,
+   ``torch._int_mm`` on the im2col'd A and its bound; the per-tap stem is
+   timed beside
    the k2 stem on the same inputs (b16 and b1), with the k2 stem's own
    b32 time beside them; then the attic kernels: stage0_fused
    through both of its wrappers (b32, b2 and b1, v1's operand at ht 4
@@ -57,8 +62,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    (the bf16 plans) at the same batches. The
    launch counters, set to 0 just before each detect and read just
    after, must show it ran through its kernels and no others (in W8A8 no
-   gemm_fused launch in the ragged form, on no path a gemm_f32 launch in
-   the ragged form); the (M, K, N) of the GEMMs of
+   gemm_fused launch in the ragged form and no im2col on the xla tier:
+   every 3x3 conv on conv_w8a8, every 1x1 conv on gemm_fused; on no path
+   a gemm_f32 launch in the ragged form); the (M, K, N) of the GEMMs of
    a second detect must be the tables' (YOLOv2-tiny b32 and b1,
    YOLOv3-tiny b16); then
    throughput (forwards and detects back to back), latency (each call
@@ -67,7 +73,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    as its launch counter counted). Before them, the host's wait for one scale
    upload behind a busy card (``upload_wait_ms``);
 7. S2's stage 1 (``rs``, no im2col) against the pinned plan's L2 stage
-   (``fold_xla``: im2col, GEMM, group-max) on the same b32 entry state,
+   (``fold_xla``: conv_w8a8 with its group-max) on the same b32 entry state,
    and S3's stage 0 (``s0``) against the pin's (``stem_rs``) on the same
    b32 f32 input, with the share of codes that differ;
 8. the ported plan sweep (YOLOv2-tiny w8a8, batch 8, every candidate,
@@ -79,7 +85,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    largest head, detections as sets within that: ``detections_close``),
    W8A8 with ``kernel="xla"`` and ``"pallas"`` and the fallback from an
    illegal strategy file (bit for bit), each with its launch counts (the
-   fallback's ``auto`` takes the gemm tier where use_pallas says so), and
+   xla tier's 3x3 convs on conv_w8a8 but the entry conv's, Cin 3, on the
+   im2col route; the fallback's ``auto`` takes the gemm tier where
+   use_pallas says so), and
    ``Model.forward(mode="w8", kernel="pallas")`` (gemm_f32 with int8
    codes on every conv; only layer 0's K = 27 in the ragged form).
 
@@ -148,6 +156,13 @@ KERNELS = {
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/tma_probe.cu",
         replaces="tools/probe_dma_rules.py:24"),
+    # XLA's int8 conv (not a Pallas kernel), as the fold_xla, fold_xla_k2
+    # and xla stages run it (dnn_inference_engine_tpu/runtime/plan.py:847,
+    # :927)
+    "conv_w8a8": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8.cu",
+        replaces="dnn_inference_engine_tpu/ops/conv.py:110"),
 }
 
 # Strategy plans (YOLOv2-tiny, w8a8): S1 and S2 between them run every
@@ -176,23 +191,39 @@ RS_SHAPES = [("S1 L6 rs2", (32, 27, 27, 256), 2, 512, 128),
 RS_B1_SHAPES = [("S1 b1 L6 rs2", (1, 27, 27, 256), 2, 512, 128),
                 ("S1 b1 L8 rs", (1, 13, 13, 512), 3, 1024, 256)]
 
-# (layer, M, K, N) of every GEMM of one batch-32 forward at 416 px
-B32_GEMMS = [("L2", 346112, 576, 128), ("L4", 86528, 512, 256),
-             ("L6", 86528, 576, 128), ("L8", 21632, 1152, 256),
-             ("L10", 5408, 2304, 512), ("L12", 5408, 4608, 1024),
-             ("L13", 5408, 9216, 1024), ("L14", 5408, 1024, 125)]
-# ... of one batch-1 forward under YOLOv2-tiny's b1 pin (its own folds)
-B1_GEMMS = [("L2", 10816, 576, 128), ("L4", 2704, 1152, 256),
-            ("L6", 2704, 576, 128), ("L8", 676, 1152, 256),
-            ("L10", 169, 2304, 512), ("L12", 169, 4608, 1024),
-            ("L13", 169, 9216, 1024), ("L14", 169, 1024, 125)]
+# (layer, M, K, N) of every GEMM (the 1x1 convs) of one batch-32 forward
+# at 416 px under YOLOv2-tiny's pin
+B32_GEMMS = [("L14", 5408, 1024, 125)]
+# ... of one batch-1 forward under YOLOv2-tiny's b1 pin
+B1_GEMMS = [("L14", 169, 1024, 125)]
 # ... and of one YOLOv3-tiny batch-16 forward (L15, L21: the f32 heads)
-B16_V3_GEMMS = [("L2", 173056, 576, 128), ("L4", 43264, 512, 256),
-                ("L6", 43264, 576, 128), ("L8", 10816, 1152, 256),
-                ("L10", 2704, 2304, 512), ("L12", 2704, 4608, 1024),
-                ("L13", 2704, 1024, 256), ("L14", 2704, 2304, 512),
-                ("L15", 2704, 512, 75), ("L17", 2704, 256, 128),
-                ("L20", 10816, 3456, 256), ("L21", 10816, 256, 75)]
+B16_V3_GEMMS = [("L13", 2704, 1024, 256), ("L15", 2704, 512, 75),
+                ("L17", 2704, 256, 128), ("L21", 10816, 256, 75)]
+# (layer, x shape, k, Cout, group-max, trimmed output) of every conv_w8a8
+# launch (the 3x3 convs and the shifted k2 fold) of one forward at 416 px:
+# YOLOv2-tiny b32 and b1 (its own folds: L4 a fold-2 3x3), YOLOv3-tiny b16
+V2_B32_CONVS = [("L2", (32, 104, 104, 64), 3, 128, True, None),
+                ("L4", (32, 56, 53, 128), 2, 256, True, (52, 52)),
+                ("L6", (32, 52, 52, 64), 3, 128, False, None),
+                ("L8", (32, 26, 26, 128), 3, 256, False, None),
+                ("L10", (32, 13, 13, 256), 3, 512, False, None),
+                ("L12", (32, 13, 13, 512), 3, 1024, False, None),
+                ("L13", (32, 13, 13, 1024), 3, 1024, False, None)]
+V2_B1_CONVS = [("L2", (1, 104, 104, 64), 3, 128, True, None),
+               ("L4", (1, 52, 52, 128), 3, 256, True, None),
+               ("L6", (1, 52, 52, 64), 3, 128, False, None),
+               ("L8", (1, 26, 26, 128), 3, 256, False, None),
+               ("L10", (1, 13, 13, 256), 3, 512, False, None),
+               ("L12", (1, 13, 13, 512), 3, 1024, False, None),
+               ("L13", (1, 13, 13, 1024), 3, 1024, False, None)]
+V3_B16_CONVS = [("L2", (16, 104, 104, 64), 3, 128, True, None),
+                ("L4", (16, 56, 53, 128), 2, 256, True, (52, 52)),
+                ("L6", (16, 52, 52, 64), 3, 128, False, None),
+                ("L8", (16, 26, 26, 128), 3, 256, False, None),
+                ("L10", (16, 13, 13, 256), 3, 512, False, None),
+                ("L12", (16, 13, 13, 512), 3, 1024, False, None),
+                ("L14", (16, 13, 13, 256), 3, 512, False, None),
+                ("L20", (16, 26, 26, 384), 3, 256, False, None)]
 HEADS = {"yolov2-tiny": {"L14"}, "yolov3-tiny": {"L15", "L21"}}
 # (layer, M, K, N) of the gemm_f32 launches of one fp32 kernel="auto"
 # forward at 416 px: the layers where use_pallas takes the gemm tier
@@ -573,6 +604,139 @@ def phase_kernels(dev, ops_peak, bw):
               f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']})")
     return rows
+
+
+def conv_shapes(g, dev, table, ops_peak, bw, tag):
+    """conv_w8a8 against its plain version (codes bit for bit; s_out 0.05,
+    the conv order, and 1e-39, mode 4) at each (layer, x shape, k, Cout,
+    group-max, trim) of ``table``, and against the im2col + ``gemm_fused``
+    route it replaced on the same inputs; the kernel's launch timed on
+    prepared operands beside that route, ``torch._int_mm`` on the
+    im2col'd A (product only) and the bound."""
+    from dnn_inference_engine_tpu_torch.ops import _build
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+        extract_patches)
+    from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+    sms = _build.sm_count(dev)
+    shapes = []
+    for layer, xs, k, cout, gmax, out_hw in table:
+        cin = xs[3]
+        x = torch.randint(-127, 128, xs, generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                          device=dev, dtype=torch.int8)
+        spread = 0.05 * 60.0 / (0.02 * (k * k * cin) ** 0.5 * 5376.0)
+        # a fold stage's pool groups share their layer's s_w and b
+        reps = 4 if gmax else 1
+        s_w = ((torch.rand(cout // reps, generator=g, device=dev) + 0.5)
+               * spread).repeat(reps)
+        b = torch.randn(cout // reps, generator=g, device=dev).repeat(reps)
+        padding = "SAME" if k == 3 else "VALID"
+        kw = dict(act="leaky", padding=padding, s_out=0.05, out_hw=out_hw,
+                  gmax=gmax)
+        form = cv.conv_w8a8_form(*xs, cout, k, k, 1, padding, out_hw, True,
+                                 gmax, sms)
+        launches = cv.conv2d_w8a8.launches
+        got = cv.conv2d_w8a8(x, 0.02, w, s_w, b, **kw)
+        if (cv.conv2d_w8a8.launches != launches + 1
+                or form.route not in ("patch", "window")):
+            raise AssertionError(f"conv_w8a8 {tag} {layer}: not the kernel")
+        ref = cv.conv2d_w8a8_plain(x, 0.02, w, s_w, b, **kw)
+        err = max_abs_err(got, ref)
+        # mode 4: s_out not a positive normal float (the double product)
+        kw4 = dict(kw, s_out=1e-39)
+        sw4 = s_w * (1e-39 / 0.05)
+        err4 = max_abs_err(cv.conv2d_w8a8(x, 0.02, w, sw4, b * 1e-39, **kw4),
+                           cv.conv2d_w8a8_plain(x, 0.02, w, sw4, b * 1e-39,
+                                                **kw4))
+        n = xs[0]
+        ho, wo = cv.conv_out_hw(xs[1], xs[2], k, padding, out_hw)
+        m, kk = n * ho * wo, k * k * cin
+        a = extract_patches(x, k, k, 1, padding, out_hw).reshape(m, kk)
+        wt = gm.kmajor_weights(w)
+        # timed on prepared operands (the wrapper's scale upload blocks
+        # the host behind the queued calls)
+        go = cout // 4 if gmax else 0
+        bt = fc.rs_tile_matrix(w, go) if gmax else wt
+        scale = f32_scalar(0.02, dev) * s_w
+
+        def kernel():
+            return cv.conv_w8a8_launch(x, bt, scale, b, 0.05, k, ho, wo, go,
+                                       "leaky", form)
+
+        def im2col_gemm():
+            y = gm.gemm_fused(extract_patches(x, k, k, 1, padding, out_hw)
+                              .reshape(m, kk), wt, scale, b, s_out=0.05)
+            y = y.reshape(n, ho, wo, cout)
+            return fc.group_max4(y) if gmax else y
+        err = max(err, max_abs_err(kernel(), got),
+                  max_abs_err(im2col_gemm(), got))
+        ms = device_ms(kernel, 10)
+        im2col_ms = device_ms(im2col_gemm, 10)
+        plain_ms = device_ms(
+            lambda: cv.conv2d_w8a8_plain(x, 0.02, w, s_w, b, **kw), 2)
+        lib_ms = device_ms(lambda: torch._int_mm(a, wt.t()), 10)
+        bound, by = _bound(2.0 * m * kk * cout,
+                           x.numel() + w.numel() + 8 * cout + got.numel(),
+                           ops_peak, bw)
+        shapes.append(dict(layer=layer, x=list(xs), k=k, N=cout, M=m, K=kk,
+                           gmax=gmax, max_abs_err=max(err, err4), ms=ms,
+                           im2col_gemm_ms=im2col_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                           route=form.route, kb=form.kb, steps=form.steps,
+                           splits=form.splits, grid=form.grid))
+        print(f"  conv_w8a8 {tag} {layer} x={xs} k={k} Cout={cout}"
+              f"{' gmax' if gmax else ''}{f' trim {out_hw}' if out_hw else ''}"
+              f" (M={m} K={kk}): err={err} mode-4 err={err4} ms={ms:.4f} "
+              f"im2col+gemm_fused_ms={im2col_ms:.4f} int_mm_ms={lib_ms:.4f} "
+              f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}); "
+              f"{form.route} kb {form.kb} steps {form.steps} split "
+              f"{form.splits} tiles {form.tiles} grid {form.grid}")
+        if err != 0 or err4 != 0:
+            raise AssertionError(f"conv_w8a8 {tag} {layer}: kernel != plain")
+        del x, a, ref, got
+    return shapes
+
+
+def phase_conv_w8a8(dev, ops_peak, bw):
+    """The W8A8 conv kernel at every conv_w8a8 launch of the pins' main
+    paths (YOLOv2-tiny b32 and b1, YOLOv3-tiny b16); the row sums the b32
+    forward's 7 launches."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    tabs = {"v2-b32": V2_B32_CONVS, "v2-b1": V2_B1_CONVS,
+            "v3-b16": V3_B16_CONVS}
+    got = {tag: conv_shapes(g, dev, tab, ops_peak, bw, tag)
+           for tag, tab in tabs.items()}
+
+    def total(tag, key):
+        return sum(r[key] for r in got[tag])
+    b32 = got["v2-b32"]
+    row = dict(
+        max_abs_err=max(r["max_abs_err"] for rows in got.values()
+                        for r in rows),
+        ms=total("v2-b32", "ms"), plain_ms=total("v2-b32", "plain_ms"),
+        bound_ms=total("v2-b32", "bound_ms"),
+        bound_by=("operations" if all(r["bound_by"] == "operations"
+                                      for r in b32) else "bytes"),
+        library_ms=total("v2-b32", "library_ms"),
+        im2col_gemm_ms=total("v2-b32", "im2col_gemm_ms"), shapes=b32)
+    for tag in ("v2-b1", "v3-b16"):
+        key = tag.split("-")[1]
+        row[f"{key}_shapes"] = got[tag]
+        for what in ("ms", "im2col_gemm_ms", "library_ms", "bound_ms"):
+            row[f"{key}_{what}"] = total(tag, what)
+    print(f"  conv_w8a8 sums: v2 b32 {row['ms']:.4f} ms (im2col+gemm_fused "
+          f"{row['im2col_gemm_ms']:.4f}, int_mm {row['library_ms']:.4f}, "
+          f"bound {row['bound_ms']:.4f}); v2 b1 {row['b1_ms']:.4f} ms "
+          f"(im2col+gemm_fused {row['b1_im2col_gemm_ms']:.4f}, int_mm "
+          f"{row['b1_library_ms']:.4f}, bound {row['b1_bound_ms']:.4f}); v3 "
+          f"b16 {row['b16_ms']:.4f} ms (im2col+gemm_fused "
+          f"{row['b16_im2col_gemm_ms']:.4f}, int_mm "
+          f"{row['b16_library_ms']:.4f}, bound {row['b16_bound_ms']:.4f})")
+    return {"conv_w8a8": row}
 
 
 def sum_tol(abs_sum_max: float, k: int) -> float:
@@ -1111,6 +1275,7 @@ def phase_dma_kernels(dev, ops_peak, bw):
 
 
 def _counters():
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     from dnn_inference_engine_tpu_torch.ops.attic import stage0, tail
@@ -1124,13 +1289,16 @@ def _counters():
             "conv3x3_rs": fc.conv3x3_rs,
             "stage0_fused": stage0.stage0_fused,
             "conv3x3_bt": tail.conv3x3_bt,
-            "conv_dma": pc.conv_dma, "tma_probe": pr.probe}
+            "conv_dma": pc.conv_dma, "tma_probe": pr.probe,
+            "conv_w8a8": cv.conv2d_w8a8}
 
 
 def _reset_counts():
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     for fn in _counters().values():
         fn.launches = 0
+    cv.conv2d_w8a8.im2col_launches = 0
     gm.gemm_fused.folded_launches = 0
     gm.gemm_fused.ragged_launches = 0
     gm.gemm_f32.ragged_launches = 0
@@ -1162,6 +1330,28 @@ class GemmShapes:
     def __exit__(self, *exc):
         for mod in self.mods:
             mod.gemm_fused = self.fn
+
+
+class XlaTierIm2col:
+    """While active, counts the im2col copies of the xla tier's W8A8 conv
+    (``ops/conv.py``'s ``extract_patches``, a 1x1 conv's view included):
+    on the plans' paths there are none, every 3x3 conv reads its input in
+    place on conv_w8a8. The gemm tier's im2col (``conv_lowering``) is not
+    counted."""
+
+    def __enter__(self):
+        from dnn_inference_engine_tpu_torch.ops import conv as cv
+        self.fn, self.calls = cv.extract_patches, 0
+
+        def record(*args, **kw):
+            self.calls += 1
+            return self.fn(*args, **kw)
+        cv.extract_patches = record
+        return self
+
+    def __exit__(self, *exc):
+        from dnn_inference_engine_tpu_torch.ops import conv as cv
+        cv.extract_patches = self.fn
 
 
 def _read_counts():
@@ -1417,6 +1607,8 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("conv3x3_bt", "conv_bt_kernel"),
                  ("conv_dma", "conv_dma_kernel"),
                  ("tma_probe", "tma_probe_kernel"),
+                 ("conv_w8a8", "conv_patch_kernel"),
+                 ("conv_w8a8", "conv_window_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),
                  ("host-to-device copies", "Memcpy HtoD"),
@@ -1496,6 +1688,7 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     break its device time down. ``gemms``: the (layer, M, K, N) table the
     detect's ``gemm_fused`` calls must match, in order (a second detect,
     under ``GemmShapes``)."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
@@ -1511,14 +1704,19 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
         0, 256, (batch, 416, 416, 3)).astype(np.uint8)
     x = torch.as_tensor(imgs).cuda()
     _reset_counts()
-    b, s, c = eng.detect(imgs)
-    torch.cuda.synchronize()
+    with XlaTierIm2col() as im2col:
+        b, s, c = eng.detect(imgs)
+        torch.cuda.synchronize()
     counts = _read_counts()
     tag = f"{model} {mode} {strategy or 'pin'} b{batch}"
     if b.shape != (batch, 128, 4) or not np.isfinite(b).all():
         raise AssertionError(f"{tag}: bad detections {b.shape}")
     if counts != want:
         raise AssertionError(f"{tag} launches {counts} != {want}")
+    if im2col.calls or cv.conv2d_w8a8.im2col_launches:
+        raise AssertionError(f"{tag}: {im2col.calls} im2col copies on the "
+                             f"xla tier, {cv.conv2d_w8a8.im2col_launches} "
+                             f"conv2d_w8a8 calls on its im2col route")
     if mode == "w8a8" and gm.gemm_fused.ragged_launches:
         raise AssertionError(f"{tag}: {gm.gemm_fused.ragged_launches} "
                              f"gemm_fused launches took the ragged form")
@@ -1575,10 +1773,14 @@ BF16_REL_TOL = 2.0 ** -7
 ILLEGAL_STRATEGY = {"2": ["fold_xla_s2", 2], "4": ["xla", 1]}
 
 
-def _generic_counts(gpu, tag: str, want: dict, want_folded: int):
+def _generic_counts(gpu, tag: str, want: dict, want_folded: int,
+                    want_im2col: int = 0):
     """One classify of a b2 batch with the counters from 0: the launches
-    must equal ``want`` (the others 0), and ``want_folded`` of the int8
-    GEMMs must be in the folded order, the gemm tier's."""
+    must equal ``want`` (the others 0), ``want_folded`` of the int8 GEMMs
+    must be in the folded order, the gemm tier's, and ``want_im2col`` of
+    the xla tier's W8A8 convs must take conv2d_w8a8's im2col route (the
+    entry conv, Cin 3)."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     imgs = np.random.default_rng(4).integers(
         0, 256, (2, 416, 416, 3)).astype(np.uint8)
@@ -1586,15 +1788,17 @@ def _generic_counts(gpu, tag: str, want: dict, want_folded: int):
     gpu.classify(imgs)
     torch.cuda.synchronize()
     counts, folded = _read_counts(), gm.gemm_fused.folded_launches
+    im2col = cv.conv2d_w8a8.im2col_launches
     want = {**dict.fromkeys(_counters(), 0), **want}
     print(f"  {tag}: launches per forward {counts}, folded-order (gemm "
-          f"tier) gemm_fused {folded}")
+          f"tier) gemm_fused {folded}, conv2d_w8a8 im2col route {im2col}")
     if gm.gemm_f32.ragged_launches:
         raise AssertionError(f"{tag}: a gemm_f32 launch took the ragged "
                              f"form")
-    if counts != want or folded != want_folded:
-        raise AssertionError(f"{tag}: launches {counts}, folded {folded} "
-                             f"!= {want}, {want_folded}")
+    if counts != want or folded != want_folded or im2col != want_im2col:
+        raise AssertionError(f"{tag}: launches {counts}, folded {folded}, "
+                             f"im2col {im2col} != {want}, {want_folded}, "
+                             f"{want_im2col}")
 
 
 def phase_modes_card_vs_cpu():
@@ -1613,29 +1817,44 @@ def phase_modes_card_vs_cpu():
         report = tier_report(m, batch=2)
         quant = [li for li, _, _ in report if m.layers[li].act != "linear"]
         deep = [li for li, _, t in report if t == "pallas"]
-        return len(report), quant, deep
+        # the xla tier's convs that conv_w8a8 takes: 3x3 (stride 1 in
+        # both models) with Cin % 16 == 0, requantizing; the entry conv
+        # (Cin 3) takes the im2col route
+        kern = [li for li, d, _ in report if li in quant
+                and d.startswith("conv3x3")
+                and int(d.split()[1].split("->")[0]) % 16 == 0]
+        entry = [li for li, d, _ in report
+                 if int(d.split()[1].split("->")[0]) % 16]
+        return len(report), quant, deep, kern, entry
 
     for model in ("yolov2-tiny", "yolov3-tiny"):
-        n, quant, deep = tiers(model)
+        n, quant, deep, kern, entry = tiers(model)
         gpu = phase_card_vs_cpu(model, 2, False, mode="fp32",
                                 rel_tol=F32_REL_TOL)
         _generic_counts(gpu, f"{model} fp32 auto", {"gemm_f32": len(deep)},
                         0)
         phase_card_vs_cpu(model, 2, False, mode="w8", rel_tol=BF16_REL_TOL)
-        for kernel in ("xla", "pallas"):
-            gpu = phase_card_vs_cpu(model, 2, False, mode="w8a8",
-                                    kernel=kernel)
-            _generic_counts(gpu, f"{model} w8a8 {kernel}", {"gemm_fused": n},
-                            len(quant) if kernel == "pallas" else 0)
-    n, quant, deep = tiers("yolov2-tiny")
+        gpu = phase_card_vs_cpu(model, 2, False, mode="w8a8", kernel="xla")
+        _generic_counts(gpu, f"{model} w8a8 xla",
+                        {"conv_w8a8": len(kern),
+                         "gemm_fused": n - len(kern)}, 0, len(entry))
+        gpu = phase_card_vs_cpu(model, 2, False, mode="w8a8",
+                                kernel="pallas")
+        _generic_counts(gpu, f"{model} w8a8 pallas", {"gemm_fused": n},
+                        len(quant))
+    n, quant, deep, kern, entry = tiers("yolov2-tiny")
     path = strategies_dir() / "illegal.json"
     path.write_text(json.dumps({"strategy": ILLEGAL_STRATEGY}))
     gpu = phase_card_vs_cpu("yolov2-tiny", 2, False, mode="w8a8",
                             strategy_path=str(path))
     if gpu._plan is not None:
         raise AssertionError("the illegal strategy built a plan")
+    xla_kern = [li for li in kern if li not in deep]
     _generic_counts(gpu, "yolov2-tiny w8a8 C1 fallback (auto)",
-                    {"gemm_fused": n}, len(set(deep) & set(quant)))
+                    {"conv_w8a8": len(xla_kern),
+                     "gemm_fused": n - len(xla_kern)},
+                    len(set(deep) & set(quant)),
+                    len([li for li in entry if li not in deep]))
 
 
 def phase_w8_pallas_forward(card: str):
@@ -1712,8 +1931,8 @@ def compare_stage(card: str, strategy: str, si: int, entry):
 
 def phase_stage_compare(card: str):
     """S2's stage 1 (L2 as ``rs``: conv3x3_rs reads the fold-2 tensor, no
-    im2col) against the pinned plan's L2 stage (``fold_xla``: im2col
-    ``torch.cat``, gemm_fused, group-max) on S2's b32 entry state; S3's
+    im2col) against the pinned plan's L2 stage (``fold_xla``: conv_w8a8
+    with its group-max, no im2col either) on S2's b32 entry state; S3's
     stage 0 (``s0``: stage0_fused) against the pin's (``stem_rs``:
     stem_fused_k2) on one b32 f32 input, with the share of output codes
     that differ. The two fold the scales in other orders (s_w*(s_in/s_out)
@@ -1811,6 +2030,9 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, torch.device("cuda"), ops_peak,
                  bw)
     torch.cuda.empty_cache()
+    rows.update(timed("conv_w8a8 kernel", phase_conv_w8a8,
+                      torch.device("cuda"), ops_peak, bw))
+    torch.cuda.empty_cache()
     rows.update(timed("gemm_f32 kernel", phase_gemm_f32,
                       torch.device("cuda"), peaks_f32, bw))
     torch.cuda.empty_cache()
@@ -1836,12 +2058,16 @@ def main() -> int:
     timed("card vs CPU", card_vs_cpu)
     print(f"host wait of one scale upload behind a busy card: "
           f"{upload_wait_ms():.3f} ms")
-    v2 = dict(gemm_fused=8, stem_fused_k2=1)
-    v3 = dict(gemm_fused=12, stem_fused_dg=1, shift_s2d2=1)
-    s1 = dict(gemm_fused=7, quant_space_to_depth4=1, gmax_shift_s2d2=1,
+    # the 3x3 convs (and the k2 folds) on conv_w8a8, the 1x1 convs on
+    # gemm_fused; S1 and S2's gemm-tier stages (gemm, and auto where
+    # use_pallas says so) on gemm_fused in the folded order
+    v2 = dict(conv_w8a8=7, gemm_fused=1, stem_fused_k2=1)
+    v3 = dict(conv_w8a8=8, gemm_fused=4, stem_fused_dg=1, shift_s2d2=1)
+    s1 = dict(conv_w8a8=3, gemm_fused=4, quant_space_to_depth4=1,
+              gmax_shift_s2d2=1, conv3x3_rs=2)
+    s2 = dict(conv_w8a8=4, gemm_fused=3, quant_space_to_depth4=1,
               conv3x3_rs=2)
-    s2 = dict(gemm_fused=7, quant_space_to_depth4=1, conv3x3_rs=2)
-    s3 = dict(stage0_fused=1, gemm_fused=8, shift_s2d2=1)
+    s3 = dict(stage0_fused=1, conv_w8a8=7, gemm_fused=1, shift_s2d2=1)
     f32_v2 = dict(gemm_f32=len(F32_B32_GEMMS))
     f32_v3 = dict(gemm_f32=len(F32_B16_V3_GEMMS))
 

@@ -3,9 +3,9 @@
 //
 // Replaces: dnn_inference_engine_tpu/ops/pallas_gemm.py, gemm_fused and
 // int8_gemm_fused (the pl.pallas_call sites of the weights-resident and
-// the 3-D tiled schedules). In the port it also carries every int8 conv
-// stage that the JAX plan leaves to XLA's int8 conv: the conv is an im2col
-// in PyTorch followed by this kernel.
+// the 3-D tiled schedules). In the port it also carries the 1x1 convs of
+// the xla tier (the conv is the GEMM: no im2col), the forms conv_w8a8.cu
+// refuses (an im2col in PyTorch first), and the gemm tier's im2col convs.
 //
 // Epilogues (mode):
 //   0  conv order, as conv2d_w8a8 and the fold stages compute it:
@@ -15,8 +15,9 @@
 //   2  f32 out, y after the activation (the linear detection head)
 //   3  the raw int32 accumulator
 // Every rounding is explicit (__fmul_rn, __fadd_rn, __fdiv_rn, rintf; the
-// shared helpers are in mma_s8.cuh): nvcc would otherwise contract a*b+c
-// into an FMA, and the int8 codes would drift by 1 LSB.
+// shared helpers are in mma_s8.cuh, the codes of modes 0, 1 and 4 in
+// requant.cuh, which conv_w8a8.cu shares): nvcc would otherwise contract
+// a*b+c into an FMA, and the int8 codes would drift by 1 LSB.
 //
 // What bounds it on an H100 (data-sheet rates of the SXM part at 700 W:
 // 1,979 int8 TOP/s, 3.35 TB/s): bytes for L2-L8 and the L14 head, whose
@@ -52,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_s8.cuh"
+#include "requant.cuh"
 #include "tma.cuh"
 #include "wgmma_s8.cuh"
 
@@ -77,31 +79,10 @@ struct GemmArgs {
   void* out;
   int* ws;                      // split-K partial sums (splits > 1)
   int* counters;                // split-K arrival counters, zero
-  float s_out, rs_out, lim;     // s_out, RN(1/s_out), 128 s_out
-  double rd_out;                // RN_double(1/s_out)
+  rq::Requant q;                // the conv order's division by s_out
   int M, N, K, mode, act;
   int n_tiles, splits, units, kt;
 };
-
-// The code of one accumulator, in the low byte. MODE 0 (conv order)
-// divides by s_out with wg::div_rn; MODE 4 is MODE 0 for an s_out that
-// is not a positive normal float (zero, subnormal, huge, negative): the
-// float y / s_out rounded once is RN_float(y * RN_double(1/s_out)), the
-// product in double -- a quotient of two 24-bit significands is never a
-// float midpoint and lies at least 2^-49 (relative) from every one, while
-// the double product errs by at most 2^-52 -- at the cost of two
-// conversions a code.
-template <int MODE, int ACT>
-__device__ __forceinline__ uint32_t code(int acc, float sc, float bi,
-                                         const GemmArgs& p) {
-  float y = epilogue_f32(acc, sc, bi, ACT);
-  if (MODE == 0) {
-    y = wg::div_rn(fminf(fmaxf(y, -p.lim), p.lim), p.s_out, p.rs_out);
-  } else if (MODE == 4) {
-    y = __double2float_rn(__dmul_rn(static_cast<double>(y), p.rd_out));
-  }
-  return wg::code_bits(y);
-}
 
 // A consumer's tile in the epilogue: its staging, its tile's scale and
 // bias in shared memory, its first row and column, the consumer.
@@ -134,8 +115,8 @@ __device__ __forceinline__ void store_codes(const int (&acc)[wg::NREG],
       for (int h = 0; h < 2; ++h) {
         const int r = 64 * q + 16 * w + g + 8 * h;
         const int i = 64 * q + 4 * j + 2 * h;
-        const uint32_t q0 = code<MODE, ACT>(acc[i], sc.x, bi.x, p);
-        const uint32_t q1 = code<MODE, ACT>(acc[i + 1], sc.y, bi.y, p);
+        const uint32_t q0 = rq::code<MODE>(acc[i], sc.x, bi.x, ACT, p.q);
+        const uint32_t q1 = rq::code<MODE>(acc[i + 1], sc.y, bi.y, ACT, p.q);
         const int chunk = (cl >> 4) ^ (r & 7);
         *reinterpret_cast<uint16_t*>(tl.staging + r * wg::BN + chunk * 16 +
                                      (cl & 15)) =
@@ -483,14 +464,7 @@ extern "C" int gemm_fused_s8(const void* a, const void* bt, const void* scale,
   p.counters = static_cast<int*>(counters);
   // conv order: wg::div_rn where s_out is a positive normal float whose
   // reciprocal and 128 s_out are normal too, else the double product
-  p.s_out = s_out;
-  p.rs_out = 1.0f / s_out;
-  p.lim = 128.0f * s_out;
-  p.rd_out = 1.0 / static_cast<double>(s_out);
-  if (mode == 0 && !(std::isnormal(s_out) && s_out > 0.f &&
-                     std::isnormal(p.rs_out) && std::isnormal(p.lim))) {
-    mode = 4;
-  }
+  p.q = rq::requant(s_out, &mode);
   p.M = M;
   p.N = N;
   p.K = K;

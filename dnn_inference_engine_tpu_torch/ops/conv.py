@@ -3,22 +3,37 @@
 Counterpart of ``dnn_inference_engine_tpu/ops/conv.py``. NHWC
 activations, HWIO weights. The float convs are cuDNN's, as the JAX
 package's are XLA's. PyTorch has no int8-in, int32-accumulate conv on
-CUDA (and ``F.conv2d`` on int8 wraps around), so ``conv2d_w8a8`` is
-im2col plus the fused int8 GEMM (ops/gemm.py) with the epilogue in
-``conv2d_w8a8``'s order.
+CUDA (and ``F.conv2d`` on int8 wraps around), so the JAX package's XLA
+int8 conv is a kernel of the port: ``conv2d_w8a8`` launches
+``csrc/conv_w8a8.cu`` (an implicit-GEMM conv on Hopper's ``wgmma`` that
+reads the activation in place, with the conv-order epilogue and,
+optionally, a fold stage's group-max) for every form that
+``conv_w8a8_form`` gives it: the 3x3 SAME and shifted-fold 2x2 VALID
+convs of the plans and of ``Model.forward``. A 1x1 conv is the fused
+int8 GEMM (ops/gemm.py) on a view of the activation; the forms the
+kernel refuses (Cin % 16 != 0, f32 output from a k > 1 conv, stride !=
+1) take an im2col and that GEMM. ``conv2d_w8a8_plain`` is the plain
+version of the whole function.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from dnn_inference_engine_tpu_torch.ops.activations import apply_activation
+from dnn_inference_engine_tpu_torch.ops import _build
+from dnn_inference_engine_tpu_torch.ops.activations import (
+    KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
     _same_pads, extract_patches, gemm_weights)
-from dnn_inference_engine_tpu_torch.ops.gemm import gemm_fused
+from dnn_inference_engine_tpu_torch.ops.fused_conv import (
+    group_max4, rs_tile_matrix)
+from dnn_inference_engine_tpu_torch.ops.gemm import (
+    H100_SMS, WG_BM, WG_BN, gemm_fused, gemm_fused_plain, k_splits,
+    kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
 
 
@@ -89,22 +104,225 @@ def conv2d_w8_bf16(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
     return apply_activation(y * s_w + b, act)
 
 
-def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
-                s_w: torch.Tensor, b: torch.Tensor, act: str = "leaky",
-                stride: int = 1, padding="SAME",
-                s_out: Optional[Scale] = None,
-                wt: Optional[torch.Tensor] = None, out_hw=None):
-    """Full W8A8 conv: int8 x int8 -> int32, then acc * (s_in * s_w) + b,
-    the activation, and (with ``s_out``) requantization to int8 —
-    otherwise the f32 output. ``wt`` is the precomputed
-    ``gemm_weights(wq)``; ``out_hw`` trims the output (see
-    extract_patches)."""
+# The W8A8 conv kernel (csrc/conv_w8a8.cu): a PATCH tile is CONV_TR x
+# CONV_TC output pixels of one image, a WINDOW tile 128 flat rows of the
+# batch; both by 128 accumulator columns (32 channels of each pool group
+# with the group-max).
+CONV_TR, CONV_TC = 16, 8
+WINDOW_KC = 128                 # bytes of Cin a window chunk
+WINDOW_MAX_W = 31               # the window's halo W + 1 is at most 32
+
+
+class ConvForm(NamedTuple):
+    """How ``conv2d_w8a8`` runs a conv on the card. ``route``: "patch"
+    or "window" (the kernel, by its two ways of bringing A to wgmma),
+    "gemm" (a 1x1 conv: ``gemm_fused`` on a view of the activation) or
+    "im2col" (a form the kernel refuses: im2col + ``gemm_fused``).
+    ``kb``: bytes of Cin a patch step (the boxes' inner extent); ``steps``
+    a tile's K steps (patch: k tap rows x ceil(Cin/kb); window: Cin/128
+    chunks of 9 taps), ``splits`` of them across blocks, ``tiles`` block
+    tiles, ``grid`` persistent blocks."""
+    route: str
+    kb: int = 0
+    steps: int = 0
+    splits: int = 1
+    tiles: int = 0
+    grid: int = 0
+
+
+def conv_out_hw(h: int, w: int, k: int, padding="SAME",
+                out_hw=None) -> Tuple[int, int]:
+    """The (Ho, Wo) of a stride-1 k x k conv with "SAME" or "VALID"
+    ``padding`` on an (h, w) input, trimmed to ``out_hw`` (the
+    shifted-fold stages' real rows and columns, ``extract_patches``)."""
+    ho, wo = (h, w) if padding == "SAME" else (h - k + 1, w - k + 1)
+    if out_hw is not None:
+        ho, wo = min(ho, out_hw[0]), min(wo, out_hw[1])
+    return ho, wo
+
+
+def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
+                   kw: int, stride: int = 1, padding="SAME", out_hw=None,
+                   quantized: bool = True, gmax: bool = False,
+                   sms: int = H100_SMS) -> ConvForm:
+    """The route ``conv2d_w8a8`` takes on the card for an (n, h, w, cin)
+    int8 input and (kh, kw, cin, cout) weights, from the shape alone,
+    before any launch:
+
+    - kh = kw = 1, stride 1: "gemm" (the conv is the GEMM of a view);
+    - the kernel's forms, int8 output (``quantized``, the conv order with
+      an s_out), stride 1, Cin % 16 == 0, and k = 3 SAME or k = 2 VALID
+      (with ``gmax`` also Cout % 4 == 0):
+      - "window" for k = 3 SAME, Cin % 128 == 0, W <= 31, untrimmed: the
+        batch folded into M, K split in whole chunks of 128 channels
+        where the tiles leave SMs idle (``attic.tail.bt_form``'s rule);
+      - "patch" for the rest: 16 x 8 pixel tiles of the trimmed output,
+        64-byte steps up to Cin 64, else 128, K split in whole steps
+        where the tiles leave SMs idle;
+    - anything else: "im2col" (ROADMAP B13).
+    """
+    if kh == kw == 1 and stride == 1 and not gmax:
+        return ConvForm("gemm")
+    k_ok = (kh, kw, padding) in ((3, 3, "SAME"), (2, 2, "VALID"))
+    if (not quantized or stride != 1 or not k_ok or cin % 16
+            or (gmax and cout % 4)):
+        return ConvForm("im2col")
+    ho, wo = conv_out_hw(h, w, kh, padding, out_hw)
+    n_tiles = (-(-(cout // 4) // (WG_BN // 4)) if gmax
+               else -(-cout // WG_BN))
+    if (kh == 3 and cin % WINDOW_KC == 0 and w <= WINDOW_MAX_W
+            and (ho, wo) == (h, w)):
+        tiles = -(-(n * h * w) // WG_BM) * n_tiles
+        chunks = cin // WINDOW_KC
+        splits = max(1, min(k_splits(tiles, 9 * chunks, sms), chunks))
+        return ConvForm("window", 0, chunks, splits, tiles,
+                        min(tiles * splits, sms))
+    kb = 64 if cin <= 64 else 128
+    steps = kh * -(-cin // kb)
+    tiles = n * -(-ho // CONV_TR) * -(-wo // CONV_TC) * n_tiles
+    # a step is kw taps of kb bytes: kw*kb/128 of gemm_fused's stages
+    splits = max(1, min(k_splits(tiles, steps * kw * kb // 128, sms), steps))
+    return ConvForm("patch", kb, steps, splits, tiles,
+                    min(tiles * splits, sms))
+
+
+def _im2col_conv(gemm, xq, s_in, wq, s_w, b, act, stride, padding, s_out,
+                 wt, out_hw, gmax):
+    """im2col (none for a 1x1 conv: the GEMM reads the activation), then
+    ``gemm`` (``gemm_fused`` or its plain version) in the conv order, then
+    the group-max."""
     kh, kw, _, cout = wq.shape
-    patches = extract_patches(xq, kh, kw, stride, padding, out_hw)
+    if (kh == kw == 1 and stride == 1 and out_hw is None
+            and padding in ("SAME", "VALID")):
+        patches = xq
+    else:
+        patches = extract_patches(xq, kh, kw, stride, padding, out_hw)
     n, ho, wo, k = patches.shape
     if wt is None:
         wt = gemm_weights(wq)
     scale = f32_scalar(s_in, xq.device) * s_w
-    out = gemm_fused(patches.reshape(n * ho * wo, k), wt, scale, b,
-                     act=act, s_out=s_out)
-    return out.reshape(n, ho, wo, cout)
+    out = gemm(patches.reshape(n * ho * wo, k), wt, scale, b, act=act,
+               s_out=s_out)
+    out = out.reshape(n, ho, wo, cout)
+    return group_max4(out) if gmax else out
+
+
+def conv2d_w8a8_plain(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
+                      s_w: torch.Tensor, b: torch.Tensor, act: str = "leaky",
+                      stride: int = 1, padding="SAME",
+                      s_out: Optional[Scale] = None,
+                      wt: Optional[torch.Tensor] = None, out_hw=None,
+                      gmax: bool = False):
+    """Plain PyTorch version of ``conv2d_w8a8`` (same arguments): im2col,
+    the exact int32 product, the epilogue in the conv order and the
+    group-max."""
+    return _im2col_conv(gemm_fused_plain, xq, s_in, wq, s_w, b, act, stride,
+                        padding, s_out, wt, out_hw, gmax)
+
+
+def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
+                s_w: torch.Tensor, b: torch.Tensor, act: str = "leaky",
+                stride: int = 1, padding="SAME",
+                s_out: Optional[Scale] = None,
+                wt: Optional[torch.Tensor] = None, out_hw=None,
+                gmax: bool = False):
+    """Full W8A8 conv: int8 x int8 -> int32, then acc * (s_in * s_w) + b,
+    the activation, and (with ``s_out``) requantization to int8 —
+    otherwise the f32 output. ``wt`` is the precomputed
+    ``gemm_weights(wq)``; ``out_hw`` trims the output (see
+    extract_patches). ``gmax``: the pool-major group-max of the codes
+    (the max over the four channel quarters), (N, Ho, Wo, Cout/4), for
+    the four groups sharing their ``s_w`` and ``b`` (a fold stage repeats
+    its layer's): the kernel requantizes the groups' extreme int32 sum
+    once, which is their largest code because requantization is monotone.
+
+    It takes the route ``conv_w8a8_form`` gives: the kernel
+    (``csrc/conv_w8a8.cu``, counted in ``conv2d_w8a8.launches`` where it
+    launches), ``gemm_fused`` on a 1x1 conv's view, or an im2col and
+    ``gemm_fused`` for the forms the kernel refuses (counted on the card
+    in ``conv2d_w8a8.im2col_launches``). On a CPU tensor the kernel's
+    route is the plain version (and ``gemm_fused`` its own); on a CUDA
+    tensor the kernel launches or the wrapper raises."""
+    kh, kw, cin, cout = (int(d) for d in wq.shape)
+    if xq.ndim != 4 or xq.shape[3] != cin:
+        raise ValueError(f"conv2d_w8a8: x {tuple(xq.shape)} against w "
+                         f"{tuple(wq.shape)}")
+    if gmax and cout % 4:
+        raise ValueError(f"conv2d_w8a8: the group-max needs Cout % 4 == 0, "
+                         f"got {cout}")
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv2d_w8a8: unsupported device {xq.device}")
+    cpu = xq.device.type == "cpu"
+    n, h, w, _ = (int(d) for d in xq.shape)
+    f = conv_w8a8_form(n, h, w, cin, cout, kh, kw, stride, padding, out_hw,
+                       quantized=s_out is not None, gmax=gmax,
+                       sms=H100_SMS if cpu else _build.sm_count(xq.device))
+    if f.route in ("gemm", "im2col"):
+        if not cpu:
+            conv2d_w8a8.im2col_launches += f.route == "im2col"
+        return _im2col_conv(gemm_fused, xq, s_in, wq, s_w, b, act, stride,
+                            padding, s_out, wt, out_hw, gmax)
+    if cpu:
+        return conv2d_w8a8_plain(xq, s_in, wq, s_w, b, act, stride, padding,
+                                 s_out, wt, out_hw, gmax)
+    go = cout // 4 if gmax else 0
+    if go:
+        bt = rs_tile_matrix(wq, go)       # made once, cached on wq
+    else:
+        bt = wt if wt is not None else kmajor_weights(wq)
+    scale = f32_scalar(s_in, xq.device) * s_w
+    ho, wo = conv_out_hw(h, w, kh, padding, out_hw)
+    return conv_w8a8_launch(xq, bt, scale, b, s_out, kh, ho, wo, go, act, f)
+
+
+def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, s_out: Scale, k: int, ho: int,
+                     wo: int, go: int, act: str, f: ConvForm) -> torch.Tensor:
+    """One launch of ``csrc/conv_w8a8.cu`` on operands ``conv2d_w8a8``
+    prepared: x (N, H, W, Cin) int8 on the card; bt the K-major weight
+    matrix (``kmajor_weights(w)``, or with ``go`` > 0 channels a pool
+    group ``rs_tile_matrix(w, go)``); scale = s_in*s_w and bias, (Cout,)
+    float32; the k x k conv (k 3 SAME, 2 VALID) trimmed to (ho, wo), in
+    the form ``f`` of ``conv_w8a8_form`` (route "patch" or "window").
+    Returns (N, ho, wo, go or Cout) int8; counts in
+    ``conv2d_w8a8.launches``."""
+    if f.route not in ("patch", "window"):
+        raise ValueError(f"conv_w8a8_launch: route {f.route!r} is not the "
+                         f"kernel's")
+    if x.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError(f"conv_w8a8_launch takes int8 x and weights, got "
+                        f"{x.dtype} and {bt.dtype}")
+    if any(t.device.type != "cuda" or t.device != x.device
+           for t in (x, bt, scale, bias)):
+        raise ValueError("conv_w8a8_launch: all operands on one CUDA device")
+    n, h, w, cin = (int(d) for d in x.shape)
+    cout = int(scale.shape[0])
+    x = x.contiguous()
+    if x.data_ptr() % 16:                 # the tensor maps' base address
+        x = x.clone()
+    bt = bt.contiguous()
+    scale = scale.contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    out = torch.empty((n, ho, wo, go or cout), dtype=torch.int8,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    ws, cnt = split_buffers(x.device, f)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("conv_w8a8", "conv_w8a8",
+                         [p, p, p, p, ctypes.c_float, p] + [i] * 14
+                         + [p, p, p])
+    err = fn(x.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             float(s_out), out.data_ptr(), n, h, w, cin, cout, k, ho, wo,
+             go, KERNEL_ACT_CODES[act], int(f.route == "window"), f.kb,
+             f.splits, f.grid, ptr_or_none(ws), ptr_or_none(cnt),
+             _build.stream_ptr(x.device))
+    conv2d_w8a8.launches += 1
+    _build.check(err, "conv_w8a8")
+    return out
+
+
+conv2d_w8a8.launches = 0
+# convs in a form the kernel refuses (conv_w8a8_form's "im2col" route):
+# on the plans' paths none; Model.forward's entry conv (Cin 3)
+conv2d_w8a8.im2col_launches = 0

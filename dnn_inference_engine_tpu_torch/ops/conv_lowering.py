@@ -4,6 +4,12 @@ Counterpart of ``dnn_inference_engine_tpu/ops/conv_lowering.py``. Patches
 are ordered (kh-major, kw, cin) along K, matching a plain
 ``w.reshape(kh*kw*cin, cout)`` of HWIO weights. Zero padding is exact for
 f32 and for symmetric int8 (zero-point 0).
+
+The gemm tiers stay im2col + GEMM, as their JAX counterparts are (im2col +
+the Pallas GEMM): ``conv2d_w8a8_gemm`` is ``conv2d_w8a8_pallas``. The xla
+tier's W8A8 conv (``ops/conv.conv2d_w8a8``) takes ``extract_patches`` only
+for the forms its kernel refuses (``ops/conv.conv_w8a8_form``) and in its
+plain version.
 """
 
 from __future__ import annotations

@@ -10,10 +10,12 @@ thresholds and its tier names: ``xla`` (the JAX package's XLA convs),
 - w8: ``auto`` is ``ops/conv.conv2d_w8_bf16`` everywhere, as in the JAX
   package; only ``force_pallas`` takes ``conv2d_w8_pallas`` (im2col +
   gemm_f32 with int8 codes);
-- w8a8: ``ops/conv.conv2d_w8a8`` (im2col + gemm_fused in the conv order)
-  or ``ops/conv_lowering.conv2d_w8a8_gemm`` (im2col + gemm_fused in the
-  folded order). Each keeps its own epilogue order, so ``auto`` picks the
-  same codes as the JAX package.
+- w8a8: ``ops/conv.conv2d_w8a8`` (the conv_w8a8 kernel, which reads the
+  activation in place, in the conv order; a 1x1 conv is gemm_fused on a
+  view) or ``ops/conv_lowering.conv2d_w8a8_gemm`` (im2col + gemm_fused in
+  the folded order, as the JAX package's im2col + Pallas GEMM). Each
+  keeps its own epilogue order, so ``auto`` picks the same codes as the
+  JAX package.
 """
 
 from __future__ import annotations

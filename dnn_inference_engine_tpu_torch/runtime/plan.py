@@ -12,20 +12,21 @@ there. Stage kinds of the W8A8 plan, with what runs them on the card:
 
   stem_rs      ops/fused_conv.stem_fused_k2 (kernel)
   stem_dg      ops/fused_conv.stem_fused_dg (kernel)
-  fold_xla     im2col + ops/gemm.gemm_fused (kernel) + group-max; as the
-               entry stage (f=4, k=3) the input goes through
-               ops/fused_conv.quant_space_to_depth4 (kernel)
+  fold_xla     ops/conv.conv2d_w8a8 (the conv_w8a8 kernel) with its
+               group-max; as the entry stage (f=4, k=3) the input goes
+               through ops/fused_conv.quant_space_to_depth4 (kernel)
   fold_xla_k2  the shifted k=2 fold: its input from shift_s2d2 (kernel)
                when int8, from quant_space_to_depth4 (kernel) as the f=4
-               entry, or read as a fold_xla_s2 emitted it; then im2col +
-               gemm_fused + group-max
-  fold_xla_s2  im2col + gemm_fused, then ops/fused_conv.gmax_shift_s2d2
+               entry, or read as a fold_xla_s2 emitted it; then
+               conv2d_w8a8 over the trimmed output with its group-max
+  fold_xla_s2  conv2d_w8a8, then ops/fused_conv.gmax_shift_s2d2
                (kernel): the shifted fold-2 layout for a fold_xla_k2 f=2
                consumer (cur_fold holds the sentinel -(H/2))
   rs, rs2      ops/fused_conv.conv3x3_rs (kernel): implicit-im2col k=3
                (rs) or shifted k=2 (rs2) folded conv with the group-max on
                the int32 accumulator; scale and bias fold 1/s_out
-  xla          im2col + gemm_fused in conv order (ops/conv.conv2d_w8a8)
+  xla          ops/conv.conv2d_w8a8: the conv_w8a8 kernel (a 1x1 conv:
+               gemm_fused on a view), conv order
   gemm         im2col + gemm_fused in the folded order
                (ops/conv_lowering.conv2d_w8a8_gemm)
   auto         xla or gemm per layer shape (ops/dispatch.py)
@@ -72,7 +73,8 @@ from dnn_inference_engine_tpu_torch.ops.dispatch import conv2d_w8a8_dispatch
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
     _pad_channels, _pad_hw, _round_up, conv3x3_rs, depth_to_space,
     fold_conv3x3_k2_weights, fold_conv3x3_weights, gmax_shift_s2d2,
-    group_max4, quant_space_to_depth4, rs_weight_matrix, shift_s2d2,
+    group_max4, quant_space_to_depth4, rs_tile_matrix, rs_weight_matrix,
+    shift_s2d2,
     shift_space_to_depth, space_to_depth, stem_dg_weight_slabs,
     stem_fused_dg, stem_fused_k2,
 )
@@ -319,10 +321,11 @@ def plan_or_reason(model, strategy: Optional[Dict] = None,
 def prepare_plan_params(model, qparams: Sequence[Dict],
                         stages: Sequence[Stage]) -> List[Dict]:
     """Pre-fold weights for folded stages (host-side, once), store each
-    GEMM stage's K-major weight matrix ``wt`` (gemm_weights), and lay out
-    the stem_dg kernel's weight slabs, the rs kernel's K-major matrix and
-    the s0 kernel's dense-K matrix and tile (each cached on its
-    weights)."""
+    conv stage's K-major weight matrix ``wt`` (gemm_weights: the GEMM's,
+    and the conv_w8a8 kernel's without a group-max), and lay out the
+    stem_dg kernel's weight slabs, the rs kernel's K-major matrix, the
+    conv_w8a8 kernel's pool-major matrix of a fold stage and the s0
+    kernel's dense-K matrix and tile (each cached on its weights)."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -362,6 +365,10 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
             rs_weight_matrix(q["wq"])
         elif st.kind != "stem_rs" and "wq" in q:
             q["wt"] = gemm_weights(q["wq"])
+            if st.kind in ("fold_xla", "fold_xla_k2"):
+                # the conv_w8a8 kernel's pool-major matrix for the
+                # group-max, cached on the folded weights
+                rs_tile_matrix(q["wq"], q["wq"].shape[3] // 4)
         out.append(q)
     return out
 
@@ -546,8 +553,9 @@ def _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales):
         x = _pad_channels(x, st.cin_pad)
     y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
                     padding="VALID", s_out=s_next, wt=pp["wt"],
-                    out_hw=out_hw or (x.shape[1] - 2, x.shape[2] - 2))
-    return group_max4(y), s_next, f // 2
+                    out_hw=out_hw or (x.shape[1] - 2, x.shape[2] - 2),
+                    gmax=True)
+    return y, s_next, f // 2
 
 
 def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
@@ -663,14 +671,16 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
                        quantize_out=True, pool=("gmaxm", f, cout),
                        ksize=st.k, s2d_out=st.s2d_out)
         return x, s_out, f // 2 * (2 if st.s2d_out else 1)
-    y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
-                    s_out=s_out, wt=pp["wt"])
     if st.kind == "fold_xla_s2":
         if f != 2:
             raise ValueError(f"fold_xla_s2 is a fold-2 stage: {st}")
+        y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
+                        act=st.act, s_out=s_out, wt=pp["wt"])
         # group-max + shifted s2d(2) in one kernel, for the fold_xla_k2
         # consumer; the sentinel carries the true row count H/2
         return gmax_shift_s2d2(y, go=cout), s_out, -(y.shape[1] // 2)
-    # pool-major group-max on the requantized int8 tensor; the surviving
-    # group order IS the fold-(f/2) layout
-    return group_max4(y), s_out, f // 2
+    # the conv with the pool-major group-max of its requantized codes; the
+    # surviving group order IS the fold-(f/2) layout
+    x = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
+                    s_out=s_out, wt=pp["wt"], gmax=True)
+    return x, s_out, f // 2

@@ -220,26 +220,48 @@ def test_rs_tile_matrix_layout_and_cache(r, go):
     assert tfc.rs_tile_matrix(w, go) is not m
 
 
+# the 1x1 convs of those forwards, which stay GEMMs (the 3x3 convs are the
+# conv_w8a8 kernel's, ops/conv.conv_w8a8_form)
+V2_B1_1X1 = [(169, 1024, 125)]
+V3_B1_1X1 = [(169, 1024, 256), (169, 512, 75), (169, 256, 128),
+             (676, 256, 75)]
+
+
 def test_batch1_pins_launch_the_table_shapes():
-    """The W8A8 b1 pins of both models at 416 px, on the CPU: their
-    gemm_fused calls are exactly the b1 tables above (the card's
-    chip_smoke.py checks its b32 and b16 tables the same way)."""
+    """The W8A8 b1 pins of both models at 416 px, on the CPU: the (M, K,
+    N) of their int8 convs are exactly the b1 tables above, the 1x1 convs
+    as gemm_fused calls and every other one on the conv_w8a8 kernel's
+    route (the card's chip_smoke.py checks its b32 and b16 tables the
+    same way)."""
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.ops import conv as tconv
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
     fn, seen = tgemm.gemm_fused, []
+    kernel_fn, convs = tconv.conv2d_w8a8_plain, []
 
     def record(a, bt, *args, **kw):
         seen.append((int(a.shape[0]), int(a.shape[1]), int(bt.shape[0])))
         return fn(a, bt, *args, **kw)
-    for model, table in (("yolov2-tiny", V2_B1), ("yolov3-tiny", V3_B1)):
+
+    def record_conv(xq, s_in, wq, *args, **kw):
+        y = kernel_fn(xq, s_in, wq, *args, **kw)
+        kh, kw_, cin, cout = wq.shape
+        convs.append((int(y.shape[0] * y.shape[1] * y.shape[2]),
+                      int(kh * kw_ * cin), int(cout)))
+        return y
+    for model, table, gemms in (("yolov2-tiny", V2_B1, V2_B1_1X1),
+                                ("yolov3-tiny", V3_B1, V3_B1_1X1)):
         eng = Engine(EngineConfig(model=model, mode="w8a8", batch=1),
                      device="cpu").load_weights(seed=0).prepare()
         img = np.zeros((1, 416, 416, 3), np.uint8)
         seen.clear()
+        convs.clear()
         try:
             tgemm.gemm_fused = tconv.gemm_fused = record
+            tconv.conv2d_w8a8_plain = record_conv
             eng.detect(img)
         finally:
             tgemm.gemm_fused = tconv.gemm_fused = fn
-        assert sorted(seen) == sorted(table), model
+            tconv.conv2d_w8a8_plain = kernel_fn
+        assert sorted(seen) == sorted(gemms), model
+        assert sorted(seen + convs) == sorted(table), model

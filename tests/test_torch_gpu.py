@@ -946,3 +946,151 @@ def test_tma_box_leaving_a_ragged_inner_dimension_faults(cuda):
     assert v.accepted and torch.equal(v.out, pr.probe_plain(src, (896,),
                                                             (256,)))
 
+
+
+# The W8A8 conv kernel (csrc/conv_w8a8.cu) at the forms of the W8A8 pins:
+# (tag, x shape, k, Cout, group-max, trimmed output, route). YOLOv2-tiny's
+# 3x3 convs at b32 and b1, the b32 pin's L4 and the b8 pin's L8 shifted
+# folds (k2 VALID over shift_s2d2's rows, trimmed), YOLOv3-tiny's L14 and
+# L20 (Cin 384, from a route concat) at b16, S1's fold-4 entry, and small
+# shapes with a ragged last M tile, a ragged Cout and Cin below 64
+CONV_CASES = [
+    ("v2 b32 L2", (32, 104, 104, 64), 3, 128, True, None, "patch"),
+    ("v2 b32 L4 k2", (32, 56, 53, 128), 2, 256, True, (52, 52), "patch"),
+    ("v2 b32 L6", (32, 52, 52, 64), 3, 128, False, None, "patch"),
+    ("v2 b32 L8", (32, 26, 26, 128), 3, 256, False, None, "window"),
+    ("v2 b32 L10", (32, 13, 13, 256), 3, 512, False, None, "window"),
+    ("v2 b32 L12", (32, 13, 13, 512), 3, 1024, False, None, "window"),
+    ("v2 b32 L13", (32, 13, 13, 1024), 3, 1024, False, None, "window"),
+    ("v2 b1 L2", (1, 104, 104, 64), 3, 128, True, None, "patch"),
+    ("v2 b1 L4", (1, 52, 52, 128), 3, 256, True, None, "patch"),
+    ("v2 b1 L6", (1, 52, 52, 64), 3, 128, False, None, "patch"),
+    ("v2 b1 L8", (1, 26, 26, 128), 3, 256, False, None, "window"),
+    ("v2 b1 L10", (1, 13, 13, 256), 3, 512, False, None, "window"),
+    ("v2 b1 L12", (1, 13, 13, 512), 3, 1024, False, None, "window"),
+    ("v2 b1 L13", (1, 13, 13, 1024), 3, 1024, False, None, "window"),
+    ("v2 b8 L8 k2", (8, 16, 14, 512), 2, 1024, True, (13, 13), "patch"),
+    ("v3 b16 L14", (16, 13, 13, 256), 3, 512, False, None, "window"),
+    ("v3 b16 L20", (16, 26, 26, 384), 3, 256, False, None, "window"),
+    ("S1 entry k2 f4", (2, 106, 106, 64), 2, 256, True, (104, 104),
+     "patch"),
+    ("ragged M, Cout", (3, 11, 9, 32), 3, 48, False, None, "patch"),
+    ("ragged gmax", (2, 19, 21, 16), 3, 80, True, None, "patch"),
+    ("Cin 48 k2", (2, 10, 13, 48), 2, 64, True, (8, 11), "patch"),
+    ("ragged window", (3, 7, 5, 128), 3, 72, False, None, "window"),
+]
+
+
+def _conv_inputs(g, dev, xs, k, cout, s_out, gmax=False):
+    """x, w, s_in, s_w, b for codes spread over +-127 at ``s_out``; with
+    the group-max the four groups share s_w and b, as in a fold stage."""
+    cin = xs[3]
+    s_in = 1.0 if s_out < 1e-30 else 0.02
+    spread = s_out * 60.0 / (s_in * (k * k * cin) ** 0.5 * 5376.0)
+    n = cout // 4 if gmax else cout
+    s_w = (torch.rand(n, generator=g, device=dev) + 0.5) * spread
+    b = torch.randn(n, generator=g, device=dev) * (20.0 * s_out)
+    if gmax:
+        s_w, b = s_w.repeat(4), b.repeat(4)
+    return (_i8(g, dev, *xs), _i8(g, dev, k, k, cin, cout), s_in, s_w, b)
+
+
+@pytest.mark.parametrize("s_out", [0.05, 1e-39])   # 1e-39: mode 4
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_conv_w8a8_kernel_matches_plain(cuda, deadline, case, s_out):
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import _build
+    tag, xs, k, cout, gmax, out_hw, route = case
+    g = torch.Generator(device=cuda).manual_seed(sum(xs) + k + cout)
+    x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, cout, s_out, gmax)
+    padding = "SAME" if k == 3 else "VALID"
+    f = cv.conv_w8a8_form(*xs, cout, k, k, 1, padding, out_hw, True, gmax,
+                          _build.sm_count(cuda))
+    assert f.route == route, f
+    kw = dict(act="leaky", padding=padding, s_out=s_out, out_hw=out_hw,
+              gmax=gmax)
+    before = (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches)
+    got = cv.conv2d_w8a8(x, s_in, w, s_w, b, **kw)
+    assert (cv.conv2d_w8a8.launches,
+            cv.conv2d_w8a8.im2col_launches) == (before[0] + 1, before[1])
+    ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.int8
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref), (tag, int((got != ref).sum()))
+    assert int(ref.abs().max()) > 0
+
+
+@pytest.mark.parametrize("act", ["linear", "relu"])
+@pytest.mark.parametrize("case", [c for c in CONV_CASES if c[1][0] <= 3],
+                         ids=[c[0] for c in CONV_CASES if c[1][0] <= 3])
+def test_conv_w8a8_kernel_activations_match_plain(cuda, deadline, case, act):
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    tag, xs, k, cout, gmax, out_hw, _ = case
+    g = torch.Generator(device=cuda).manual_seed(len(tag))
+    x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, cout, 0.04, gmax)
+    kw = dict(act=act, padding="SAME" if k == 3 else "VALID", s_out=0.04,
+              out_hw=out_hw, gmax=gmax)
+    got = cv.conv2d_w8a8(x, s_in, w, s_w, b, **kw)
+    ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), tag
+
+
+def test_conv_w8a8_split_k_forms(cuda):
+    """The b1 tail and b1 L6 split K across blocks; the b32 shapes fill
+    the card unsplit."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    for tag, xs, k, cout, gmax, out_hw, _ in CONV_CASES:
+        f = cv.conv_w8a8_form(*xs, cout, k, k, 1,
+                              "SAME" if k == 3 else "VALID", out_hw, True,
+                              gmax, 132)
+        if tag.startswith(("v2 b1 L6", "v2 b1 L10", "v2 b1 L12",
+                           "v2 b1 L13")):
+            assert f.splits > 1, (tag, f)
+        if tag.startswith("v2 b32"):
+            assert f.splits == 1, (tag, f)
+
+
+def test_conv_w8a8_refused_forms_take_the_im2col_route(cuda):
+    """Cin % 16 != 0, f32 output from a 3x3 conv and stride 2 take the
+    im2col + gemm_fused route (its own counter, no kernel launch); a 1x1
+    conv the GEMM on a view (neither counter); each equals the plain
+    version."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cases = [((2, 20, 20, 3), 3, 1, 0.05, 1),
+             ((2, 13, 13, 64), 3, 1, None, 1),
+             ((2, 14, 14, 32), 3, 2, 0.05, 1),
+             ((2, 13, 13, 64), 1, 1, 0.05, 0),
+             ((2, 13, 13, 64), 1, 1, None, 0)]
+    for xs, k, stride, s_out, im2col in cases:
+        x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, 32, 0.05)
+        before = (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches)
+        got = cv.conv2d_w8a8(x, s_in, w, s_w, b, stride=stride, s_out=s_out)
+        assert (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches) == (
+            before[0], before[1] + im2col), (xs, k, stride, s_out)
+        ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, stride=stride,
+                                   s_out=s_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (xs, k, stride, s_out)
+
+
+@pytest.mark.parametrize("sign,s_out", [(-1.0, 0.05), (1.0, -0.05),
+                                        (-1.0, -0.05)])
+def test_conv_w8a8_group_max_follows_the_sign_of_scale(cuda, sign, s_out):
+    """The group-max takes the code of the groups' largest int32 sum where
+    scale and s_out have one sign and of the smallest where they differ
+    (a negative s_out is mode 4): equal to the plain version's largest
+    code."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for xs, k, out_hw in (((2, 20, 18, 64), 3, None),
+                          ((2, 12, 11, 128), 2, (10, 9))):
+        x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, 128, 0.05, True)
+        kw = dict(padding="SAME" if k == 3 else "VALID", s_out=s_out,
+                  out_hw=out_hw, gmax=True)
+        got = cv.conv2d_w8a8(x, s_in, w, s_w * sign, b, **kw)
+        ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w * sign, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (xs, sign, s_out)
