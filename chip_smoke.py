@@ -19,9 +19,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``torch._int_mm``, printing each GEMM and conv3x3_rs row's form, tile,
    K-split and grid (``gemm_form``, ``rs_form``), and the host time of a
    ``gemm_fused`` call in both forms; the W8A8 conv (conv_w8a8, each
-   layer's route, K steps, split and grid printed) also in mode 4 and
-   against the im2col + ``gemm_fused`` route it replaced, timed beside it,
-   ``torch._int_mm`` on the im2col'd A and its bound; the per-tap stem is
+   layer's route, K steps and schedule printed: grid, stream-K tiles,
+   blocks and slots, tiles a block, the busiest block's K steps) also in
+   mode 4 and against the im2col + ``gemm_fused`` route it replaced,
+   timed beside it, ``torch._int_mm`` on the im2col'd A, its bound, the
+   previous kernel's time and the kernel's other schedules on the same
+   inputs (round robin or stream-K), each bit for bit; the per-tap stem
+   is
    timed beside
    the k2 stem on the same inputs (b16 and b1), with the k2 stem's own
    b32 time beside them; then the attic kernels: stage0_fused
@@ -45,7 +49,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    then conv_dma against its plain version and conv3x3_rs at that shape
    for each ht (every ht launches the same kernel, so one is timed),
    timed beside its bound, the plain version, conv3x3_rs and
-   ``torch._int_mm``, and tma_probe against its plain copy;
+   ``torch._int_mm``, and tma_probe against its plain copy, timed beside
+   ``clone`` of the slice;
 5. card against CPU, W8A8 at 416 px from seeded random weights:
    YOLOv2-tiny at batch 2 (the batch-32 plan: all three of its kernels)
    and batch 1 (its own pinned plan), YOLOv3-tiny at batch 2 and batch 1
@@ -66,11 +71,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    every 3x3 conv on conv_w8a8, every 1x1 conv on gemm_fused; on no path
    a gemm_f32 launch in the ragged form); the (M, K, N) of the GEMMs of
    a second detect must be the tables' (YOLOv2-tiny b32 and b1,
-   YOLOv3-tiny b16); then
+   YOLOv3-tiny b16); in W8A8 every conv_w8a8 launch of a detect must
+   equal its plain version bit for bit; then
    throughput (forwards and detects back to back), latency (each call
    synced), and the device time and operations per forward by kernel
    from ``torch.profiler`` (a trace must hold every kernel as many times
-   as its launch counter counted). Before them, the host's wait for one scale
+   as its launch counter counted), with conv_w8a8's share of the device
+   busy. Before them, the host's wait for one scale
    upload behind a busy card (``upload_wait_ms``);
 7. S2's stage 1 (``rs``, no im2col) against the pinned plan's L2 stage
    (``fold_xla``: conv_w8a8 with its group-max) on the same b32 entry state,
@@ -225,6 +232,13 @@ V3_B16_CONVS = [("L2", (16, 104, 104, 64), 3, 128, True, None),
                 ("L14", (16, 13, 13, 256), 3, 512, False, None),
                 ("L20", (16, 26, 26, 384), 3, 256, False, None)]
 HEADS = {"yolov2-tiny": {"L14"}, "yolov3-tiny": {"L15", "L21"}}
+# conv_w8a8's previous kernel (commit 6ee0c98: a window route for the tap
+# forms, the exact epilogue, no stream-K) at V2_B32_CONVS, ms a launch
+# (chip_smoke.py's device_ms, H100 80GB HBM3 at 700.00 W; PERF.md section
+# 6), and its sums at V2_B1_CONVS and V3_B16_CONVS
+PREV_CONV_MS = {"L2": 0.0725, "L4": 0.0460, "L6": 0.0434, "L8": 0.0282,
+                "L10": 0.0303, "L12": 0.0671, "L13": 0.1211}
+PREV_CONV_SUM_MS = {"v2-b32": 0.4085, "v2-b1": 0.1249, "v3-b16": 0.2440}
 # (layer, M, K, N) of the gemm_f32 launches of one fp32 kernel="auto"
 # forward at 416 px: the layers where use_pallas takes the gemm tier
 # (YOLOv2-tiny b32; YOLOv3-tiny b16); L14 is the linear head
@@ -606,13 +620,54 @@ def phase_kernels(dev, ops_peak, bw):
     return rows
 
 
+def conv_alternatives(f, sms, k):
+    """The kernel's other schedules for a launch of form ``f`` (a k x k
+    conv), by name:
+    round robin ("rr": whole tiles, one a block and round), the last
+    round's tiles stream-K over every block ("sk last round", at least as
+    many tiles as SMs) or every tile stream-K over ``k_splits``' pieces a
+    tile ("sk", fewer tiles), where that differs from ``f``."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops.gemm import k_splits
+    rounds, rem = divmod(f.tiles, sms)
+    alts = {"rr": f._replace(grid=min(f.tiles, sms), sk_tiles=0,
+                             sk_blocks=0, slots=1)}
+    if rounds and rem:
+        alts["sk last round"] = f._replace(
+            grid=sms, sk_tiles=rem, sk_blocks=min(sms, rem * f.steps))
+    elif not rounds:
+        step_bytes = k * f.kb if f.route == "patch" else 128
+        pieces = min(k_splits(f.tiles, -(-f.steps * step_bytes // 128),
+                              sms), f.steps)
+        grid = min(sms, f.tiles * pieces)
+        if pieces > 1:
+            alts["sk"] = f._replace(grid=grid, sk_tiles=f.tiles,
+                                    sk_blocks=grid)
+    alts = {k: v._replace(slots=cv.sk_slots(v)) for k, v in alts.items()}
+    return {f"{f.route} {k}": v for k, v in alts.items() if v != f}
+
+
+def schedule_line(f) -> str:
+    """A form's schedule: grid, stream-K tiles, blocks and slots, tiles a
+    block, and the busiest block's K steps of the round-robin one's."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    busiest = max(cv.block_steps(f))
+    rr = -(-f.tiles // min(f.tiles, f.grid)) * f.steps
+    return (f"grid {f.grid}, {f.tiles} tiles of {f.steps} steps "
+            f"({f.tiles / f.grid:.2f} a block), stream-K {f.sk_tiles} tiles "
+            f"on {f.sk_blocks} blocks ({f.slots} slots), busiest block "
+            f"{busiest} steps (round robin {rr})")
+
+
 def conv_shapes(g, dev, table, ops_peak, bw, tag):
     """conv_w8a8 against its plain version (codes bit for bit; s_out 0.05,
     the conv order, and 1e-39, mode 4) at each (layer, x shape, k, Cout,
     group-max, trim) of ``table``, and against the im2col + ``gemm_fused``
     route it replaced on the same inputs; the kernel's launch timed on
     prepared operands beside that route, ``torch._int_mm`` on the
-    im2col'd A (product only) and the bound."""
+    im2col'd A (product only), the bound, the previous kernel's time and
+    the kernel's
+    other ways (``conv_alternatives``, each bit for bit)."""
     from dnn_inference_engine_tpu_torch.ops import _build
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
@@ -642,7 +697,7 @@ def conv_shapes(g, dev, table, ops_peak, bw, tag):
         launches = cv.conv2d_w8a8.launches
         got = cv.conv2d_w8a8(x, 0.02, w, s_w, b, **kw)
         if (cv.conv2d_w8a8.launches != launches + 1
-                or form.route not in ("patch", "window")):
+                or form.route not in ("patch", "tap")):
             raise AssertionError(f"conv_w8a8 {tag} {layer}: not the kernel")
         ref = cv.conv2d_w8a8_plain(x, 0.02, w, s_w, b, **kw)
         err = max_abs_err(got, ref)
@@ -663,9 +718,9 @@ def conv_shapes(g, dev, table, ops_peak, bw, tag):
         bt = fc.rs_tile_matrix(w, go) if gmax else wt
         scale = f32_scalar(0.02, dev) * s_w
 
-        def kernel():
+        def kernel(f=form):
             return cv.conv_w8a8_launch(x, bt, scale, b, 0.05, k, ho, wo, go,
-                                       "leaky", form)
+                                       "leaky", f)
 
         def im2col_gemm():
             y = gm.gemm_fused(extract_patches(x, k, k, 1, padding, out_hw)
@@ -675,6 +730,10 @@ def conv_shapes(g, dev, table, ops_peak, bw, tag):
         err = max(err, max_abs_err(kernel(), got),
                   max_abs_err(im2col_gemm(), got))
         ms = device_ms(kernel, 10)
+        alt_ms = {}
+        for name, f in conv_alternatives(form, sms, k).items():
+            err = max(err, max_abs_err(kernel(f), got))
+            alt_ms[name] = device_ms(lambda f=f: kernel(f), 10)
         im2col_ms = device_ms(im2col_gemm, 10)
         plain_ms = device_ms(
             lambda: cv.conv2d_w8a8_plain(x, 0.02, w, s_w, b, **kw), 2)
@@ -687,14 +746,19 @@ def conv_shapes(g, dev, table, ops_peak, bw, tag):
                            im2col_gemm_ms=im2col_ms, plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=bound, bound_by=by,
                            route=form.route, kb=form.kb, steps=form.steps,
-                           splits=form.splits, grid=form.grid))
+                           grid=form.grid, sk_tiles=form.sk_tiles,
+                           sk_blocks=form.sk_blocks, slots=form.slots,
+                           alt_ms=alt_ms))
+        prev = PREV_CONV_MS.get(layer) if tag == "v2-b32" else None
         print(f"  conv_w8a8 {tag} {layer} x={xs} k={k} Cout={cout}"
               f"{' gmax' if gmax else ''}{f' trim {out_hw}' if out_hw else ''}"
-              f" (M={m} K={kk}): err={err} mode-4 err={err4} ms={ms:.4f} "
+              f" (M={m} K={kk}): err={err} mode-4 err={err4} ms={ms:.4f}"
+              f"{f' (previous kernel {prev:.4f})' if prev else ''} "
               f"im2col+gemm_fused_ms={im2col_ms:.4f} int_mm_ms={lib_ms:.4f} "
               f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}); "
-              f"{form.route} kb {form.kb} steps {form.steps} split "
-              f"{form.splits} tiles {form.tiles} grid {form.grid}")
+              f"{form.route} kb {form.kb}, {schedule_line(form)}; other "
+              f"ways: " + ", ".join(f"{k_} {v:.4f}"
+                                    for k_, v in alt_ms.items()))
         if err != 0 or err4 != 0:
             raise AssertionError(f"conv_w8a8 {tag} {layer}: kernel != plain")
         del x, a, ref, got
@@ -728,6 +792,14 @@ def phase_conv_w8a8(dev, ops_peak, bw):
         row[f"{key}_shapes"] = got[tag]
         for what in ("ms", "im2col_gemm_ms", "library_ms", "bound_ms"):
             row[f"{key}_{what}"] = total(tag, what)
+    for tag, prev in PREV_CONV_SUM_MS.items():
+        alts = {}
+        for r in got[tag]:
+            for name, v in r["alt_ms"].items():
+                alts[name] = alts.get(name, 0.0) + v
+        print(f"  conv_w8a8 {tag} sum {total(tag, 'ms'):.4f} ms (previous "
+              f"kernel {prev:.4f}); each layer's other ways, where taken: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in alts.items()))
     print(f"  conv_w8a8 sums: v2 b32 {row['ms']:.4f} ms (im2col+gemm_fused "
           f"{row['im2col_gemm_ms']:.4f}, int_mm {row['library_ms']:.4f}, "
           f"bound {row['bound_ms']:.4f}); v2 b1 {row['b1_ms']:.4f} ms "
@@ -1332,6 +1404,51 @@ class GemmShapes:
             mod.gemm_fused = self.fn
 
 
+class ConvCheck:
+    """While active, keeps the inputs and output of every ``conv2d_w8a8``
+    call that launches the conv_w8a8 kernel (each module of the port that
+    calls the wrapper, but ops/conv.py itself, gets a recorder in its
+    place, so the wrapper's own counters still count); ``verify`` then
+    holds each output to ``conv2d_w8a8_plain`` on the same inputs, bit for
+    bit."""
+
+    def __enter__(self):
+        from dnn_inference_engine_tpu_torch.ops import conv as cv
+        self.cv, self.fn, self.calls, self.mods = cv, cv.conv2d_w8a8, [], []
+
+        def record(*args, **kw):
+            before = self.fn.launches
+            out = self.fn(*args, **kw)
+            if self.fn.launches != before:
+                self.calls.append((args, kw, out))
+            return out
+        for name, mod in list(sys.modules.items()):
+            if (name.startswith("dnn_inference_engine_tpu_torch.")
+                    and mod is not cv
+                    and getattr(mod, "conv2d_w8a8", None) is self.fn):
+                mod.conv2d_w8a8 = record
+                self.mods.append(mod)
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.conv2d_w8a8 = self.fn
+
+    def verify(self, tag: str, want: int):
+        if len(self.calls) != want:
+            raise AssertionError(f"{tag}: {len(self.calls)} conv_w8a8 "
+                                 f"launches checked, {want} expected")
+        for i, (args, kw, out) in enumerate(self.calls):
+            ref = self.cv.conv2d_w8a8_plain(*args, **kw)
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"{tag}: conv_w8a8 launch {i} ({tuple(args[0].shape)} x "
+                    f"{tuple(args[2].shape)}) != conv2d_w8a8_plain in "
+                    f"{int((out != ref).sum())} codes")
+        print(f"{tag}: every conv_w8a8 launch of the detect "
+              f"({len(self.calls)}) equals conv2d_w8a8_plain bit for bit")
+
+
 class XlaTierIm2col:
     """While active, counts the im2col copies of the xla tier's W8A8 conv
     (``ops/conv.py``'s ``extract_patches``, a 1x1 conv's view included):
@@ -1609,6 +1726,7 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("tma_probe", "tma_probe_kernel"),
                  ("conv_w8a8", "conv_patch_kernel"),
                  ("conv_w8a8", "conv_window_kernel"),
+                 ("conv_w8a8", "conv_tap_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),
                  ("host-to-device copies", "Memcpy HtoD"),
@@ -1730,6 +1848,11 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
             raise AssertionError(f"{tag}: gemm_fused shapes {rec.shapes} "
                                  f"!= the table's {gemms}")
         print(f"{tag}: the detect's gemm_fused (M, K, N) equal the table's")
+    if mode == "w8a8":
+        with ConvCheck() as chk:
+            eng.detect(imgs)
+            torch.cuda.synchronize()
+        chk.verify(tag, want["conv_w8a8"])
     run = eng.detect_fn()
 
     def fwd():
@@ -1746,7 +1869,8 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     print(f"{tag} device ms per forward (torch.profiler, 5 forwards): "
           + ", ".join(f"{g} {v:.4f}" for g, v in groups.items())
           + f"; busy {busy:.4f} = {busy / t['fwd_tp']:.2f} of the "
-          f"back-to-back forward [{card}]")
+          f"back-to-back forward; conv_w8a8 {groups['conv_w8a8']:.4f} = "
+          f"{groups['conv_w8a8'] / busy:.2f} of the busy [{card}]")
     print(f"{tag} device operations per forward: "
           + ", ".join(f"{g} {n:g}" for g, n in ops.items())
           + f"; total {sum(ops.values()):g} [{card}]")

@@ -32,10 +32,9 @@
 // Design: the Hopper mainloop of wgmma_s8.cuh (a persistent grid; a
 // producer warpgroup whose one thread issues every copy; two consumer
 // warpgroups that take the block's units in turn, one's epilogue under
-// the other's wgmma; split-K across blocks, the fixup before the
-// epilogue) with A brought to wgmma by one of two routes, a template
-// parameter chosen by the wrapper from the shape alone (ops/conv.py
-// conv_w8a8_form):
+// the other's wgmma) with A brought to wgmma by one of two routes, a
+// kernel chosen by the wrapper from the shape alone (ops/conv.py
+// conv_w8a8_form); both read A and B by descriptor:
 //
 // - PATCH (conv_dma.cu's): a tile is TR x TC = 16 x 8 output pixels of one
 //   image (a tile row is one 8-row core matrix of the wgmma operand) by
@@ -54,29 +53,35 @@
 //   trimmed (Ho, Wo) output only: L4's shifted fold of H/2+1 valid rows
 //   and its zero rows up to a multiple of 8 is read where a tile needs it,
 //   and no tile starts past the trimmed output.
-// - WINDOW (conv3x3_bt.cu's): k = 3 SAME with Cin % 128 == 0 and W <= 31,
-//   the batch folded into a flat M of N*H*W rows, 128 a tile. For each
-//   128-byte chunk of Cin one TMA box copies the tile's window of flat
-//   rows [m0 - (W+1), m0 + 128 + W+1) (zeros outside [0, M)) in the
-//   128-byte swizzle; a consumer loads A from it by ldmatrix into
-//   registers (wgmma's register-A form), each lane addressing its row at
-//   the tap's row shift, or a zero row where the tap leaves the pixel's
-//   image: a descriptor addresses rows affinely and could not redirect
-//   them. B comes a (chunk, tap) box at a time through a ring of 8. A
-//   step's A fragments are loaded a k32 group at a time, 8 registers, under
-//   the 3 groups before it (double-buffered whole steps made ptxas
-//   serialise the wgmma).
+// - TAP: k = 3 SAME with Cin % 128 == 0, untrimmed (ops/conv.py takes it
+//   up to W = 31, PATCH past that), the batch folded into a flat M of
+//   N*H*W rows, 128 a tile. A step is one tap (dh, dw) of one 128-byte
+//   chunk of Cin: the copy engine's im2col mode (a tensor map of
+//   cuTensorMapEncodeIm2col over x {Cin, W, H, N} whose bounding box is
+//   the output grid) walks the tile's 128 flat pixels from the first
+//   one's top-left tap, across rows and images, each pixel sampled at the
+//   tap's offset, zero where that leaves its image, into a 128 x 128-byte
+//   A tile in the 128-byte swizzle; B's (tap, chunk) box lands beside it,
+//   and wgmma reads both by descriptor (gemm_fused's mainloop,
+//   wg::mma_unit). A crosses L2 once a tap, 16 KB a step as B does. A
+//   window route (conv3x3_bt.cu's resident window of flat rows, A into
+//   registers by ldmatrix, each lane redirecting its row to a zero row
+//   where a tap leaves the image) moves about half those bytes but was
+//   slower at every shape measured: L13 at b32 0.1274 ms against 0.0816
+//   (H100 80GB HBM3, 700.00 W; PERF.md).
 //
-// The epilogue (shared): each tile's scale and bias go to shared memory
-// while its mainloop runs; the codes (requant.cuh, every rounding
-// explicit) are staged in shared memory and stored 16 bytes a thread, a
-// row at a time to the row's output pixel. With the group-max a thread
-// holds the same channel of all four groups (B is rs_tile_matrix's
-// pool-major tile matrix: block j holds channels 32j..32j+31 of each
-// group, so column 8i + 2t + e of group k is register column i + 4k), and
-// takes the extreme over its own registers. The epilogue's arithmetic is
-// what the short-K PATCH layers wait on (PERF.md).
-
+// The schedule (shared; ops/conv.py conv_schedule works it out from the
+// shape): tiles are walked in (column block, pixel tile) order (PATCH) or
+// (row tile, column block) order (TAP), each of `steps` K steps. The
+// first sk_tiles tiles are summed stream-K: their sk_tiles * steps (tile,
+// step) iterations are cut into sk_blocks ranges as even as integers
+// allow, block b < sk_blocks taking the b-th, a piece a tile it touches;
+// the rest go round robin, whole. A block runs its pieces, then its whole
+// tiles, its consumers taking them in turn. A tile whose pieces lie on
+// several blocks is summed by wg::splitk_fixup: each piece writes its
+// partial sum to its slot (the block's place among the tile's blocks),
+// and the last to arrive adds the others and runs the epilogue.
+//
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -102,40 +107,96 @@ constexpr int TC = 8;
 constexpr int PC = TC + 2;
 constexpr int PATCH = TR * PC;
 
-// WINDOW: bytes of Cin a chunk, the largest halo (W + 1), the window
-// buffers and the B ring
+// TAP: bytes of Cin a chunk, the ring's stages
 constexpr int KC = 128;
-constexpr int HALO_MAX = 32;
-constexpr int WIN_BYTES = (BM + 2 * HALO_MAX) * KC;
-constexpr int WSTAGES = 2;
-constexpr int BSTAGES = 8;
+constexpr int TSTAGES = 5;
 
 struct Conv {
   const float* scale;           // (Cout,)
   const float* bias;
   int8_t* out;                  // (N, Ho, Wo, go ? go : Cout)
-  int* ws;                      // split-K partial sums (splits > 1)
-  int* counters;                // split-K arrival counters, zero
+  int* ws;                      // straddled tiles' partial sums
+  int* counters;                // their arrival counters, zero
   int H, W, Cin, Ho, Wo, Cout;
   int go;                       // channels a pool group, 0: no group-max
   int ks, pad, act, mode;
   rq::Requant q;
   int n_tiles;                  // column blocks
-  int splits, units;
+  // the schedule: tiles of `steps` K steps; the first sk_tiles stream-K
+  // over sk_blocks blocks, `slots` partial sums a tile
+  int tiles, steps, sk_tiles, sk_blocks, slots;
   // PATCH
   int kc;                       // steps a tap row: ceil(Cin / KB)
-  int steps;                    // ks kc
   int rtiles, ctiles, ptiles;   // row tiles, column tiles an image; tiles
-  // WINDOW
+  // TAP
   int M;                        // N H W
-  int halo;                     // W + 1
-  int win_rows;                 // BM + 2 halo
-  int chunks;                   // Cin / KC
 };
+
+// ---------------------------------------------------------------------------
+// The schedule
+// ---------------------------------------------------------------------------
+
+// A block's stream-K iterations [s0, s1) and its count of units: its
+// pieces (n_sk), then its round-robin tiles.
+struct Span {
+  long long s0, s1;
+  int n_sk, n;
+};
+
+// A unit: tile `tile`, K steps [sb, se); a piece of a tile on `parts` > 1
+// blocks, in partial-sum slot `slot`.
+struct Work {
+  int tile, sb, se, slot, parts;
+};
+
+__host__ __device__ inline int sk_block_of(long long it, int sk_blocks,
+                                           long long total) {
+  return static_cast<int>(((it + 1) * sk_blocks - 1) / total);
+}
+
+__device__ __forceinline__ Span span(const Conv& p) {
+  const int b = blockIdx.x;
+  Span s{0, 0, 0, 0};
+  if (b < p.sk_blocks) {
+    const long long total = static_cast<long long>(p.sk_tiles) * p.steps;
+    s.s0 = b * total / p.sk_blocks;
+    s.s1 = (b + 1) * total / p.sk_blocks;
+    s.n_sk = static_cast<int>((s.s1 - 1) / p.steps - s.s0 / p.steps + 1);
+  }
+  const int dp = p.tiles - p.sk_tiles - b;     // whole tiles from block b
+  s.n = s.n_sk + (dp > 0 ? (dp - 1) / static_cast<int>(gridDim.x) + 1 : 0);
+  return s;
+}
+
+__device__ __forceinline__ Work work(const Conv& p, const Span& s, int i) {
+  Work w;
+  if (i < s.n_sk) {
+    const long long total = static_cast<long long>(p.sk_tiles) * p.steps;
+    w.tile = static_cast<int>(s.s0 / p.steps) + i;
+    const long long x0 = static_cast<long long>(w.tile) * p.steps;
+    w.sb = static_cast<int>(s.s0 > x0 ? s.s0 - x0 : 0);
+    w.se = static_cast<int>(s.s1 - x0 < p.steps ? s.s1 - x0 : p.steps);
+    const int first = sk_block_of(x0, p.sk_blocks, total);
+    w.slot = static_cast<int>(blockIdx.x) - first;
+    w.parts = sk_block_of(x0 + p.steps - 1, p.sk_blocks, total) - first + 1;
+  } else {
+    w.tile = p.sk_tiles + static_cast<int>(blockIdx.x) +
+             (i - s.n_sk) * static_cast<int>(gridDim.x);
+    w.sb = 0;
+    w.se = p.steps;
+    w.slot = 0;
+    w.parts = 1;
+  }
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// The epilogue
+// ---------------------------------------------------------------------------
 
 // The output pixel of tile row r (n, oy, ox flattened over (N, Ho, Wo)),
 // or -1 where the row lies past the output. PATCH: tile t is TR x TC
-// pixels of one image; WINDOW: tile t is flat rows 128 t ...
+// pixels of one image; TAP: tile t is flat rows 128 t ...
 template <bool PATCH_ROUTE>
 __device__ __forceinline__ long long out_pixel(const Conv& p, int t, int r) {
   if (PATCH_ROUTE) {
@@ -181,6 +242,45 @@ __device__ __forceinline__ int pick(int a0, int a1, int a2, int a3, float sc,
              : min(min(a0, a1), min(a2, a3));
 }
 
+// A fast-path quotient this close to a half-integer (or nearer) takes
+// div_rn: 2^-14, more than twice the farthest that q0 = RN(y rs) and
+// RN(y / s) lie apart where a code is decided (|y / s| < 128: q0 within
+// 2^-16 of y/s, RN(y/s) within 2^-18).
+constexpr float NEAR = 0.5f - 0x1p-14f;
+
+// Accumulator k of a group of 8 codes: (m64 half q, row half h, column e)
+// = (k / 4, (k / 2) % 2, k % 2) at register 64q + 4j + 2h + e of group j
+// (group j holds columns 8j + 2t + e); with the group-max, the extreme of
+// the four pool groups' registers 16 apart (group k of channel 8j + 2t +
+// e is register 4j + 2h + e + 16k of the half).
+template <bool GMAX>
+__device__ __forceinline__ int group_acc(const int (&acc)[NREG], int j,
+                                         int k, float sc, const Conv& p) {
+  const int i = 64 * (k / 4) + 4 * j + 2 * ((k / 2) % 2) + k % 2;
+  return GMAX ? pick(acc[i], acc[i + 16], acc[i + 32], acc[i + 48], sc, p)
+              : acc[i];
+}
+
+// Stages the 8 codes of group j (rows 64q + 16w + g + 8h, columns cl and
+// cl + 1), two to a 16-bit store.
+template <bool GMAX>
+__device__ __forceinline__ void stage8(uint8_t* staging, const uint32_t (&q)[8],
+                                       int cl, int w, int g) {
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    const int r = 64 * (k / 4) + 16 * w + g + 8 * ((k / 2) % 2);
+    const uint16_t v =
+        static_cast<uint16_t>(__byte_perm(q[k], q[k + 1], 0x0040));
+    if (GMAX) {
+      *reinterpret_cast<uint16_t*>(staging + r * GN + cl) = v;
+    } else {
+      const int chunk = (cl >> 4) ^ (r & 7);
+      *reinterpret_cast<uint16_t*>(staging + r * BN + chunk * 16 +
+                                   (cl & 15)) = v;
+    }
+  }
+}
+
 // Consumer c's codes of tile t, column block nt: acc[64q + 4j + 2h + e]
 // is tile row 64q + 16w + g + 8h, column 8j + 2t + e. Without the
 // group-max the 128 x 128 codes go through the swizzled staging (16-byte
@@ -192,61 +292,65 @@ __device__ __forceinline__ int pick(int a0, int a1, int a2, int a3, float sc,
 // arguments so that a thread's 128 codes are straight-line code the
 // compiler interleaves: with the activation a branch in every code, the
 // codes ran one after another.
+//
+// With the group-max, mode 0 takes less arithmetic, bit for bit
+// (rq::code's conv order): the code is rint(clip(q0, +-127)) for q0 =
+// RN(y rs) (code_bits), without div_rn's two corrections. Where no
+// half-integer within NEAR of clip(q0) lies between q0 and RN(y/s) (they
+// lie within 2^-15), rint of both is one integer, so that is the code.
+// Only a group of 8 codes where some lane of the warp has a quotient that
+// near is redone, with the clamp and div_rn: a uniform branch a group,
+// taken about once in 30. Clipping before rint moves no code: every
+// quotient past +-126.5 gives +-127 either way, and an overflowing q0
+// (+-inf) clips to +-127 as RN(y / s) past +-128 s does. Measured (H100
+// 80GB HBM3, 700.00 W; PERF.md): L2 0.0625 ms against 0.0724 with the
+// corrections in every code, L4 0.0412 against 0.0463. Without the
+// group-max a thread has 16 groups, and the vote a group cost more than
+// the corrections saved (L6 0.0451 against 0.0434); holding the
+// accumulators for a second pass over the marked groups spilled (L6
+// 0.0544): that epilogue stays the straight-line conv order. So does
+// requant.cuh's, which gemm_fused.cu shares: its codes have no group-max.
 template <int MODE, int ACT, bool GMAX, bool PATCH_ROUTE>
 __device__ __forceinline__ void store(const int (&acc)[NREG],
                                       uint8_t* staging, const float* sc_s,
                                       const float* bi_s, const Conv& p,
                                       int t_pix, int nt, int c) {
+  constexpr bool FAST = MODE == 0 && GMAX;
   const int tid = threadIdx.x % 128;
   const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
   const int act = ACT >= 0 ? ACT : p.act;
-  if (!GMAX) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int cl = 8 * j + 2 * t;
-      const float2 sc = *reinterpret_cast<const float2*>(sc_s + cl);
-      const float2 bi = *reinterpret_cast<const float2*>(bi_s + cl);
+  for (int j = 0; j < (GMAX ? 4 : BN / 8); ++j) {
+    const int cl = 8 * j + 2 * t;
+    const float2 sc = *reinterpret_cast<const float2*>(sc_s + cl);
+    const float2 bi = *reinterpret_cast<const float2*>(bi_s + cl);
+    uint32_t q[8];
+    bool near = false;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 64 * q + 16 * w + g + 8 * h;
-          const int i = 64 * q + 4 * j + 2 * h;
-          const uint32_t q0 = rq::code<MODE>(acc[i], sc.x, bi.x, act, p.q);
-          const uint32_t q1 =
-              rq::code<MODE>(acc[i + 1], sc.y, bi.y, act, p.q);
-          const int chunk = (cl >> 4) ^ (r & 7);
-          *reinterpret_cast<uint16_t*>(staging + r * BN + chunk * 16 +
-                                       (cl & 15)) =
-              static_cast<uint16_t>(__byte_perm(q0, q1, 0x0040));
-        }
+    for (int k = 0; k < 8; ++k) {
+      const float s = k & 1 ? sc.y : sc.x, b = k & 1 ? bi.y : bi.x;
+      const int a = group_acc<GMAX>(acc, j, k, s, p);
+      if (FAST) {
+        const float y = s8mma::epilogue_f32(a, s, b, act);
+        const float q0 = fminf(fmaxf(__fmul_rn(y, p.q.rs_out), -127.f),
+                               127.f);
+        const float r = __fadd_rn(q0, 12582912.f);  // rint(q0) + 1.5 2^23
+        const float f = __fsub_rn(q0, __fsub_rn(r, 12582912.f));
+        near |= fabsf(f) >= NEAR;
+        q[k] = static_cast<uint32_t>(__float_as_int(r));
+      } else {
+        q[k] = rq::code<MODE>(a, s, b, act, p.q);
       }
     }
-  } else {
+    if (FAST && __any_sync(0xffffffffu, near)) {
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 64 * q + 16 * w + g + 8 * h;
-          // group k of channel 8ii + 2t + e is register i + e + 16k; the
-          // groups share group 0's scale and bias
-          const int cl = 8 * ii + 2 * t;
-          const int i = 64 * q + 4 * ii + 2 * h;
-          const float2 sc = *reinterpret_cast<const float2*>(sc_s + cl);
-          const float2 bi = *reinterpret_cast<const float2*>(bi_s + cl);
-          const uint32_t q0 = rq::code<MODE>(
-              pick(acc[i], acc[i + 16], acc[i + 32], acc[i + 48], sc.x, p),
-              sc.x, bi.x, act, p.q);
-          const uint32_t q1 = rq::code<MODE>(
-              pick(acc[i + 1], acc[i + 17], acc[i + 33], acc[i + 49], sc.y,
-                   p), sc.y, bi.y, act, p.q);
-          *reinterpret_cast<uint16_t*>(staging + r * GN + 8 * ii + 2 * t) =
-              static_cast<uint16_t>(__byte_perm(q0, q1, 0x0040));
-        }
+      for (int k = 0; k < 8; ++k) {
+        const float s = k & 1 ? sc.y : sc.x, b = k & 1 ? bi.y : bi.x;
+        q[k] = rq::code<0>(group_acc<GMAX>(acc, j, k, s, p), s, b, act,
+                           p.q);
       }
     }
+    stage8<GMAX>(staging, q, cl, w, g);
   }
   wg::warpgroup_sync(c);
   constexpr int ROW = GMAX ? GN : BN;       // staged bytes a row
@@ -296,6 +400,16 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NREG],
   }
 }
 
+// The split tile's sum: true when this piece completed it (acc holds the
+// whole sum) or the unit is a whole tile; false when another piece will.
+__device__ __forceinline__ bool summed(int (&acc)[NREG], const Conv& p,
+                                       const Work& x, int* flag, int c,
+                                       int rows) {
+  return x.parts == 1 ||
+         wg::splitk_fixup(acc, p.ws, p.counters, flag, c, x.tile, x.slot,
+                          p.slots, rows, x.parts);
+}
+
 // ---------------------------------------------------------------------------
 // PATCH
 // ---------------------------------------------------------------------------
@@ -332,23 +446,12 @@ __device__ __forceinline__ uint64_t desc_patch(const void* p) {
          (uint64_t(PC * KB >> 4) << 32) | (uint64_t(KB == 64 ? 2 : 1) << 62);
 }
 
-// Unit u of the patch route: column block nt (outermost, so that a block
-// walks one column block's resident B as long as it can), pixel tile pt,
-// K-split s over the steps [sb, se).
-struct PUnit {
-  int nt, pt, s, sb, se;
-};
-
-__device__ __forceinline__ PUnit patch_unit(const Conv& p, int u) {
-  PUnit x;
-  const int per = p.ptiles * p.splits;
-  x.nt = u / per;
-  const int r = u - x.nt * per;
-  x.pt = r / p.splits;
-  x.s = r - x.pt * p.splits;
-  x.sb = x.s * p.steps / p.splits;
-  x.se = (x.s + 1) * p.steps / p.splits;
-  return x;
+// A patch tile: column block nt (outermost, so that a block walks one
+// column block's resident B as long as it can), pixel tile pt.
+__device__ __forceinline__ void patch_tile(const Conv& p, int tile, int& nt,
+                                           int& pt) {
+  nt = tile / p.ptiles;
+  pt = tile - nt * p.ptiles;
 }
 
 // KS (the kernel size) is a template argument: with the taps of a step a
@@ -391,6 +494,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
   }
   __syncthreads();
 
+  const Span sp = span(p);
   if (threadIdx.x < 128) {
     // --- producer: one thread issues every box ---
     wg::setmaxnreg_dec<40>();
@@ -398,21 +502,23 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
     wg::Pipe<STAGES> pipe;
     int cur = -1;                          // the resident column block
     uint32_t gen = 0;                      // resident B copies so far
-    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      const PUnit x = patch_unit(p, u);
-      const int n = x.pt / (p.rtiles * p.ctiles);
-      const int rest = x.pt - n * p.rtiles * p.ctiles;
+    for (int i = 0; i < sp.n; ++i) {
+      const Work x = work(p, sp, i);
+      int nt, pt;
+      patch_tile(p, x.tile, nt, pt);
+      const int n = pt / (p.rtiles * p.ctiles);
+      const int rest = pt - n * p.rtiles * p.ctiles;
       const int y0 = rest / p.ctiles * TR, x0 = rest % p.ctiles * TC;
-      if (RES && x.nt != cur) {
+      if (RES && nt != cur) {
         // B of tap b / kc, Cin chunk b % kc at bres + b B_TAP
         if (gen > 0) wg::wait(bempty, (gen - 1) & 1);
         tma::mbar_expect_tx(bfull, taps * p.kc * B_TAP);
         for (int b = 0; b < taps * p.kc; ++b) {
           const int tap = b / p.kc, c0 = (b - tap * p.kc) * KB;
           wg::tma_load_2d(bres + b * B_TAP, &map_b, bfull, tap * p.Cin + c0,
-                          x.nt * BN);
+                          nt * BN);
         }
-        cur = x.nt;
+        cur = nt;
         ++gen;
       }
       for (int s = x.sb; s < x.se; ++s) {
@@ -429,7 +535,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
           for (int dw = 0; dw < KS; ++dw) {
             wg::tma_load_2d(st + C::A_BYTES + dw * B_TAP, &map_b,
                             &full[pipe.stage], (KS * dh + dw) * p.Cin + c0,
-                            x.nt * BN);
+                            nt * BN);
           }
         }
         pipe.advance();
@@ -438,7 +544,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
     return;
   }
 
-  // --- consumers: c takes the block's units 2k + c, whole tiles ---
+  // --- consumers: c takes the block's units 2k + c ---
   wg::setmaxnreg_inc<232>();
   const int c = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128;
@@ -451,10 +557,12 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
   int cur = -1;
   uint32_t gen = 0;
   bool have_b = !RES;
-  int k = 0, i = 0;
-  for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++i) {
-    const PUnit x = patch_unit(p, u);
-    if (RES && x.nt != cur) {
+  int k = 0;
+  for (int i = 0; i < sp.n; ++i) {
+    const Work x = work(p, sp, i);
+    int nt, pt;
+    patch_tile(p, x.tile, nt, pt);
+    if (RES && nt != cur) {
       // This consumer is done with the last column block's B (its wgmma
       // retired at the end of its last unit). It arrives once a copy, and
       // not before the other consumer matched its arrival for the copy
@@ -464,7 +572,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
         if (gen > 1) wg::wait(bempty, (gen - 2) & 1);
         if (lead) wg::mbar_arrive(bempty);
       }
-      cur = x.nt;
+      cur = nt;
       ++gen;
       have_b = false;
     }
@@ -474,7 +582,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
     }
     // the tile's scale and bias, for the epilogue; the previous tile's
     // were read before its epilogue's middle warpgroup_sync
-    load_scb(sc_s, bi_s, p, x.nt, tid);
+    load_scb(sc_s, bi_s, p, nt, tid);
     wg::take_turn(turn, c, k++);
     if (!have_b) {
       // Waited after the turn (conv_dma.cu): the block's previous unit,
@@ -520,233 +628,114 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
     wg::wgmma_wait<0>();
     wg::fence_acc(acc);
     if (lead) wg::mbar_arrive(&empty[prev]);
-    if (p.splits > 1 &&
-        !wg::splitk_fixup(acc, p.ws, p.counters, &flags[c], c,
-                          x.nt * p.ptiles + x.pt, x.s, p.splits, BM)) {
-      continue;
-    }
+    if (!summed(acc, p, x, &flags[c], c, BM)) continue;
     wg::warpgroup_sync(c);      // scale and bias written, staging free
-    epilogue<true>(acc, staging, sc_s, bi_s, p, x.pt, x.nt, c);
+    epilogue<true>(acc, staging, sc_s, bi_s, p, pt, nt, c);
   }
 }
 
 // ---------------------------------------------------------------------------
-// WINDOW
+// TAP
 // ---------------------------------------------------------------------------
 
-constexpr int WINDOW_SMEM = 1024 + WSTAGES * WIN_BYTES + BSTAGES * BN * KC +
-                            2 * STAGING + 2 * SCB + KC +
-                            (2 * WSTAGES + 2 * BSTAGES + 2) * 8 + 16;
+constexpr int TAP_SMEM = wg::smem_bytes(TSTAGES, 2 * STAGING + 2 * SCB);
 
-// Keeps the A registers a wgmma group reads asynchronously live until the
-// wait that retires the group (see wg::fence_acc).
-__device__ __forceinline__ void keep(uint32_t (&a)[2][4]) {
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[k][j])::"memory");
+// A flat tile: row tile mt (outermost), column block nt.
+__device__ __forceinline__ void flat_tile(const Conv& p, int tile, int& mt,
+                                          int& nt) {
+  mt = tile / p.n_tiles;
+  nt = tile - mt * p.n_tiles;
 }
 
-// a = four 8 x 16-byte matrices of shared memory, lanes 8i..8i+7 giving
-// the row addresses of matrix i: lane 4g + t receives bytes 4t..4t+3 of
-// row g of each, which is wgmma's m64k32 A fragment (wg::mma_rs) when the
-// matrices are rows g and g + 8 of the warp's 16, each at bytes 0 and 16
-// of a k32 step.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
+// One thread: the im2col box of a 4-D map (128 pixels x 128 channels from
+// channel c0) walking the map's bounding box from pixel (w, h, n), each
+// pixel sampled at offset (ow, oh), into `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c0, int w,
+                                                int h, int n, uint16_t ow,
+                                                uint16_t oh) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      :: "r"(tma::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(tma::smem_addr(bar)), "r"(c0), "r"(w), "r"(h), "r"(n),
+         "h"(ow), "h"(oh)
+      : "memory");
 }
 
 __global__ void __launch_bounds__(wg::THREADS, 1)
-conv_window_kernel(const __grid_constant__ CUtensorMap map_x,
-                   const __grid_constant__ CUtensorMap map_b, const Conv p) {
+conv_tap_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_b, const Conv p) {
   extern __shared__ __align__(1024) uint8_t smem[];
-  const uint32_t sa = tma::smem_addr(smem);
-  uint8_t* win_all = smem + ((1024 - (sa & 1023)) & 1023);
-  uint8_t* b_all = win_all + WSTAGES * WIN_BYTES;
-  uint8_t* staging_all = b_all + BSTAGES * BN * KC;
+  const wg::Ring<TSTAGES> ring(smem, 2 * STAGING + 2 * SCB);
+  uint8_t* staging_all = ring.extra;
   float* scb = reinterpret_cast<float*>(staging_all + 2 * STAGING);
-  uint8_t* zero_row = reinterpret_cast<uint8_t*>(scb + 2 * 2 * BN);
-  uint64_t* wfull = reinterpret_cast<uint64_t*>(zero_row + KC);
-  uint64_t* wempty = wfull + WSTAGES;
-  uint64_t* bfull = wempty + WSTAGES;
-  uint64_t* bempty = bfull + BSTAGES;
-  uint64_t* turn = bempty + BSTAGES;
-  int* flags = reinterpret_cast<int*>(turn + 2);
-
   if (threadIdx.x == 0) {
-    for (int i = 0; i < WSTAGES; ++i) {
-      tma::mbar_init(&wfull[i], 1);
-      tma::mbar_init(&wempty[i], 4);    // the owning consumer's warps
-    }
-    for (int i = 0; i < BSTAGES; ++i) {
-      tma::mbar_init(&bfull[i], 1);
-      tma::mbar_init(&bempty[i], 4);
-    }
-    tma::mbar_init(&turn[0], 1);
-    tma::mbar_init(&turn[1], 1);
-    tma::fence_barrier_init();
+    ring.init(1);
     asm volatile("prefetch.tensormap [%0];\n"
                  :: "l"(reinterpret_cast<uint64_t>(&map_x)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n"
                  :: "l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
   }
-  if (threadIdx.x < KC / 16) {
-    reinterpret_cast<int4*>(zero_row)[threadIdx.x] = make_int4(0, 0, 0, 0);
-  }
   __syncthreads();
+  const Span sp = span(p);
 
   if (threadIdx.x < 128) {
-    // --- producer: one thread issues every window and B box ---
+    // --- producer: one thread issues every box ---
     wg::setmaxnreg_dec<40>();
     if (threadIdx.x != 0) return;
-    wg::Pipe<WSTAGES> wp;
-    wg::Pipe<BSTAGES> bp;
-    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      const wg::Unit x = wg::unit(u, p.splits, p.n_tiles, p.chunks);
-      for (int ch = x.kb; ch < x.ke; ++ch) {
-        wg::wait(&wempty[wp.stage], wp.phase ^ 1);
-        tma::mbar_expect_tx(&wfull[wp.stage], p.win_rows * KC);
-        wg::tma_load_2d(win_all + wp.stage * WIN_BYTES, &map_x,
-                        &wfull[wp.stage], ch * KC, x.mt * BM - p.halo);
-        wp.advance();
-        for (int tap = 0; tap < 9; ++tap) {
-          wg::wait(&bempty[bp.stage], bp.phase ^ 1);
-          tma::mbar_expect_tx(&bfull[bp.stage], BN * KC);
-          wg::tma_load_2d(b_all + bp.stage * BN * KC, &map_b,
-                          &bfull[bp.stage], tap * p.Cin + ch * KC,
-                          x.nt * BN);
-          bp.advance();
-        }
+    wg::Pipe<TSTAGES> pipe;
+    for (int i = 0; i < sp.n; ++i) {
+      const Work x = work(p, sp, i);
+      int mt, nt;
+      flat_tile(p, x.tile, mt, nt);
+      // the tile's first output pixel; the walk starts at its top-left tap
+      const int m0 = mt * BM;
+      const int n = m0 / (p.H * p.W), r = m0 - n * p.H * p.W;
+      const int oy = r / p.W, ox = r - oy * p.W;
+      for (int s = x.sb; s < x.se; ++s) {
+        // step s: chunk s / 9, tap (dh, dw) = ((s % 9) / 3, (s % 9) % 3)
+        const int ch = s / 9, tap = s - 9 * ch;
+        wg::wait(&ring.empty[pipe.stage], pipe.phase ^ 1);
+        tma::mbar_expect_tx(&ring.full[pipe.stage], wg::STAGE_BYTES);
+        tma_load_im2col(ring.a(pipe.stage), &map_x, &ring.full[pipe.stage],
+                        ch * KC, ox - 1, oy - 1, n,
+                        static_cast<uint16_t>(tap % 3),
+                        static_cast<uint16_t>(tap / 3));
+        wg::tma_load_2d(ring.b(pipe.stage), &map_b, &ring.full[pipe.stage],
+                        tap * p.Cin + ch * KC, nt * BN);
+        pipe.advance();
       }
     }
     return;
   }
 
-  // --- consumers: c takes the block's units 2k + c, whole tiles ---
+  // --- consumers: c takes the block's units 2k + c ---
   wg::setmaxnreg_inc<232>();
   const int c = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128;
-  const int w = tid / 32, lane = tid % 32;
-  const int cs = lane >> 4;     // the 16-byte chunk of a k32 step it addresses
-  const bool lead = lane == 0;
-  const uint32_t zero = tma::smem_addr(zero_row);
   uint8_t* staging = staging_all + c * STAGING;
   float* sc_s = scb + c * 2 * BN;
   float* bi_s = sc_s + BN;
-  wg::Pipe<WSTAGES> wp;
-  wg::Pipe<BSTAGES> bp;
+  wg::Pipe<TSTAGES> pipe;
   int acc[NREG];
-  // A registers of the 4 wgmma groups of a step: group kk is k32 step kk
-  // of both m64 halves; [kk][half][fragment]
-  uint32_t a[4][2][4];
-  int k = 0;                    // this consumer's units so far
-  int i = 0;
-  for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++i) {
-    const wg::Unit x = wg::unit(u, p.splits, p.n_tiles, p.chunks);
-    const int nch = x.ke - x.kb;
+  int k = 0;
+  for (int i = 0; i < sp.n; ++i) {
+    const Work x = work(p, sp, i);
     if ((i & 1) != c) {
-      wp.skip(nch);
-      bp.skip(9 * nch);
+      pipe.skip(x.se - x.sb);
       continue;
     }
-    load_scb(sc_s, bi_s, p, x.nt, tid);
-    // The row this lane addresses in each m64 half q for ldmatrix: row
-    // 64q + 16w + (lane % 8) + 8 ((lane / 8) % 2) of the tile, its 16-byte
-    // chunk (lane / 16) of each k32 step; its window row at tap (0, 0) and
-    // the taps whose source pixel lies in the pixel's image.
-    int lrow[2];
-    unsigned taps[2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int row = 64 * q + 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1);
-      const int m = x.mt * BM + row;
-      const int xc = m % p.W, yc = (m / p.W) % p.H;
-      lrow[q] = row + p.halo;
-      unsigned mask = 0;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-        if (m < p.M && yc + dh >= 0 && yc + dh < p.H && xc + dw >= 0 &&
-            xc + dw < p.W) {
-          mask |= 1u << tap;
-        }
-      }
-      taps[q] = mask;
-    }
-    wg::take_turn(turn, c, k);
-
-    // A step is one (chunk, tap): 4 wgmma groups, one a k32 step, each of
-    // both m64 halves, each group's A fragments loaded from the window
-    // (one ldmatrix a half) while the 3 groups before it run, into
-    // registers whose last group the wait just before retired.
-    uint32_t win = 0;
-    int tap = 0, prev = -1;
-    const int n = 9 * nch;
-    for (int st = 0; st < n; ++st) {
-      if (tap == 0) {
-        wg::wait(&wfull[wp.stage], wp.phase);
-        win = tma::smem_addr(win_all + wp.stage * WIN_BYTES);
-      }
-      wg::wait(&bfull[bp.stage], bp.phase);
-      const int off = (tap / 3 - 1) * p.W + (tap % 3 - 1);
-      // the addressed row's window row for this tap (or the zero row where
-      // the tap leaves the pixel's image) and its swizzle phase
-      uint32_t base[2];
-      int sw[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int ra = lrow[q] + off;
-        const bool v = (taps[q] >> tap) & 1;
-        base[q] = v ? win + ra * KC : zero;
-        sw[q] = v ? ra & 7 : 0;
-      }
-      const uint64_t db = wg::desc_sw128(b_all + bp.stage * BN * KC);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wg::wgmma_wait<3>();
-        keep(a[kk]);
-        // the last step's last group retired: its B stage is free
-        if (kk == 3 && prev >= 0 && lead) wg::mbar_arrive(&bempty[prev]);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          ldsm_x4(a[kk][q], base[q] + (((2 * kk + cs) ^ sw[q]) << 4));
-        }
-        wg::fence_acc(acc);
-        wg::wgmma_fence();
-        wg::mma_rs(acc, a[kk][0], db + 2 * kk, (st | kk) != 0);
-        wg::mma_rs(acc + 64, a[kk][1], db + 2 * kk, (st | kk) != 0);
-        wg::wgmma_commit();
-        wg::fence_acc(acc);
-      }
-      if (++tap == 9) {
-        // the chunk's last A words are loaded: its window is free (the
-        // copy engine refills it after these generic-proxy reads)
-        tap = 0;
-        wg::fence_proxy_async();
-        if (lead) wg::mbar_arrive(&wempty[wp.stage]);
-        wp.advance();
-      }
-      prev = bp.stage;
-      bp.advance();
-    }
-    if (tid == 0) wg::mbar_arrive(&turn[1 - c]);
-    wg::wgmma_wait<0>();
-    wg::fence_acc(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) keep(a[kk]);
-    if (lead) wg::mbar_arrive(&bempty[prev]);
-    ++k;
-
-    if (p.splits > 1 &&
-        !wg::splitk_fixup(acc, p.ws, p.counters, &flags[c], c, x.tile, x.s,
-                          p.splits, p.M - x.mt * BM)) {
-      continue;
-    }
+    int mt, nt;
+    flat_tile(p, x.tile, mt, nt);
+    // the tile's scale and bias, for the epilogue; the previous tile's
+    // were read before its epilogue's middle warpgroup_sync
+    load_scb(sc_s, bi_s, p, nt, tid);
+    wg::mma_unit<TSTAGES, false>(acc, ring, pipe, x.se - x.sb, c, k++);
+    if (!summed(acc, p, x, &ring.flags[c], c, p.M - mt * BM)) continue;
     wg::warpgroup_sync(c);      // scale and bias written, staging free
-    epilogue<false>(acc, staging, sc_s, bi_s, p, x.mt, x.nt, c);
+    epilogue<false>(acc, staging, sc_s, bi_s, p, mt, nt, c);
   }
 }
 
@@ -789,26 +778,42 @@ int launch_patch_ks(const CUtensorMap& mx, const CUtensorMap& mb,
                    : launch_patch<128, false, KS>(mx, mb, p, grid, st);
 }
 
+// The most blocks that share one stream-K tile: the partial-sum slots a
+// tile needs.
+int sk_slots(const Conv& p) {
+  const long long total = static_cast<long long>(p.sk_tiles) * p.steps;
+  int most = 1;
+  for (int t = 0; t < p.sk_tiles; ++t) {
+    const long long x0 = static_cast<long long>(t) * p.steps;
+    const int parts = sk_block_of(x0 + p.steps - 1, p.sk_blocks, total) -
+                      sk_block_of(x0, p.sk_blocks, total) + 1;
+    most = parts > most ? parts : most;
+  }
+  return most;
+}
+
 }  // namespace
 
-// route 0 (PATCH) or 1 (WINDOW), as ops/conv.py conv_w8a8_form chooses:
-// x (N, H, W, Cin) int8, 16-byte aligned, Cin % 16 == 0 (WINDOW: % 128,
-// W <= 31, ks 3, Ho == H, Wo == W); wt the (rows, ks*ks*Cin) K-major
-// weight matrix (go 0: (Cout, K); go > 0: rs_tile_matrix's pool-major
-// (ceil(go/32)*128, K) with Cout == 4 go), 16-byte aligned; ks 3 (SAME)
-// or 2 (VALID), the output trimmed to (Ho, Wo); kb 64 or 128 bytes of
-// Cin a PATCH step (64 iff Cin <= 64); `splits` K-splits (PATCH: of its
-// ks*ceil(Cin/kb) steps; WINDOW: of its Cin/128 chunks) over `grid`
-// persistent blocks; ws holds tiles * splits * 128 * 128 int32 and
-// counters `tiles` zeroed int32 when splits > 1. out (N, Ho, Wo, go ? go
-// : Cout) int8. Returns a cudaError_t, or minus the CUresult of a failed
-// tensor-map encode.
+// route 0 (PATCH) or 1 (TAP), as ops/conv.py conv_w8a8_form chooses: x
+// (N, H, W, Cin) int8, 16-byte aligned, Cin % 16 == 0 (TAP: % 128, ks 3,
+// Ho == H, Wo == W); wt the (rows, ks*ks*Cin)
+// K-major weight matrix (go 0: (Cout, K); go > 0: rs_tile_matrix's
+// pool-major (ceil(go/32)*128, K) with Cout == 4 go), 16-byte aligned; ks
+// 3 (SAME) or 2 (VALID), the output trimmed to (Ho, Wo); kb 64 or 128
+// bytes of Cin a PATCH step (64 iff Cin <= 64); `steps` a tile's K steps
+// (PATCH: ks*ceil(Cin/kb); TAP: 9*Cin/128), checked; the schedule
+// (`grid` persistent blocks, the first sk_tiles tiles stream-K over
+// sk_blocks blocks, ops/conv.py conv_schedule); ws holds sk_tiles * slots
+// * 128 * 128 int32 and counters sk_tiles zeroed int32 where a tile lies
+// on more than one block (slots, at least the most blocks on one tile, >
+// 1). out (N, Ho, Wo, go ? go : Cout) int8. Returns a cudaError_t, or
+// minus the CUresult of a failed tensor-map encode.
 extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
                          const void* bias, float s_out, void* out, int N,
                          int H, int W, int Cin, int Cout, int ks, int Ho,
                          int Wo, int go, int act, int route, int kb,
-                         int splits, int grid, void* ws, void* counters,
-                         void* stream) {
+                         int steps, int grid, int sk_tiles, int sk_blocks,
+                         int slots, void* ws, void* counters, void* stream) {
   Conv p;
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
@@ -827,20 +832,20 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
   p.act = act;
   p.mode = 0;
   p.q = rq::requant(s_out, &p.mode);
-  p.splits = splits;
+  p.sk_tiles = sk_tiles;
+  p.sk_blocks = sk_blocks;
+  p.slots = slots;
   const int K = ks * ks * Cin;
   const bool bad =
       N < 1 || H < 1 || W < 1 || Cin < 16 || Cin % 16 || Cout < 1 ||
       (ks != 2 && ks != 3) || Ho < 1 || Wo < 1 ||
       Ho > H - (ks == 2) || Wo > W - (ks == 2) ||
-      (go != 0 && (go < 1 || 4 * go != Cout)) || splits < 1 || grid < 1 ||
-      (splits > 1 && (ws == nullptr || counters == nullptr));
+      (go != 0 && (go < 1 || 4 * go != Cout)) || grid < 1 || route < 0 ||
+      route > 1;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   p.n_tiles = go ? (go + GN - 1) / GN : (Cout + BN - 1) / BN;
   const uint64_t b_rows = go ? static_cast<uint64_t>(p.n_tiles) * BN
                              : static_cast<uint64_t>(Cout);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap mx, mb;
   if (route == 0) {
     if ((kb != 64 && kb != 128) || (kb == 64) != (Cin <= 64)) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -850,22 +855,43 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
     p.rtiles = (Ho + TR - 1) / TR;
     p.ctiles = (Wo + TC - 1) / TC;
     p.ptiles = N * p.rtiles * p.ctiles;
-    p.units = p.ptiles * p.n_tiles * splits;
-    if (splits > p.steps) return static_cast<int>(cudaErrorInvalidValue);
+    p.tiles = p.ptiles * p.n_tiles;
+  } else {
+    if (ks != 3 || Cin % KC || Ho != H || Wo != W) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.M = N * H * W;
+    p.steps = 9 * (Cin / KC);
+    p.tiles = (p.M + BM - 1) / BM * p.n_tiles;
+  }
+  // the schedule: the stream-K tiles and blocks within the launch, every
+  // stream-K block with a step, the workspace as large as the tiles need
+  if (steps != p.steps || sk_tiles < 0 || sk_tiles > p.tiles ||
+      (sk_tiles > 0) != (sk_blocks > 0) || sk_blocks > grid ||
+      static_cast<long long>(sk_tiles) * p.steps < sk_blocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int need = sk_slots(p);
+  if (slots < need || (need > 1 && (ws == nullptr || counters == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap mx, mb;
+  const uint64_t xdims[4] = {static_cast<uint64_t>(Cin),
+                             static_cast<uint64_t>(W),
+                             static_cast<uint64_t>(H),
+                             static_cast<uint64_t>(N)};
+  const uint64_t xstrides[3] = {static_cast<uint64_t>(Cin),
+                                static_cast<uint64_t>(W) * Cin,
+                                static_cast<uint64_t>(H) * W * Cin};
+  const uint64_t bdims[2] = {static_cast<uint64_t>(K), b_rows};
+  const uint64_t bstride[1] = {static_cast<uint64_t>(K)};
+  if (route == 0) {
     const CUtensorMapSwizzle sw =
         kb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-    const uint64_t xdims[4] = {static_cast<uint64_t>(Cin),
-                               static_cast<uint64_t>(W),
-                               static_cast<uint64_t>(H),
-                               static_cast<uint64_t>(N)};
-    const uint64_t xstrides[3] = {static_cast<uint64_t>(Cin),
-                                  static_cast<uint64_t>(W) * Cin,
-                                  static_cast<uint64_t>(H) * W * Cin};
     const uint32_t xbox[4] = {static_cast<uint32_t>(kb), PC, TR, 1};
     CUresult r = tma::encode_s8(&mx, x, 4, xdims, xstrides, xbox, sw);
     if (r == CUDA_SUCCESS) {
-      const uint64_t bdims[2] = {static_cast<uint64_t>(K), b_rows};
-      const uint64_t bstride[1] = {static_cast<uint64_t>(K)};
       const uint32_t bbox[2] = {static_cast<uint32_t>(kb), BN};
       r = tma::encode_s8(&mb, wt, 2, bdims, bstride, bbox, sw);
     }
@@ -873,33 +899,21 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
     return ks == 3 ? launch_patch_ks<3>(mx, mb, p, kb, grid, st)
                    : launch_patch_ks<2>(mx, mb, p, kb, grid, st);
   }
-  if (route != 1 || ks != 3 || Cin % KC || W + 1 > HALO_MAX || Ho != H ||
-      Wo != W) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  p.M = N * H * W;
-  p.halo = W + 1;
-  p.win_rows = BM + 2 * p.halo;
-  p.chunks = Cin / KC;
-  p.units = (p.M + BM - 1) / BM * p.n_tiles * splits;
-  if (splits > p.chunks) return static_cast<int>(cudaErrorInvalidValue);
-  const uint64_t xdims[2] = {static_cast<uint64_t>(Cin),
-                             static_cast<uint64_t>(p.M)};
-  const uint64_t xstride[1] = {static_cast<uint64_t>(Cin)};
-  const uint32_t xbox[2] = {KC, static_cast<uint32_t>(p.win_rows)};
-  CUresult r = tma::encode_s8(&mx, x, 2, xdims, xstride, xbox,
-                              CU_TENSOR_MAP_SWIZZLE_128B);
+  // the bounding box of a tap's top-left corner: columns -1 .. W-2, rows
+  // -1 .. H-2 (the output grid, one pixel up and left)
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  CUresult r = tma::encode_im2col_s8(&mx, x, 4, xdims, xstrides, lower,
+                                     upper, KC, BM,
+                                     CU_TENSOR_MAP_SWIZZLE_128B);
   if (r == CUDA_SUCCESS) {
-    const uint64_t bdims[2] = {static_cast<uint64_t>(K), b_rows};
-    const uint64_t bstride[1] = {static_cast<uint64_t>(K)};
     const uint32_t bbox[2] = {KC, BN};
     r = tma::encode_s8(&mb, wt, 2, bdims, bstride, bbox,
                        CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   static unsigned done = 0;
-  const cudaError_t err = allow_smem(conv_window_kernel, WINDOW_SMEM, &done);
+  const cudaError_t err = allow_smem(conv_tap_kernel, TAP_SMEM, &done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_window_kernel<<<grid, wg::THREADS, WINDOW_SMEM, st>>>(mx, mb, p);
+  conv_tap_kernel<<<grid, wg::THREADS, TAP_SMEM, st>>>(mx, mb, p);
   return static_cast<int>(cudaGetLastError());
 }

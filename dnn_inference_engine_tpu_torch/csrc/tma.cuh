@@ -3,8 +3,9 @@
 // and through stem_common.cuh the three stems, stem_fused_k2.cu,
 // stem_fused_dg.cu and stage0_fused.cu): the host encoding of a tiled
 // int8 tensor map, the
-// mbarrier helpers, the cp.async.bulk.tensor issue for ranks 1 to 5 and
-// the plain bulk copy.
+// mbarrier helpers, the cp.async.bulk.tensor issue for ranks 1 to 5, the
+// plain bulk copies both ways, and (conv_w8a8.cu) the encoding of an
+// im2col tensor map.
 //
 // The encode function comes through cudaGetDriverEntryPoint, so no
 // library links libcuda (-lcuda) and the build flags stay those of every
@@ -72,6 +73,57 @@ inline CUresult encode_s8(
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
                 static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s,
                 b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Encodes an im2col tensor map of an int8 tensor of rank 3-5 (channels
+// innermost, then the spatial dimensions, then the batch), dims and
+// strides as encode_s8's. A copy through it walks `pixels` pixels of the
+// bounding box whose spatial dimension i spans [lower[i], dims[i+1] - 1 +
+// upper[i]], from the copy's start pixel on (innermost spatial dimension
+// first, then the next, then the batch), each pixel sampled at the copy's
+// offsets from it, `channels` of its channels from the copy's first; a
+// sample outside the tensor reads as zeros. Returns the encode's
+// CUresult.
+inline CUresult encode_im2col_s8(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const int* lower, const int* upper,
+    uint32_t channels, uint32_t pixels, CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+      cuuint32_t, cuuint32_t, const cuuint32_t*, CUtensorMapInterleave,
+      CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 13000
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeIm2col", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeIm2col", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess ||
+        fn == nullptr) {
+      return CUDA_ERROR_NOT_FOUND;
+    }
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  if (rank < 3 || rank > 5) return CUDA_ERROR_INVALID_VALUE;
+  cuuint64_t d[5], s[4];
+  cuuint32_t e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    e[i] = 1;
+  }
+  for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s,
+                lower, upper, channels, pixels, e,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -198,6 +250,24 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
          "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// One thread: a bulk copy (no tensor map) of `bytes` (a multiple of 16)
+// from shared memory at `src` to global memory at `dst` (both 16-byte
+// aligned), in the thread's current bulk group; bulk_wait_all waits for
+// every group it committed to complete.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_addr(src)),
+         "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace tma

@@ -1,6 +1,7 @@
 // TMA rule probe for Hopper (sm_90a): encode a tensor map of an int8
 // tensor, and if cuTensorMapEncodeTiled accepts it, copy one box into
-// shared memory with one cp.async.bulk.tensor and write the box out.
+// shared memory with one cp.async.bulk.tensor and copy it back out with
+// one bulk copy.
 //
 // Replaces: tools/probe_dma_rules.py, probe (the JAX repo's probe of which
 // slices Mosaic accepts for a VMEM->VMEM DMA on a TPU). The question here
@@ -12,10 +13,12 @@
 // encode's verdicts against the documented rules.
 //
 // What bounds it: bytes (one box read, one written; a few KB, so in
-// practice the launch). Design: one block; thread 0 initialises the
-// barrier, arms it with the whole box and issues the copy; every thread
-// waits on the barrier (tma.cuh bounds the wait) and copies the box out in
-// 16-byte words. A refused encode launches nothing.
+// practice the launch). Design: one block of one warp, of which one
+// thread does it all: it initialises the barrier, arms it with the whole
+// box, issues the box's copy, waits (tma.cuh bounds the wait) and sends
+// the box back out with one bulk copy of the copy engine (shared ->
+// global), waiting for that to complete. No block-wide sync and no store
+// loop: a copy in, a copy out.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -24,7 +27,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 32;
 constexpr int SMEM_LIMIT = 232448;   // a block's dynamic shared memory
 
 struct Coords {
@@ -33,21 +36,17 @@ struct Coords {
 
 __global__ void __launch_bounds__(THREADS)
     tma_probe_kernel(const __grid_constant__ CUtensorMap map, const Coords at,
-                     int rank, int box_bytes, int bar_offset, uint4* out) {
+                     int rank, int box_bytes, int bar_offset, void* out) {
   extern __shared__ __align__(128) unsigned char smem[];
+  if (threadIdx.x != 0) return;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + bar_offset);
-  if (threadIdx.x == 0) {
-    tma::mbar_init(bar, 1);
-    tma::fence_barrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    tma::mbar_expect_tx(bar, static_cast<uint32_t>(box_bytes));
-    tma::load(smem, &map, bar, at.c, rank);
-  }
+  tma::mbar_init(bar, 1);
+  tma::fence_barrier_init();
+  tma::mbar_expect_tx(bar, static_cast<uint32_t>(box_bytes));
+  tma::load(smem, &map, bar, at.c, rank);
   tma::mbar_wait(bar, 0, "tma_probe");
-  const uint4* s = reinterpret_cast<const uint4*>(smem);
-  for (int i = threadIdx.x; i < box_bytes / 16; i += THREADS) out[i] = s[i];
+  tma::bulk_store(out, smem, static_cast<uint32_t>(box_bytes));
+  tma::bulk_wait_all();
 }
 
 }  // namespace
@@ -93,6 +92,6 @@ extern "C" int tma_probe(const void* src, int rank, const long long* dims,
   tma_probe_kernel<<<1, THREADS, static_cast<size_t>(smem),
                      static_cast<cudaStream_t>(stream)>>>(
       map, at, rank, static_cast<int>(box_bytes),
-      static_cast<int>(bar_offset), static_cast<uint4*>(out));
+      static_cast<int>(bar_offset), out);
   return static_cast<int>(cudaGetLastError());
 }

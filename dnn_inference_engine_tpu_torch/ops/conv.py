@@ -19,7 +19,7 @@ version of the whole function.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +32,8 @@ from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
     group_max4, rs_tile_matrix)
 from dnn_inference_engine_tpu_torch.ops.gemm import (
-    H100_SMS, WG_BM, WG_BN, gemm_fused, gemm_fused_plain, k_splits,
-    kmajor_weights, ptr_or_none, split_buffers)
+    H100_SMS, WG_BK, WG_BM, WG_BN, GemmForm, gemm_fused, gemm_fused_plain,
+    k_splits, kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
 
 
@@ -105,29 +105,57 @@ def conv2d_w8_bf16(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
 
 
 # The W8A8 conv kernel (csrc/conv_w8a8.cu): a PATCH tile is CONV_TR x
-# CONV_TC output pixels of one image, a WINDOW tile 128 flat rows of the
+# CONV_TC output pixels of one image, a TAP tile 128 flat rows of the
 # batch; both by 128 accumulator columns (32 channels of each pool group
 # with the group-max).
 CONV_TR, CONV_TC = 16, 8
-WINDOW_KC = 128                 # bytes of Cin a window chunk
-WINDOW_MAX_W = 31               # the window's halo W + 1 is at most 32
+TAP_KC = 128                    # bytes of Cin a tap step
+TAP_MAX_W = 31                  # widest input conv_w8a8_form sends to TAP
+# A straddled tile's fixup (each piece writes its 64 KB partial sum, the
+# last reads the others back from L2 with a few loads in flight, then the
+# epilogue, which a short piece's mainloop does not hide) costs about this
+# many 128-byte stages of K a piece: fitted to the batch-1 tap layers on
+# an H100 80GB HBM3 at 700 W (PERF.md), where stream-K over 4 and 6
+# pieces a tile beat one tile a block at L12 and L13 and lost at L8 and
+# L10 with 2 and 3
+FIXUP_STAGES = 8
 
 
 class ConvForm(NamedTuple):
-    """How ``conv2d_w8a8`` runs a conv on the card. ``route``: "patch"
-    or "window" (the kernel, by its two ways of bringing A to wgmma),
-    "gemm" (a 1x1 conv: ``gemm_fused`` on a view of the activation) or
-    "im2col" (a form the kernel refuses: im2col + ``gemm_fused``).
-    ``kb``: bytes of Cin a patch step (the boxes' inner extent); ``steps``
-    a tile's K steps (patch: k tap rows x ceil(Cin/kb); window: Cin/128
-    chunks of 9 taps), ``splits`` of them across blocks, ``tiles`` block
-    tiles, ``grid`` persistent blocks."""
+    """How ``conv2d_w8a8`` runs a conv on the card. ``route``: "patch" or
+    "tap" (the kernel, by its two ways of bringing A to wgmma), "gemm" (a
+    1x1 conv: ``gemm_fused`` on a view of the activation) or "im2col" (a
+    form the kernel refuses: im2col + ``gemm_fused``). ``kb``: bytes of
+    Cin a patch step (the boxes' inner extent); ``steps`` a tile's K
+    steps (patch: k tap rows x ceil(Cin/kb); tap: 9 taps x Cin/128
+    chunks); ``tiles`` block tiles, ``grid`` persistent blocks.
+
+    The schedule (``conv_schedule``): the first ``sk_tiles`` tiles are
+    summed stream-K, their ``sk_tiles * steps`` (tile, step) iterations
+    cut into ``sk_blocks`` contiguous ranges as even as integers allow,
+    block b < ``sk_blocks`` taking range b; a tile that straddles blocks
+    is summed in a workspace of ``slots`` partial sums a tile. The other
+    tiles go round robin, whole, tile ``sk_tiles + b + i*grid`` to block
+    b."""
     route: str
     kb: int = 0
     steps: int = 0
-    splits: int = 1
     tiles: int = 0
     grid: int = 0
+    sk_tiles: int = 0
+    sk_blocks: int = 0
+    slots: int = 1
+
+
+class Work(NamedTuple):
+    """One unit of a block: tile ``tile``, its K steps [sb, se); a piece
+    of a straddled tile has ``parts`` > 1 pieces, this one in workspace
+    slot ``slot``."""
+    tile: int
+    sb: int
+    se: int
+    slot: int = 0
+    parts: int = 1
 
 
 def conv_out_hw(h: int, w: int, k: int, padding="SAME",
@@ -139,6 +167,78 @@ def conv_out_hw(h: int, w: int, k: int, padding="SAME",
     if out_hw is not None:
         ho, wo = min(ho, out_hw[0]), min(wo, out_hw[1])
     return ho, wo
+
+
+def _sk_span(f: ConvForm, b: int) -> Tuple[int, int]:
+    """Block b's stream-K iterations [s0, s1) (empty past sk_blocks)."""
+    if b >= f.sk_blocks:
+        return 0, 0
+    t = f.sk_tiles * f.steps
+    return b * t // f.sk_blocks, (b + 1) * t // f.sk_blocks
+
+
+def _sk_block_of(f: ConvForm, it: int) -> int:
+    """The block whose stream-K range holds iteration ``it``."""
+    return ((it + 1) * f.sk_blocks - 1) // (f.sk_tiles * f.steps)
+
+
+def block_work(f: ConvForm, b: int) -> List[Work]:
+    """Block b's units in the kernel's order (csrc/conv_w8a8.cu
+    ``span``/``work``): its stream-K pieces, then its round-robin tiles.
+    Consumer c takes units c, c + 2, ..."""
+    out = []
+    s0, s1 = _sk_span(f, b)
+    if s1 > s0:
+        for t in range(s0 // f.steps, (s1 - 1) // f.steps + 1):
+            x0 = t * f.steps
+            first = _sk_block_of(f, x0)
+            last = _sk_block_of(f, x0 + f.steps - 1)
+            out.append(Work(t, max(s0 - x0, 0), min(s1 - x0, f.steps),
+                            b - first, last - first + 1))
+    for t in range(f.sk_tiles + b, f.tiles, f.grid):
+        out.append(Work(t, 0, f.steps))
+    return out
+
+
+def block_steps(f: ConvForm) -> List[int]:
+    """K steps each block runs: its share of the layer's work."""
+    return [sum(w.se - w.sb for w in block_work(f, b)) for b in range(f.grid)]
+
+
+def conv_schedule(tiles: int, steps: int, step_bytes: int,
+                  sms: int) -> Tuple[int, int, int, int]:
+    """(grid, sk_tiles, sk_blocks, slots) for ``tiles`` block tiles of
+    ``steps`` K steps of ``step_bytes`` bytes of K each on ``sms`` SMs,
+    from the shape alone:
+
+    - at least as many tiles as SMs: round robin, whole tiles. Stream-K of
+      the last round's tiles over every block, which evens the blocks'
+      steps out, measured slower at every batch-32 and batch-16 shape (L10
+      at b32, 172 tiles of 18 steps: 0.0351 ms against 0.0247; H100 80GB
+      HBM3, 700 W; PERF.md);
+    - fewer: ``k_splits``' pieces a tile s, stream-K over tiles * s
+      blocks (every block the same steps within one) where the tile's kt
+      128-byte stages cost more than kt / s of them plus
+      ``FIXUP_STAGES`` a further piece; else one tile a block.
+    """
+    if tiles >= sms:
+        return sms, 0, 0, 1
+    kt = -(-steps * step_bytes // WG_BK)
+    splits = min(k_splits(tiles, kt, sms), steps)
+    if splits <= 1 or kt / splits + FIXUP_STAGES * (splits - 1) >= kt:
+        return tiles, 0, 0, 1
+    grid = min(sms, tiles * splits)
+    f = ConvForm("", steps=steps, tiles=tiles, grid=grid, sk_tiles=tiles,
+                 sk_blocks=grid)
+    return grid, tiles, grid, sk_slots(f)
+
+
+def sk_slots(f: ConvForm) -> int:
+    """The most blocks that share one stream-K tile of ``f``: the
+    partial-sum slots a tile needs (1: no tile straddles blocks)."""
+    return max([_sk_block_of(f, t * f.steps + f.steps - 1)
+                - _sk_block_of(f, t * f.steps) + 1
+                for t in range(f.sk_tiles)], default=1)
 
 
 def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
@@ -153,12 +253,13 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
     - the kernel's forms, int8 output (``quantized``, the conv order with
       an s_out), stride 1, Cin % 16 == 0, and k = 3 SAME or k = 2 VALID
       (with ``gmax`` also Cout % 4 == 0):
-      - "window" for k = 3 SAME, Cin % 128 == 0, W <= 31, untrimmed: the
-        batch folded into M, K split in whole chunks of 128 channels
-        where the tiles leave SMs idle (``attic.tail.bt_form``'s rule);
+      - "tap" for k = 3 SAME, Cin % 128 == 0, W <= 31, untrimmed: the
+        batch folded into M, one im2col box of the copy engine a (tap,
+        128 channels) step (the kernel takes any width; PATCH keeps the
+        52 and 104 px layers, where TAP was not timed against it);
       - "patch" for the rest: 16 x 8 pixel tiles of the trimmed output,
-        64-byte steps up to Cin 64, else 128, K split in whole steps
-        where the tiles leave SMs idle;
+        64-byte steps up to Cin 64, else 128;
+      each with ``conv_schedule``'s schedule;
     - anything else: "im2col" (ROADMAP B13).
     """
     if kh == kw == 1 and stride == 1 and not gmax:
@@ -170,20 +271,18 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
     ho, wo = conv_out_hw(h, w, kh, padding, out_hw)
     n_tiles = (-(-(cout // 4) // (WG_BN // 4)) if gmax
                else -(-cout // WG_BN))
-    if (kh == 3 and cin % WINDOW_KC == 0 and w <= WINDOW_MAX_W
+    if (kh == 3 and cin % TAP_KC == 0 and w <= TAP_MAX_W
             and (ho, wo) == (h, w)):
+        route, kb = "tap", 0
         tiles = -(-(n * h * w) // WG_BM) * n_tiles
-        chunks = cin // WINDOW_KC
-        splits = max(1, min(k_splits(tiles, 9 * chunks, sms), chunks))
-        return ConvForm("window", 0, chunks, splits, tiles,
-                        min(tiles * splits, sms))
-    kb = 64 if cin <= 64 else 128
-    steps = kh * -(-cin // kb)
-    tiles = n * -(-ho // CONV_TR) * -(-wo // CONV_TC) * n_tiles
-    # a step is kw taps of kb bytes: kw*kb/128 of gemm_fused's stages
-    splits = max(1, min(k_splits(tiles, steps * kw * kb // 128, sms), steps))
-    return ConvForm("patch", kb, steps, splits, tiles,
-                    min(tiles * splits, sms))
+        steps, step_bytes = 9 * (cin // TAP_KC), TAP_KC
+    else:
+        route, kb = "patch", 64 if cin <= 64 else 128
+        tiles = n * -(-ho // CONV_TR) * -(-wo // CONV_TC) * n_tiles
+        # a step is kw taps of kb bytes
+        steps, step_bytes = kh * -(-cin // kb), kw * kb
+    return ConvForm(route, kb, steps, tiles,
+                    *conv_schedule(tiles, steps, step_bytes, sms))
 
 
 def _im2col_conv(gemm, xq, s_in, wq, s_w, b, act, stride, padding, s_out,
@@ -283,10 +382,11 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     matrix (``kmajor_weights(w)``, or with ``go`` > 0 channels a pool
     group ``rs_tile_matrix(w, go)``); scale = s_in*s_w and bias, (Cout,)
     float32; the k x k conv (k 3 SAME, 2 VALID) trimmed to (ho, wo), in
-    the form ``f`` of ``conv_w8a8_form`` (route "patch" or "window").
-    Returns (N, ho, wo, go or Cout) int8; counts in
+    the form ``f`` of ``conv_w8a8_form`` (route "patch" or "tap", with its
+    schedule). Returns (N, ho, wo, go or Cout) int8; counts in
     ``conv2d_w8a8.launches``."""
-    if f.route not in ("patch", "window"):
+    routes = ("patch", "tap")
+    if f.route not in routes:
         raise ValueError(f"conv_w8a8_launch: route {f.route!r} is not the "
                          f"kernel's")
     if x.dtype != torch.int8 or bt.dtype != torch.int8:
@@ -307,16 +407,18 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
-    ws, cnt = split_buffers(x.device, f)
+    # the straddled tiles' partial sums (slots a tile) and counters
+    ws, cnt = split_buffers(x.device, GemmForm("wgmma", f.slots, f.sk_tiles,
+                                               f.grid))
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("conv_w8a8", "conv_w8a8",
-                         [p, p, p, p, ctypes.c_float, p] + [i] * 14
+                         [p, p, p, p, ctypes.c_float, p] + [i] * 17
                          + [p, p, p])
     err = fn(x.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
              float(s_out), out.data_ptr(), n, h, w, cin, cout, k, ho, wo,
-             go, KERNEL_ACT_CODES[act], int(f.route == "window"), f.kb,
-             f.splits, f.grid, ptr_or_none(ws), ptr_or_none(cnt),
-             _build.stream_ptr(x.device))
+             go, KERNEL_ACT_CODES[act], routes.index(f.route), f.kb,
+             f.steps, f.grid, f.sk_tiles, f.sk_blocks, f.slots,
+             ptr_or_none(ws), ptr_or_none(cnt), _build.stream_ptr(x.device))
     conv2d_w8a8.launches += 1
     _build.check(err, "conv_w8a8")
     return out

@@ -12,10 +12,11 @@ Three things, at toy sizes:
   that take the kernel's mode 4;
 - a numpy replay of the kernel's two ways of bringing A to wgmma (PATCH:
   16 x 8 pixel tiles, a TMA box a tap row with the copy engine's zero
-  fill, the taps as row shifts, the trimmed output; WINDOW: the batch as
-  flat rows, a window box a chunk, each tap a row shift or the zero
-  row), its pool-major columns, its split-K ranges and its epilogue,
-  against the plain version;
+  fill, the taps as row shifts, the trimmed output; TAP: the batch as
+  flat rows, the copy engine's im2col box a (tap, chunk) step, walking
+  the output grid across rows and images with its zero fill) under its
+  schedules (round robin, stream-K pieces summed by the fixup), its
+  pool-major columns and its epilogue, against the plain version;
 - ``conv_w8a8_form`` taking the kernel for every 3x3 conv of the YOLOv2
   b1, b8 and b32 pins and the YOLOv3 pin at b16 and b1 at 416 px (each
   plan driven at batch 1 on the CPU, its convs' shapes scaled to the
@@ -108,7 +109,7 @@ def test_plain_matches_jax_conv2d_w8a8(form, s_out):
     np.testing.assert_array_equal(got.numpy(), ref)
     # the CPU wrapper takes the kernel's route through the plain version
     f = tconv.conv_w8a8_form(*xs, cout, k, k, 1, padding, out_hw, True, gmax)
-    assert f.route in ("patch", "window")
+    assert f.route in ("patch", "tap")
     got = tconv.conv2d_w8a8(T(x), 0.02, T(w), T(s_w), T(b), padding=padding,
                             s_out=s_out, out_hw=out_hw, gmax=gmax)
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -190,103 +191,139 @@ def _col_channel(cl, nt, go, cout):
     return col if col < cout else -1
 
 
-def _unit_ranges(steps, splits):
-    return [(s * steps // splits, (s + 1) * steps // splits)
-            for s in range(splits)]
+def _sum_units(f, tile_sum):
+    """Each tile's int sum as the kernel forms it under ``f``'s schedule:
+    every block's units (ops/conv.py block_work, the kernel's span/work),
+    a piece of a straddled tile added to the tile's other pieces (the
+    fixup), each (tile, step) checked to be summed once."""
+    totals, steps_seen = {}, {}
+    for b in range(f.grid):
+        for w in tconv.block_work(f, b):
+            part = tile_sum(w.tile, w.sb, w.se)
+            totals[w.tile] = totals.get(w.tile, 0) + part
+            steps_seen.setdefault(w.tile, []).extend(range(w.sb, w.se))
+    assert sorted(steps_seen) == list(range(f.tiles))
+    for t, st in steps_seen.items():
+        assert sorted(st) == list(range(f.steps)), (t, st)
+    return totals
 
 
-def replay_patch(x, w, pad, ho, wo, go, kb, splits):
+def replay_patch(x, w, pad, ho, wo, go, f):
     """The PATCH route's int32 sums in (N, Ho, Wo, conv channel) order,
-    with every tile row's pixel as the epilogue maps it."""
+    under form ``f`` (kb, steps, schedule), with every tile row's pixel as
+    the epilogue maps it."""
     n_img, h, wd, cin = x.shape
     ks, cout = w.shape[0], w.shape[3]
     bt = _b_rows(w, go)
+    kb = f.kb
     kc = -(-cin // kb)
-    steps = ks * kc
+    assert f.steps == ks * kc
     rtiles, ctiles = -(-ho // TR), -(-wo // TC)
-    n_tiles = -(-go // 32) if go else -(-cout // BN)
+    ptiles = n_img * rtiles * ctiles
     xi = x.astype(np.int64)
+
+    def tile_sum(tile, sb, se):
+        nt, pt = divmod(tile, ptiles)
+        n = pt // (rtiles * ctiles)
+        rest = pt % (rtiles * ctiles)
+        y0, x0 = rest // ctiles * TR, rest % ctiles * TC
+        part = np.zeros((BM, BN), np.int64)
+        for s in range(sb, se):
+            dh, c0 = s // kc, s % kc * kb
+            # the box {kb, PC, TR, 1} at (c0, x0-pad, y0+dh-pad, n)
+            patch = np.zeros((TR, PC, kb), np.int64)
+            for j in range(TR):
+                iy = y0 + dh - pad + j
+                for i in range(PC):
+                    ix = x0 - pad + i
+                    if 0 <= iy < h and 0 <= ix < wd:
+                        src = xi[n, iy, ix, c0:c0 + kb]
+                        patch[j, i, :src.shape[0]] = src
+            for dw in range(ks):
+                # core matrix j: patch row j from column dw
+                a = patch[:, dw:dw + TC].reshape(BM, kb)
+                bbox = _b_box(bt, nt * BN, (ks * dh + dw) * cin + c0, kb)
+                part += a @ bbox.T
+        return part
+
     acc_out = np.zeros((n_img, ho, wo, cout), np.int64)
     seen = np.zeros((n_img, ho, wo, cout), np.int64)
-    for nt in range(n_tiles):
-        for pt in range(n_img * rtiles * ctiles):
-            n = pt // (rtiles * ctiles)
-            rest = pt % (rtiles * ctiles)
-            y0, x0 = rest // ctiles * TR, rest % ctiles * TC
-            total = np.zeros((BM, BN), np.int64)
-            for sb, se in _unit_ranges(steps, splits):
-                part = np.zeros((BM, BN), np.int64)
-                for s in range(sb, se):
-                    dh, c0 = s // kc, s % kc * kb
-                    # the box {kb, PC, TR, 1} at (c0, x0-pad, y0+dh-pad, n)
-                    patch = np.zeros((TR, PC, kb), np.int64)
-                    for j in range(TR):
-                        iy = y0 + dh - pad + j
-                        for i in range(PC):
-                            ix = x0 - pad + i
-                            if 0 <= iy < h and 0 <= ix < wd:
-                                src = xi[n, iy, ix, c0:c0 + kb]
-                                patch[j, i, :src.shape[0]] = src
-                    for dw in range(ks):
-                        # core matrix j: patch row j from column dw
-                        a = patch[:, dw:dw + TC].reshape(BM, kb)
-                        bbox = _b_box(bt, nt * BN,
-                                      (ks * dh + dw) * cin + c0, kb)
-                        part += a @ bbox.T
-                total += part
-            for r in range(BM):
-                oy, ox = y0 + r // TC, x0 + r % TC
-                if oy >= ho or ox >= wo:
-                    continue
-                for cl in range(BN):
-                    ch = _col_channel(cl, nt, go, cout)
-                    if ch >= 0:
-                        acc_out[n, oy, ox, ch] = total[r, cl]
-                        seen[n, oy, ox, ch] += 1
+    for tile, total in _sum_units(f, tile_sum).items():
+        nt, pt = divmod(tile, ptiles)
+        n = pt // (rtiles * ctiles)
+        rest = pt % (rtiles * ctiles)
+        y0, x0 = rest // ctiles * TR, rest % ctiles * TC
+        for r in range(BM):
+            oy, ox = y0 + r // TC, x0 + r % TC
+            if oy >= ho or ox >= wo:
+                continue
+            for cl in range(BN):
+                ch = _col_channel(cl, nt, go, cout)
+                if ch >= 0:
+                    acc_out[n, oy, ox, ch] = total[r, cl]
+                    seen[n, oy, ox, ch] += 1
     return acc_out, seen
 
 
-def replay_window(x, w, go, splits):
-    """The WINDOW route's int32 sums (k3 SAME), as replay_patch."""
+def im2col_box(x, c0, w0, h0, n0, ow, oh, pixels=BM, lower=-1, upper=-1):
+    """The copy engine's im2col box of the TAP route: ``pixels`` pixels of
+    128 channels from c0, walking the bounding box (columns lower .. W-1
+    + upper, then rows lower .. H-1 + upper, then images) from (w0, h0,
+    n0), each sampled at (w + ow, h + oh); zeros outside the tensor."""
+    n_img, h, wd, cin = x.shape
+    box = np.zeros((pixels, 128), np.int64)
+    wc, hc, nc = w0, h0, n0
+    for i in range(pixels):
+        sw, sh = wc + ow, hc + oh
+        if nc < n_img and 0 <= sh < h and 0 <= sw < wd:
+            src = x[nc, sh, sw, c0:c0 + 128]
+            box[i, :src.shape[0]] = src
+        wc += 1
+        if wc > wd - 1 + upper:
+            wc, hc = lower, hc + 1
+            if hc > h - 1 + upper:
+                hc, nc = lower, nc + 1
+    return box
+
+
+def replay_tap(x, w, go, f):
+    """The TAP route's int32 sums (k3 SAME) under form ``f``, as
+    replay_patch: a step's A is the im2col box of tap (dh, dw) from the
+    tile's first pixel's top-left tap."""
     n_img, h, wd, cin = x.shape
     cout = w.shape[3]
     bt = _b_rows(w, go)
     m_all = n_img * h * wd
-    halo = wd + 1
-    chunks = cin // 128
     n_tiles = -(-go // 32) if go else -(-cout // BN)
-    xf = x.reshape(m_all, cin).astype(np.int64)
+    assert f.steps == 9 * (cin // 128)
+    xi = x.astype(np.int64)
+
+    def tile_sum(tile, sb, se):
+        mt, nt = divmod(tile, n_tiles)
+        n0, r0 = divmod(mt * BM, h * wd)
+        oy0, ox0 = divmod(r0, wd)
+        part = np.zeros((BM, BN), np.int64)
+        for s in range(sb, se):
+            ch, tap = divmod(s, 9)
+            a = im2col_box(xi, ch * 128, ox0 - 1, oy0 - 1, n0, tap % 3,
+                           tap // 3)
+            bbox = _b_box(bt, nt * BN, tap * cin + ch * 128, 128)
+            part += a @ bbox.T
+        return part
+
     acc_out = np.zeros((m_all, cout), np.int64)
     seen = np.zeros((m_all, cout), np.int64)
-    for mt in range(-(-m_all // BM)):
-        m = mt * BM + np.arange(BM)
-        xc, yc = m % wd, (m // wd) % h
-        for nt in range(n_tiles):
-            total = np.zeros((BM, BN), np.int64)
-            for kb_, ke_ in _unit_ranges(chunks, splits):
-                for ch in range(kb_, ke_):
-                    # the window box: flat rows [m0 - halo, m0 + 128 + halo)
-                    win = np.zeros((BM + 2 * halo, 128), np.int64)
-                    lo = mt * BM - halo
-                    for rr in range(BM + 2 * halo):
-                        if 0 <= lo + rr < m_all:
-                            win[rr] = xf[lo + rr, ch * 128:(ch + 1) * 128]
-                    for tap in range(9):
-                        dh, dw = tap // 3 - 1, tap % 3 - 1
-                        ok = ((m < m_all) & (yc + dh >= 0) & (yc + dh < h)
-                              & (xc + dw >= 0) & (xc + dw < wd))
-                        rows = np.arange(BM) + halo + dh * wd + dw
-                        a = np.where(ok[:, None], win[rows], 0)
-                        bbox = _b_box(bt, nt * BN, tap * cin + ch * 128, 128)
-                        total += a @ bbox.T
-            for r in range(BM):
-                if m[r] >= m_all:
-                    continue
-                for cl in range(BN):
-                    c = _col_channel(cl, nt, go, cout)
-                    if c >= 0:
-                        acc_out[m[r], c] = total[r, cl]
-                        seen[m[r], c] += 1
+    for tile, total in _sum_units(f, tile_sum).items():
+        mt, nt = divmod(tile, n_tiles)
+        for r in range(BM):
+            mr = mt * BM + r
+            if mr >= m_all:
+                continue
+            for cl in range(BN):
+                c = _col_channel(cl, nt, go, cout)
+                if c >= 0:
+                    acc_out[mr, c] = total[r, cl]
+                    seen[mr, c] += 1
     return (acc_out.reshape(n_img, h, wd, cout),
             seen.reshape(n_img, h, wd, cout))
 
@@ -322,28 +359,49 @@ def _codes(acc, s_w, b, s_out, gmax):
                        -127, 127).to(torch.int8)
 
 
-# (x shape, k, Cout, trimmed output, group-max, split-K): PATCH forms
-PATCH_CASES = [((1, 19, 21, 16), 3, 80, None, True, 1),
-               ((2, 9, 9, 64), 3, 72, None, False, 2),
-               ((1, 12, 11, 128), 2, 128, (9, 10), True, 2),
-               ((1, 6, 7, 160), 2, 64, (5, 5), False, 4),
-               ((1, 9, 10, 48), 3, 256, None, True, 3)]
+def _scheduled(f, schedule):
+    """``f`` under (kind, blocks): "own" (conv_w8a8_form's on that many
+    SMs, as given), "sk" (every tile stream-K over ``blocks`` blocks) or
+    "last" (the last round's tiles on ``blocks`` SMs stream-K, the rest
+    round robin)."""
+    kind, blocks = schedule
+    if kind == "sk":
+        grid = min(blocks, f.tiles * f.steps)
+        f = f._replace(grid=grid, sk_tiles=f.tiles, sk_blocks=grid)
+    elif kind == "last":
+        rem = f.tiles % blocks
+        f = f._replace(grid=blocks, sk_tiles=rem,
+                       sk_blocks=min(blocks, rem * f.steps))
+    return f._replace(slots=tconv.sk_slots(f))
+
+
+# (x shape, k, Cout, trimmed output, group-max, schedule on SMs): PATCH
+# forms under conv_w8a8_form's own schedule (round robin), stream-K of the
+# last round's tile before round-robin tiles, and every tile stream-K
+# (pieces that cross tiles; one tile of 4 streamed-B steps on 3 blocks)
+PATCH_CASES = [((1, 19, 21, 16), 3, 80, None, True, ("last", 5)),
+               ((2, 9, 9, 64), 3, 72, None, False, ("own", 3)),
+               ((1, 12, 11, 128), 2, 128, (9, 10), True, ("sk", 4)),
+               ((1, 6, 7, 160), 2, 64, (5, 5), False, ("sk", 3)),
+               ((1, 9, 10, 48), 3, 256, None, True, ("sk", 5))]
 
 
 @pytest.mark.parametrize("case", PATCH_CASES, ids=str)
 def test_patch_replay_matches_plain(case):
-    xs, k, cout, out_hw, gmax, splits = case
+    xs, k, cout, out_hw, gmax, schedule = case
     r = np.random.default_rng(sum(xs))
     x, w, s_w, b = _args(r, xs, k, cout, gmax=gmax)
     pad = 1 if k == 3 else 0
     padding = "SAME" if k == 3 else "VALID"
     ho, wo = tconv.conv_out_hw(xs[1], xs[2], k, padding, out_hw)
     f = tconv.conv_w8a8_form(*xs, cout, k, k, 1, padding, out_hw, True,
-                             gmax, SMS)
+                             gmax, schedule[1])
     assert f.route == "patch" and f.kb == (64 if xs[3] <= 64 else 128)
-    assert f.steps == k * -(-xs[3] // f.kb) and splits <= f.steps
+    assert f.steps == k * -(-xs[3] // f.kb)
+    f = _scheduled(f, schedule)
+    assert (f.slots > 1) == (schedule[0] != "own")
     go = cout // 4 if gmax else 0
-    acc, seen = replay_patch(x, w, pad, ho, wo, go, f.kb, splits)
+    acc, seen = replay_patch(x, w, pad, ho, wo, go, f)
     ref = _acc_plain(x, w, pad, ho, wo)
     # every channel of every output pixel (with the group-max: of every
     # pool group) lands once
@@ -356,28 +414,52 @@ def test_patch_replay_matches_plain(case):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-# (x shape, Cout, group-max, split-K): WINDOW forms (ragged last M tile)
-WINDOW_CASES = [((2, 7, 6, 128), 96, False, 1),
-                ((1, 5, 5, 256), 64, True, 2),
-                ((1, 13, 13, 384), 40, False, 3)]
+# (x shape, Cout, group-max, schedule on SMs): the TAP forms (ragged last
+# M tile; tiles that cross rows, images (3 x 7 x 9: 63 pixels an image)
+# and W = 31), every tile stream-K, conv_w8a8_form's own schedule (on 5
+# SMs the 13 x 13 x 384 layer's 2 tiles stream-K over 4 blocks), and the
+# last round's tiles stream-K
+WINDOW_CASES = [((2, 7, 6, 128), 96, False, ("sk", 2)),
+                ((1, 5, 5, 256), 64, True, ("sk", 3)),
+                ((1, 13, 13, 384), 40, False, ("own", 5)),
+                ((3, 7, 9, 128), 40, False, ("own", 5)),
+                ((2, 9, 31, 128), 40, False, ("last", 3))]
 
 
 @pytest.mark.parametrize("case", WINDOW_CASES, ids=str)
 def test_window_replay_matches_plain(case):
-    xs, cout, gmax, splits = case
+    xs, cout, gmax, schedule = case
     r = np.random.default_rng(sum(xs) + 1)
     x, w, s_w, b = _args(r, xs, 3, cout, gmax=gmax)
     f = tconv.conv_w8a8_form(*xs, cout, 3, 3, 1, "SAME", None, True, gmax,
-                             SMS)
-    assert f.route == "window" and f.steps == xs[3] // 128
+                             schedule[1])
+    assert f.route == "tap" and f.steps == 9 * (xs[3] // 128)
     go = cout // 4 if gmax else 0
-    acc, seen = replay_window(x, w, go, splits)
+    acc, seen = replay_tap(x, w, go, _scheduled(f, schedule))
     np.testing.assert_array_equal(seen, 1)
     np.testing.assert_array_equal(acc, _acc_plain(x, w, 1, xs[1], xs[2]))
     got = _codes(acc, s_w, b, 0.05, gmax)
     want = tconv.conv2d_w8a8_plain(T(x), 0.02, T(w), T(s_w), T(b),
                                    s_out=0.05, gmax=gmax)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_im2col_walk_is_the_flat_output_grid():
+    """The TAP box's walk from a tile's first pixel visits the flat
+    output pixels m0, m0 + 1, ... across rows and images: with offsets
+    (1, 1) (the centre tap) the box is x's rows m0 .. m0 + 127, zeros past
+    the batch."""
+    r = np.random.default_rng(8)
+    x = r.integers(-127, 128, (3, 5, 7, 128)).astype(np.int64)
+    flat = x.reshape(-1, 128)
+    for m0 in (0, 34, 70, 128):
+        n0, rest = divmod(m0, 35)
+        oy, ox = divmod(rest, 7)
+        box = im2col_box(x, 0, ox - 1, oy - 1, n0, 1, 1)
+        want = np.zeros((128, 128), np.int64)
+        rows = flat[m0:m0 + 128]
+        want[:rows.shape[0]] = rows
+        np.testing.assert_array_equal(box, want)
 
 
 @pytest.mark.parametrize("s_out", [0.05, -0.05])
@@ -401,12 +483,17 @@ def test_group_max_of_codes_is_the_code_of_the_extreme_sum(sign, s_out):
 @pytest.mark.parametrize("steps,splits", [(3, 1), (3, 2), (3, 3), (8, 6),
                                           (2, 2), (24, 5)])
 def test_split_ranges_cover_k_once(steps, splits):
-    """The splits of a tile's K steps (patch_unit; wg::unit for the window
-    chunks) are disjoint, non-empty and cover every step once."""
-    ranges = _unit_ranges(steps, splits)
+    """The pieces of a tile split over blocks (stream-K of one tile over
+    ``splits`` blocks) are disjoint, non-empty and cover every step once,
+    in block order."""
+    f = tconv.ConvForm("tap", steps=steps, tiles=1, grid=splits,
+                       sk_tiles=1, sk_blocks=splits)
+    ranges = [(w.sb, w.se) for b in range(splits)
+              for w in tconv.block_work(f, b)]
     covered = [s for sb, se in ranges for s in range(sb, se)]
     assert covered == list(range(steps))
-    assert all(se > sb for sb, se in ranges)
+    assert all(se > sb for sb, se in ranges) and len(ranges) == splits
+    assert tconv.sk_slots(f) == splits
 
 
 def test_pool_major_columns_hold_each_groups_channel():
@@ -488,10 +575,10 @@ def test_pins_take_the_kernel_for_every_3x3_conv(model_name, batch):
         routes.append(("k3" if kh == 3 else "k2" if kh == 2 else "1x1",
                        f.route))
         if kh > 1:
-            assert f.route in ("patch", "window"), (h, w, cin, cout, f)
+            assert f.route in ("patch", "tap"), (h, w, cin, cout, f)
         else:
             assert f.route == "gemm"
-    kernel = sum(r in ("patch", "window") for _, r in routes)
+    kernel = sum(r in ("patch", "tap") for _, r in routes)
     gemm = sum(r == "gemm" for _, r in routes)
     assert (kernel, gemm) == {"yolov2-tiny": (7, 1),
                               "yolov3-tiny": (8, 4)}[model_name], routes

@@ -951,33 +951,56 @@ def test_tma_box_leaving_a_ragged_inner_dimension_faults(cuda):
 # The W8A8 conv kernel (csrc/conv_w8a8.cu) at the forms of the W8A8 pins:
 # (tag, x shape, k, Cout, group-max, trimmed output, route). YOLOv2-tiny's
 # 3x3 convs at b32 and b1, the b32 pin's L4 and the b8 pin's L8 shifted
-# folds (k2 VALID over shift_s2d2's rows, trimmed), YOLOv3-tiny's L14 and
-# L20 (Cin 384, from a route concat) at b16, S1's fold-4 entry, and small
-# shapes with a ragged last M tile, a ragged Cout and Cin below 64
+# folds (k2 VALID over shift_s2d2's rows, trimmed), YOLOv3-tiny's convs at
+# b16 and b1 (L20: Cin 384, from a route concat), S1's fold-4 entry and
+# its 26 px k2 fold, and small shapes with a ragged last M tile, a ragged
+# Cout and Cin below 64
 CONV_CASES = [
     ("v2 b32 L2", (32, 104, 104, 64), 3, 128, True, None, "patch"),
     ("v2 b32 L4 k2", (32, 56, 53, 128), 2, 256, True, (52, 52), "patch"),
     ("v2 b32 L6", (32, 52, 52, 64), 3, 128, False, None, "patch"),
-    ("v2 b32 L8", (32, 26, 26, 128), 3, 256, False, None, "window"),
-    ("v2 b32 L10", (32, 13, 13, 256), 3, 512, False, None, "window"),
-    ("v2 b32 L12", (32, 13, 13, 512), 3, 1024, False, None, "window"),
-    ("v2 b32 L13", (32, 13, 13, 1024), 3, 1024, False, None, "window"),
+    ("v2 b32 L8", (32, 26, 26, 128), 3, 256, False, None, "tap"),
+    ("v2 b32 L10", (32, 13, 13, 256), 3, 512, False, None, "tap"),
+    ("v2 b32 L12", (32, 13, 13, 512), 3, 1024, False, None, "tap"),
+    ("v2 b32 L13", (32, 13, 13, 1024), 3, 1024, False, None, "tap"),
     ("v2 b1 L2", (1, 104, 104, 64), 3, 128, True, None, "patch"),
     ("v2 b1 L4", (1, 52, 52, 128), 3, 256, True, None, "patch"),
     ("v2 b1 L6", (1, 52, 52, 64), 3, 128, False, None, "patch"),
-    ("v2 b1 L8", (1, 26, 26, 128), 3, 256, False, None, "window"),
-    ("v2 b1 L10", (1, 13, 13, 256), 3, 512, False, None, "window"),
-    ("v2 b1 L12", (1, 13, 13, 512), 3, 1024, False, None, "window"),
-    ("v2 b1 L13", (1, 13, 13, 1024), 3, 1024, False, None, "window"),
+    ("v2 b1 L8", (1, 26, 26, 128), 3, 256, False, None, "tap"),
+    ("v2 b1 L10", (1, 13, 13, 256), 3, 512, False, None, "tap"),
+    ("v2 b1 L12", (1, 13, 13, 512), 3, 1024, False, None, "tap"),
+    ("v2 b1 L13", (1, 13, 13, 1024), 3, 1024, False, None, "tap"),
     ("v2 b8 L8 k2", (8, 16, 14, 512), 2, 1024, True, (13, 13), "patch"),
-    ("v3 b16 L14", (16, 13, 13, 256), 3, 512, False, None, "window"),
-    ("v3 b16 L20", (16, 26, 26, 384), 3, 256, False, None, "window"),
+    ("v3 b16 L2", (16, 104, 104, 64), 3, 128, True, None, "patch"),
+    ("v3 b16 L4 k2", (16, 56, 53, 128), 2, 256, True, (52, 52), "patch"),
+    ("v3 b16 L6", (16, 52, 52, 64), 3, 128, False, None, "patch"),
+    ("v3 b16 L8", (16, 26, 26, 128), 3, 256, False, None, "tap"),
+    ("v3 b16 L10", (16, 13, 13, 256), 3, 512, False, None, "tap"),
+    ("v3 b16 L12", (16, 13, 13, 512), 3, 1024, False, None, "tap"),
+    ("v3 b16 L14", (16, 13, 13, 256), 3, 512, False, None, "tap"),
+    ("v3 b16 L20", (16, 26, 26, 384), 3, 256, False, None, "tap"),
+    ("v3 b1 L20", (1, 26, 26, 384), 3, 256, False, None, "tap"),
     ("S1 entry k2 f4", (2, 106, 106, 64), 2, 256, True, (104, 104),
      "patch"),
+    ("S1 b32 L4 k2", (32, 28, 27, 512), 2, 1024, True, (26, 26), "patch"),
     ("ragged M, Cout", (3, 11, 9, 32), 3, 48, False, None, "patch"),
     ("ragged gmax", (2, 19, 21, 16), 3, 80, True, None, "patch"),
     ("Cin 48 k2", (2, 10, 13, 48), 2, 64, True, (8, 11), "patch"),
-    ("ragged window", (3, 7, 5, 128), 3, 72, False, None, "window"),
+    ("ragged window", (3, 7, 5, 128), 3, 72, False, None, "tap"),
+    ("W 31 window", (2, 9, 31, 128), 3, 128, False, None, "tap"),
+]
+# The schedules' cases on 132 blocks: (tag, x shape, k, Cout, group-max,
+# trimmed output). Three rounds of tiles, the last partial (L8 b32: 338
+# tiles; forced "last", 74 of them straddle blocks before the
+# round-robin tiles), every tile split (b1 L13), single-tile blocks (L10
+# b16: 88 tiles), and PATCH layers, with their resident B, forced onto
+# stream-K.
+SCHEDULE_CASES = [
+    ("straddled, then whole tiles", (32, 26, 26, 128), 3, 256, False, None),
+    ("every tile split", (1, 13, 13, 1024), 3, 1024, False, None),
+    ("one tile a block", (16, 13, 13, 256), 3, 512, False, None),
+    ("patch straddled", (4, 52, 52, 64), 3, 128, False, None),
+    ("patch gmax k2 straddled", (2, 56, 53, 128), 2, 256, True, (52, 52)),
 ]
 
 
@@ -1038,18 +1061,70 @@ def test_conv_w8a8_kernel_activations_match_plain(cuda, deadline, case, act):
 
 
 def test_conv_w8a8_split_k_forms(cuda):
-    """The b1 tail and b1 L6 split K across blocks; the b32 shapes fill
-    the card unsplit."""
+    """The b1 pin's L12 and L13 split every tile across blocks (stream-K
+    over all of them); its other convs, and every conv of the b32 pin,
+    run whole tiles round robin, the b32 ones over every SM."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     for tag, xs, k, cout, gmax, out_hw, _ in CONV_CASES:
         f = cv.conv_w8a8_form(*xs, cout, k, k, 1,
                               "SAME" if k == 3 else "VALID", out_hw, True,
                               gmax, 132)
-        if tag.startswith(("v2 b1 L6", "v2 b1 L10", "v2 b1 L12",
-                           "v2 b1 L13")):
-            assert f.splits > 1, (tag, f)
+        split = tag.startswith(("v2 b1 L12", "v2 b1 L13"))
+        if tag.startswith("v2 b1"):
+            assert (f.sk_tiles == f.tiles and f.slots > 1) == split, (tag, f)
         if tag.startswith("v2 b32"):
-            assert f.splits == 1, (tag, f)
+            assert (f.grid, f.sk_tiles) == (132, 0) and f.tiles > 132, (
+                tag, f)
+
+
+def _forced(f, sms, schedule):
+    """``f`` with the round-robin schedule ("rr": whole tiles, no split),
+    stream-K over every tile ("all"), stream-K over the last round's
+    tiles ("last", at least as many tiles as SMs), or its own."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    rounds, rem = divmod(f.tiles, sms)
+    if schedule == "last" and rounds and rem:
+        f = f._replace(grid=sms, sk_tiles=rem,
+                       sk_blocks=min(sms, rem * f.steps))
+        return f._replace(slots=cv.sk_slots(f))
+    if schedule == "rr":
+        return f._replace(grid=min(f.tiles, sms), sk_tiles=0, sk_blocks=0,
+                          slots=1)
+    if schedule == "all":
+        grid = min(sms, f.tiles * f.steps)
+        f = f._replace(grid=grid, sk_tiles=f.tiles, sk_blocks=grid)
+        return f._replace(slots=cv.sk_slots(f))
+    return f
+
+
+@pytest.mark.parametrize("schedule", ["own", "rr", "all", "last"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES,
+                         ids=[c[0] for c in SCHEDULE_CASES])
+def test_conv_w8a8_schedules_match_plain(cuda, deadline, case, schedule):
+    """Every schedule the kernel takes (its own, round robin, stream-K
+    over every tile or over the last round's tiles) gives the plain
+    version's codes."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
+    from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+    tag, xs, k, cout, gmax, out_hw = case
+    g = torch.Generator(device=cuda).manual_seed(sum(xs) + cout)
+    x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, cout, 0.05, gmax)
+    padding = "SAME" if k == 3 else "VALID"
+    f = cv.conv_w8a8_form(*xs, cout, k, k, 1, padding, out_hw, True, gmax,
+                          132)
+    ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, padding=padding,
+                               s_out=0.05, out_hw=out_hw, gmax=gmax)
+    go = cout // 4 if gmax else 0
+    bt = fc.rs_tile_matrix(w, go) if gmax else gm.kmajor_weights(w)
+    scale = f32_scalar(s_in, cuda) * s_w
+    ho, wo = cv.conv_out_hw(xs[1], xs[2], k, padding, out_hw)
+    ff = _forced(f, 132, schedule)
+    got = cv.conv_w8a8_launch(x, bt, scale, b, 0.05, k, ho, wo, go, "leaky",
+                              ff)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (tag, ff, int((got != ref).sum()))
 
 
 def test_conv_w8a8_refused_forms_take_the_im2col_route(cuda):
