@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --qs2d4-ab DIR   # quant_space_to_depth4 against
+                                          # the checkout in DIR, in turns
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -14,7 +16,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    GEMM and the W8A8 conv shapes of YOLOv3-tiny at batch 16; the strategy
    plans S1 and S2 at batch 32 for
    quant_space_to_depth4, gmax_shift_s2d2 and conv3x3_rs, and S1 at
-   batch 1 for conv3x3_rs), requiring identical results, and
+   batch 1 for conv3x3_rs and quant_space_to_depth4, whose every byte
+   value at four input scales, widths 56 and 72, 120-byte input rows
+   and S2's b1 entry are checked too), requiring identical results, and
    time kernel, plain version and (for the GEMM and conv3x3_rs)
    ``torch._int_mm``, printing each GEMM and conv3x3_rs row's form, tile,
    K-split and grid (``gemm_form``, ``rs_form``), and the host time of a
@@ -232,6 +236,9 @@ V3_B16_CONVS = [("L2", (16, 104, 104, 64), 3, 128, True, None),
                 ("L14", (16, 13, 13, 256), 3, 512, False, None),
                 ("L20", (16, 26, 26, 384), 3, 256, False, None)]
 HEADS = {"yolov2-tiny": {"L14"}, "yolov3-tiny": {"L15", "L21"}}
+# input scales of quant_space_to_depth4's every-byte check: u / 255 / s
+# lands on a tie at 0.0078431377 = f32(2/255) for 65 byte values
+QS2D4_SCALES = (1 / 127.0, 0.0078431377, 0.0123, 0.007919)
 # conv_w8a8's previous kernel (commit 6ee0c98: a window route for the tap
 # forms, the exact epilogue, no stream-K) at V2_B32_CONVS, ms a launch
 # (chip_smoke.py's device_ms, H100 80GB HBM3 at 700.00 W; PERF.md section
@@ -955,21 +962,46 @@ def phase_strategy_kernels(dev, ops_peak, bw):
     s_in = 0.0078431377
     border = (1, 7, 1, 7)
     errs = []
+
+    def q_check(x, s, what, **kw):
+        errs.append(check("quant_space_to_depth4",
+                          fc.quant_space_to_depth4(x, s, **kw),
+                          fc.quant_space_to_depth4_plain(x, s, **kw), what))
+
     for x, dt in ((xu, "u8"), (xf, "f32")):
         for pad_to in (0, 64):
             for pad_hw, entry in ((border, "k2"), ((0, 0, 0, 0), "k3")):
-                kw = dict(pad_to=pad_to, pad_hw=pad_hw)
-                errs.append(check(
-                    "quant_space_to_depth4",
-                    fc.quant_space_to_depth4(x, s_in, **kw),
-                    fc.quant_space_to_depth4_plain(x, s_in, **kw),
-                    f"{dt} pad_to={pad_to} {entry} entry"))
+                q_check(x, s_in, f"{dt} pad_to={pad_to} {entry} entry",
+                        pad_to=pad_to, pad_hw=pad_hw)
+    # every byte value (the b32 batch holds each ~195,000 times) through
+    # the code table, at scales that put u / 255 / s on or near a tie;
+    # widths that are not multiples of 16 (a partial chunk at each end of
+    # a run); rows that are not multiples of 16 bytes (W = 40: 120 bytes)
+    for s in QS2D4_SCALES:
+        q_check(xu, s, f"u8 s={s} k2 entry, every byte value", pad_to=64,
+                pad_hw=border)
+    for pad_to in (56, 72):
+        q_check(xu, s_in, f"u8 pad_to={pad_to} k2 entry", pad_to=pad_to,
+                pad_hw=border)
+    x40 = xu[:4, :64, :40].contiguous()
+    for x, dt in ((x40, "u8"), (x40.float() / 255.0, "f32")):
+        q_check(x, s_in, f"(4,64,40,3) {dt} k2 entry (120-byte rows)",
+                pad_to=64, pad_hw=border)
     x424 = torch.nn.functional.pad(xu, (0, 0, 1, 7, 1, 7))
     errs.append(check("quant_space_to_depth4",
                       fc.quant_space_to_depth4(x424, s_in, pad_to=64),
                       fc.quant_space_to_depth4(xu, s_in, pad_to=64,
                                                pad_hw=border),
                       "(32,424,424,3) u8 vs the border read"))
+    # the b1 entries, whose rows the grid cuts into runs
+    x1 = xu[:1].contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for pad_hw, entry, h4 in ((border, "S1", 106), ((0, 0, 0, 0), "S2", 104)):
+        segs, run, blocks = fc.qs2d4_grid(1, h4, h4, sms)
+        for x, dt in ((x1, "u8"), (x1.float() / 255.0, "f32")):
+            q_check(x, s_in, f"{entry} b1 entry {dt} ({blocks} blocks, "
+                    f"{segs} runs of {run} px a row)", pad_to=64,
+                    pad_hw=pad_hw)
     out = fc.quant_space_to_depth4(xu, s_in, pad_to=64,
                                    pad_hw=border).numel()
     out_s2 = fc.quant_space_to_depth4(xu, s_in, pad_to=64).numel()
@@ -982,6 +1014,9 @@ def phase_strategy_kernels(dev, ops_peak, bw):
     s2_ms = q_ms(xu, pad_to=64)
     f32_ms = q_ms(xf, pad_to=64, pad_hw=border)
     x424_ms = q_ms(x424, pad_to=64)
+    b1_ms = q_ms(x1, pad_to=64, pad_hw=border)
+    b1_plain_ms = device_ms(lambda: fc.quant_space_to_depth4_plain(
+        x1, s_in, pad_to=64, pad_hw=border), 5)
     rows["quant_space_to_depth4"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
         bound_ms=(xu.numel() + out) / bw * 1e3, bound_by="bytes",
@@ -989,15 +1024,19 @@ def phase_strategy_kernels(dev, ops_peak, bw):
         s2_entry_bound_ms=(xu.numel() + out_s2) / bw * 1e3,
         f32_ms=f32_ms, f32_bound_ms=(4 * xu.numel() + out) / bw * 1e3,
         padded_424_ms=x424_ms,
-        padded_424_bound_ms=(x424.numel() + out) / bw * 1e3)
+        padded_424_bound_ms=(x424.numel() + out) / bw * 1e3,
+        b1_ms=b1_ms, b1_plain_ms=b1_plain_ms,
+        b1_bound_ms=(x1.numel() + out // 32) / bw * 1e3)
     r = rows["quant_space_to_depth4"]
     print(f"  quant_space_to_depth4 S1 entry (u8, border, 64 lanes) "
           f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
           f"{r['bound_ms']:.4f}; S2 entry {s2_ms:.4f} (bound "
           f"{r['s2_entry_bound_ms']:.4f}); f32 {f32_ms:.4f} (bound "
           f"{r['f32_bound_ms']:.4f}); padded (32,424,424,3) u8 "
-          f"{x424_ms:.4f} (bound {r['padded_424_bound_ms']:.4f})")
-    del xu, xf, x424
+          f"{x424_ms:.4f} (bound {r['padded_424_bound_ms']:.4f}); S1 b1 "
+          f"{b1_ms:.4f} (plain {b1_plain_ms:.3f}, bound "
+          f"{r['b1_bound_ms']:.5f})")
+    del xu, xf, x424, x40, x1
 
     # --- gmax_shift_s2d2: the S1 L2 seam, (32,104,104,128), go = 32 ---
     y = torch.randint(-127, 128, (32, 104, 104, 128), generator=g,
@@ -2258,5 +2297,59 @@ def main() -> int:
     return 0
 
 
+_QS2D4_TURN = """
+import json, sys, torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(3)
+xu = torch.randint(0, 256, (32, 416, 416, 3), generator=g, device=dev,
+                   dtype=torch.uint8)
+x1, xf, b = xu[:1].contiguous(), xu.float() / 255.0, (1, 7, 1, 7)
+def ms(x, **kw):
+    return cs.device_ms(lambda: fc.quant_space_to_depth4(
+        x, 0.0078431377, pad_to=64, **kw), 20)
+print("AB " + json.dumps({{"S1 b32": ms(xu, pad_hw=b), "S2 b32": ms(xu),
+                          "f32 S1 b32": ms(xf, pad_hw=b),
+                          "S1 b1": ms(x1, pad_hw=b)}}))
+"""
+
+
+def qs2d4_ab(base: Path) -> int:
+    """quant_space_to_depth4 of another checkout (``base``, for example the
+    parent commit unpacked by ``git archive`` into a directory that
+    ``.gitignore`` lists) and of this one, in turns (base, this, this,
+    base) on one card, each turn a process of its own from its checkout's
+    root, which builds its own kernels: the S1 and S2 b32 entries (u8), S1
+    f32 and the S1 b1 entry, ms a launch (``device_ms``)."""
+    here = Path(__file__).resolve().parent
+    runs = {"base": [], "this": []}
+    for name, root in (("base", base.resolve()), ("this", here),
+                       ("this", here), ("base", base.resolve())):
+        r = subprocess.run([sys.executable, "-c",
+                            _QS2D4_TURN.format(root=str(root))],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"turn in {root} failed:\n{r.stdout[-3000:]}"
+                               f"\n{r.stderr[-3000:]}")
+        t = json.loads(next(x for x in r.stdout.splitlines()
+                            if x.startswith("AB "))[3:])
+        runs[name].append(t)
+        print(f"{name}: " + "; ".join(f"{k} {v:.4f}" for k, v in t.items()),
+              flush=True)
+    card = card_line()
+    for case in runs["this"][0]:
+        mean = {n: sum(t[case] for t in ts) / len(ts)
+                for n, ts in runs.items()}
+        print(f"quant_space_to_depth4 {case}: base {mean['base']:.4f} this "
+              f"{mean['this']:.4f} ms ({mean['this'] / mean['base']:.3f} of "
+              f"base) [{card}]")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--qs2d4-ab":
+        sys.exit(qs2d4_ab(Path(sys.argv[2])))
     sys.exit(main())

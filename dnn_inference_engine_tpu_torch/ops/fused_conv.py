@@ -17,7 +17,9 @@ beside its plain PyTorch version:
 - ``shift_s2d2`` (``csrc/shift_s2d2.cu``, for ``shift_s2d2_pallas``):
   pad + shifted space-to-depth(2) of an int8 tensor;
 - ``quant_space_to_depth4`` (``csrc/quant_space_to_depth4.cu``):
-  quantize (uint8 wire or f32) + space-to-depth(4), optional lane pad;
+  quantize (uint8 wire or f32) + space-to-depth(4), optional lane pad,
+  one block a run of an output row (``qs2d4_grid``), uint8 codes from a
+  table built in the block (``qs2d4_code_table`` mirrors it);
 - ``gmax_shift_s2d2`` (``csrc/gmax_shift_s2d2.cu``): pool-major
   group-max + shifted space-to-depth(2);
 - ``conv3x3_rs`` (``csrc/conv3x3_rs.cu``): implicit-im2col k x k int8
@@ -552,6 +554,48 @@ def quant_space_to_depth4_plain(x, s_in, pad_to=0, pad_hw=(0, 0, 0, 0)):
     return _pad_channels(space_to_depth(xq, 4), max(pad_to, 48))
 
 
+# pixels of a unit at most: a block's four staged f32 rows and its code
+# rows within the 48 KB of shared memory a block gets without opting in
+QS2D4_MAX_RUN = 128
+
+
+def qs2d4_grid(n: int, h4: int, w4: int,
+               sms: int = H100_SMS) -> Tuple[int, int, int]:
+    """(segments a row, pixels a run, blocks) of a ``quant_space_to_depth4``
+    launch on ``sms`` SMs, a block a unit: each of the n * h4 output rows is
+    cut into the fewest runs of at most ``QS2D4_MAX_RUN`` pixels that give
+    at least two units an SM (batch 1), the last run possibly shorter."""
+    rows = n * h4
+    segs = min(w4, max(-(-w4 // QS2D4_MAX_RUN),
+                       -(-2 * sms // max(rows, 1))))
+    run = -(-w4 // segs)
+    segs = -(-w4 // run)
+    return segs, run, rows * segs
+
+
+def qs2d4_row_bytes(run: int, elem: int) -> int:
+    """Bytes of one of the kernel's four staged row buffers (``row_bytes``
+    in ``csrc/quant_space_to_depth4.cu``): a run's 12 * run elements of
+    ``elem`` bytes, up to 15 bytes of the copy's leading alignment and a
+    funnel shift's second word."""
+    return _round_up(12 * run * elem, 16) + 32
+
+
+def qs2d4_code_bytes(run: int) -> int:
+    """Bytes of one of the kernel's four code rows (``code_bytes``): a
+    run's 12 * run codes."""
+    return _round_up(12 * run, 16)
+
+
+def qs2d4_code_table(s_in) -> np.ndarray:
+    """The uint8 codes the kernel's table holds, built as the kernel builds
+    it: code[u] = clip(rint((u / 255) / s), +-127), both divisions
+    correctly rounded in float32, ties to even."""
+    v = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    q = np.rint(v / np.float32(s_in))
+    return np.clip(q, -QMAX, QMAX).astype(np.int8)
+
+
 def quant_space_to_depth4(x: torch.Tensor, s_in, pad_to: int = 0,
                           pad_hw=(0, 0, 0, 0)) -> torch.Tensor:
     """Fused quantize + space_to_depth(4): (N,H,W,3) uint8 or f32 ->
@@ -578,20 +622,19 @@ def quant_space_to_depth4(x: torch.Tensor, s_in, pad_to: int = 0,
         raise ValueError(f"quant_space_to_depth4: unsupported device "
                          f"{x.device}")
     c_out = max(pad_to, 48)
-    if c_out % 16:
-        raise ValueError("quant_space_to_depth4: the kernel writes 16-byte "
-                         f"chunks, pad_to must be a multiple of 16, got "
-                         f"{pad_to}")
     x = x.contiguous()
     n, h, wd, _ = x.shape
     hp, wp = h + top + bottom, wd + left + right
     out = torch.empty((n, hp // 4, wp // 4, c_out), dtype=torch.int8,
                       device=x.device)
+    u8 = x.dtype == torch.uint8
+    segs, run, _ = qs2d4_grid(n, hp // 4, wp // 4,
+                              _build.sm_count(x.device))
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("quant_space_to_depth4", "quant_space_to_depth4",
-                         [p, ctypes.c_float, p, i, i, i, i, i, i, i, i, i, p])
+                         [p, ctypes.c_float, p] + [i] * 11 + [p])
     err = fn(x.data_ptr(), float(s_in), out.data_ptr(), n, h, wd, top, left,
-             hp, wp, c_out, int(x.dtype == torch.uint8),
+             hp, wp, c_out, segs, run, int(u8),
              _build.stream_ptr(x.device))
     quant_space_to_depth4.launches += 1
     _build.check(err, "quant_space_to_depth4")

@@ -472,6 +472,84 @@ def test_quant_space_to_depth4_kernel_matches_plain(cuda, shape, ingest,
     assert torch.equal(got, ref)
 
 
+# scales at which u / 255 / s lands on (0.0078431377) or near a tie
+QS2D4_SCALES = (1 / 127.0, 0.0078431377, 0.0123, 0.007919)
+
+
+@pytest.mark.parametrize("pad_hw", [(0, 0, 0, 0), (1, 7, 1, 7)])
+@pytest.mark.parametrize("s", QS2D4_SCALES)
+def test_quant_space_to_depth4_kernel_every_byte_value(cuda, s, pad_hw):
+    """Every uint8 value, each many times, through the kernel's code
+    table, against the plain version's two divisions; 120-byte rows."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = 2 * 24 * 40 * 3
+    perm = torch.randperm(n, generator=g, device=cuda)
+    x = (perm % 256).to(torch.uint8).reshape(2, 24, 40, 3)
+    for pad_to in (0, 64):
+        got = fc.quant_space_to_depth4(x, s, pad_to=pad_to, pad_hw=pad_hw)
+        ref = fc.quant_space_to_depth4_plain(x, s, pad_to=pad_to,
+                                             pad_hw=pad_hw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), pad_to
+
+
+@pytest.mark.parametrize("ingest", ["uint8", "f32"])
+@pytest.mark.parametrize("entry", ["S1", "S2"])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_quant_space_to_depth4_kernel_entries(cuda, deadline, batch, entry,
+                                              ingest):
+    """The S1 entry (the (1, 7, 1, 7) border) and the S2 entry at 416 px,
+    64 lanes: at b1 each output row is cut into runs, so the grid holds at
+    least two blocks an SM."""
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    xu = torch.randint(0, 256, (batch, 416, 416, 3), generator=g,
+                       device=cuda, dtype=torch.uint8)
+    x = xu.float() / 255.0 if ingest == "f32" else xu
+    pad_hw = (1, 7, 1, 7) if entry == "S1" else (0, 0, 0, 0)
+    h4 = 106 if entry == "S1" else 104
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    segs, run, blocks = fc.qs2d4_grid(batch, h4, h4, sms)
+    assert blocks >= (2 * sms if batch == 1 else batch * h4)
+    got = fc.quant_space_to_depth4(x, 0.0078431377, pad_to=64, pad_hw=pad_hw)
+    ref = fc.quant_space_to_depth4_plain(x, 0.0078431377, pad_to=64,
+                                         pad_hw=pad_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("pad_to", [0, 50, 56, 64, 72])
+@pytest.mark.parametrize("offset", [0, 3, 8])
+@pytest.mark.parametrize("ingest", ["uint8", "f32"])
+@pytest.mark.parametrize("shape,pad_hw", [
+    ((1, 16, 24, 3), (0, 0, 0, 0)),        # 72-byte rows
+    ((2, 24, 40, 3), (1, 7, 1, 7)),        # 120-byte rows, the border
+    ((1, 16, 56, 3), (0, 0, 0, 0)),        # 168-byte rows
+    ((1, 26, 18, 3), (3, 3, 5, 1)),        # a wide left border
+])
+def test_quant_space_to_depth4_kernel_ragged_rows_and_widths(
+        cuda, shape, pad_hw, ingest, offset, pad_to):
+    """Rows whose bytes are not a multiple of 16, x starting ``offset``
+    elements past an aligned address (a view into a larger buffer), and
+    widths that are not multiples of 16 (a partial chunk at each end of a
+    run: 56, 72) or of 4 (50, a byte at a time)."""
+    g = torch.Generator(device=cuda).manual_seed(offset + pad_to)
+    numel = int(np.prod(shape))
+    dtype = torch.uint8 if ingest == "uint8" else torch.float32
+    buf = torch.zeros(numel + 16, dtype=dtype, device=cuda)
+    x = buf[offset:offset + numel].view(shape)
+    if ingest == "uint8":
+        x.copy_(torch.randint(0, 256, shape, generator=g, device=cuda,
+                              dtype=torch.uint8))
+    else:
+        x.copy_(torch.rand(shape, generator=g, device=cuda) * 2 - 1)
+    got = fc.quant_space_to_depth4(x, 0.0123, pad_to=pad_to, pad_hw=pad_hw)
+    ref = fc.quant_space_to_depth4_plain(x, 0.0123, pad_to=pad_to,
+                                         pad_hw=pad_hw)
+    torch.cuda.synchronize()
+    assert got.shape[-1] == max(pad_to, 48)
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("shape,go", [((2, 16, 16, 32), 8),
                                       ((1, 26, 22, 128), 32),
                                       ((2, 104, 104, 128), 32),

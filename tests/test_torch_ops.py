@@ -327,7 +327,8 @@ def test_shift_s2d2_plain_matches_jax(r, shape):
 # conv3x3_rs (kernel 7) plain versions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("variant", ["k3", "k3-pad64", "k2-pad64"])
+@pytest.mark.parametrize("variant", ["k3", "k3-pad64", "k2-pad64",
+                                     "k3-pad56", "k2-pad72"])
 @pytest.mark.parametrize("ingest", ["f32", "uint8"])
 @pytest.mark.parametrize("n,h,w,s_in", [(1, 64, 64, 0.0123),
                                         (2, 64, 64, 1 / 127.0),
@@ -336,13 +337,15 @@ def test_quant_space_to_depth4_plain_matches_jax(r, n, h, w, s_in, ingest,
                                                  variant):
     """Bit for bit, for scales whose reciprocal is inexact. The k3 entry
     reads the input as it is; the k2 entry's (1, 7) border, which the JAX
-    plan pads before its kernel, is the port's ``pad_hw``."""
+    plan pads before its kernel, is the port's ``pad_hw``. Any ``pad_to``:
+    56 and 72 are not multiples of 16."""
     x = (r.uniform(-1, 1, (n, h, w, 3)).astype(np.float32) if ingest == "f32"
          else r.integers(0, 256, (n, h, w, 3)).astype(np.uint8))
-    pad_to = 0 if variant == "k3" else 64
-    pad_hw = (1, 7, 1, 7) if variant == "k2-pad64" else (0, 0, 0, 0)
+    entry, _, pad = variant.partition("-pad")
+    pad_to = int(pad or 0)
+    pad_hw = (1, 7, 1, 7) if entry == "k2" else (0, 0, 0, 0)
     xj = jnp.asarray(x)
-    if variant == "k2-pad64":
+    if entry == "k2":
         xj = jnp.pad(xj, ((0, 0), (1, 7), (1, 7), (0, 0)))
     ref = jpc.quant_space_to_depth4(xj, jnp.float32(s_in), pad_to=pad_to)
     got = tfc.quant_space_to_depth4(T(x), s_in, pad_to=pad_to, pad_hw=pad_hw)
