@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --qs2d4-ab DIR   # quant_space_to_depth4 against
                                           # the checkout in DIR, in turns
+    python3 chip_smoke.py --front-door    # phase 10 alone
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -100,7 +101,34 @@ Phases (each raises on failure, and the script then exits non-zero):
    im2col route; the fallback's ``auto`` takes the gemm tier where
    use_pallas says so), and
    ``Model.forward(mode="w8", kernel="pallas")`` (gemm_f32 with int8
-   codes on every conv; only layer 0's K = 27 in the ragged form).
+   codes on every conv; only layer 0's K = 27 in the ragged form);
+10. the front door at 416 px, from files written here from seeds: a
+   darknet ``.weights`` file (BN blocks) and an ``.npz`` of uint8
+   calibration images build the W8A8 b32 engine (the noise calibration
+   refused for file weights); its checkpoint (``Engine.save``) loads into
+   a card and a CPU engine (heads identical, detections equal at b2); 96
+   requests from 4 threads through ``ContinuousBatcher`` on the b32 pin
+   and 16 on the b1 pin (``max_batch`` 1), each result equal to its row of
+   the card's detect on the batch shipped, the launch counters set to 0
+   just before the served run and read just after (each batch: 7
+   conv_w8a8, 1 gemm_fused, 1 k2 stem, at b32 1 shift_s2d2; no im2col, no
+   ragged GEMM), with the NMS's host reads per detect; then each pin's
+   batcher timed with nothing of this script in its path (a warm-up
+   batch, then 3 windows of 200 b32 or 400 b1 batches, 2 batches' worth
+   of requests in flight: images/s, p50/p99 ms, batch fill per window);
+   the NMS fixpoint's sweeps to convergence and its host ms for groups
+   of 1-16 sweeps a read on the pins' and the eval grade's inputs, and
+   one sweep's device ms at serving and eval-grade K;
+   ``serve_http`` on port 0 (4 ``.npy`` POSTs equal to the direct
+   detect's boxes in image coordinates, 20 more timed one after another,
+   /stats, /healthz, a bad body 400); the eval-grade detect (score
+   0.005, pool uncapped) card against CPU at b2; ``dump-goldens`` on the
+   card held to a CPU dump, ``check-goldens`` in w8a8 at the CLI's limit
+   (and failing against another seed's weights), each in a process of
+   its own; where PIL imports (``{"pil": ...}`` says), ``evaluate_voc``
+   over a JPEG tree card against CPU and ``cli detect --image --out``;
+   the native host library in use; and one JSON line of the phase's
+   numbers with the card.
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -2164,6 +2192,655 @@ def phase_sweep(card: str):
           f"engine's detect ran [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the front door (weight files, calibration images, serving, eval)
+# ---------------------------------------------------------------------------
+
+def frontdoor_dir() -> Path:
+    """build/frontdoor/ at the root of the checkout (gitignored)."""
+    path = Path(__file__).resolve().parent / "build" / "frontdoor"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def write_darknet(model, path: Path, seed: int) -> Path:
+    """A darknet ``.weights`` file for ``model`` from ``seed`` (major 0,
+    minor 2: an int64 ``seen``): per conv ``beta, gamma, mean, var`` where
+    it has BN, else a bias, then He-scaled (Cout, Cin, kh, kw) weights.
+    The head's bias lifts each anchor's objectness and one class logit,
+    so that boxes clear the serving threshold and the NMS has work."""
+    rng = np.random.default_rng(seed)
+    chans = model.out_channels()
+    parts, prev = [], model.in_ch
+    for li, layer in enumerate(model.layers):
+        if type(layer).__name__ == "Conv":
+            c, k = layer.out_ch, layer.ksize
+            if layer.use_bn:
+                parts += [rng.normal(0, 0.1, c), rng.uniform(0.5, 1.5, c),
+                          rng.normal(0, 0.1, c), rng.uniform(0.5, 2.0, c)]
+            else:
+                bias = rng.normal(0, 0.01, c)
+                e = 5 + 20
+                for a in range(c // e):
+                    bias[a * e + 4] += 2.0
+                    bias[a * e + 5 + (7 * a) % 20] += 3.0
+                parts.append(bias)
+            parts.append(rng.normal(0, (2.0 / (k * k * prev)) ** 0.5,
+                                    c * prev * k * k))
+        prev = chans[li]
+    with open(path, "wb") as f:
+        f.write(np.asarray([0, 2, 0], np.int32).tobytes())
+        f.write(np.asarray([0], np.int64).tobytes())
+        f.write(np.concatenate(parts).astype(np.float32).tobytes())
+    return path
+
+
+def _same_detections(tag: str, a, b, box_atol: float = 1e-3):
+    """Survivor counts and classes equal, boxes within ``box_atol`` px."""
+    (ba, sa, ca), (bb, sb, cb) = a, b
+    na, nb = (sa > 0).sum(axis=1), (sb > 0).sum(axis=1)
+    diff = float(np.abs(ba - bb).max())
+    if not (np.array_equal(na, nb) and np.array_equal(ca, cb)
+            and diff <= box_atol):
+        raise AssertionError(f"{tag}: survivors {na} vs {nb}, classes equal "
+                             f"{np.array_equal(ca, cb)}, box diff {diff}")
+    return na.tolist()
+
+
+def _serve(eng, images, threads: int):
+    """``images`` through a ``ContinuousBatcher`` on ``eng`` from
+    ``threads`` client threads (each submits its share, then waits), with
+    a copy of every shipped batch kept: a correctness run, not a timed
+    one (``_timed_windows`` times the batcher). Returns (the padded
+    batches shipped, the results by index)."""
+    import threading
+    from dnn_inference_engine_tpu_torch.runtime.serve import (
+        ContinuousBatcher)
+    shipped = []
+    real = eng.detect_device
+
+    def record(x):
+        shipped.append(x.copy())
+        return real(x)
+    eng.detect_device = record
+    results, errors = {}, []
+    batcher = ContinuousBatcher(eng).start()
+    try:
+        def client(idx):
+            try:
+                futs = [(i, batcher.submit(images[i])) for i in idx]
+                for i, f in futs:
+                    results[i] = f.result(timeout=300)
+            except Exception as e:          # noqa: BLE001 — raised below
+                errors.append(e)
+        ts = [threading.Thread(target=client,
+                               args=(range(t, len(images), threads),))
+              for t in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in ts):
+            raise AssertionError(f"serving failed: {errors}")
+    finally:
+        batcher.stop()
+        del eng.detect_device
+    if len(results) != len(images):
+        raise AssertionError(f"{len(results)} of {len(images)} served")
+    return shipped, results
+
+
+def _rows_equal_detect(eng, images, shipped, results) -> None:
+    """Every served result equals, bit for bit, its image's row of
+    ``eng.detect`` on the padded batch the batcher shipped."""
+    rows = 0
+    for x in shipped:
+        ref = eng.detect(x)
+        for r in range(x.shape[0]):
+            for i in [i for i in range(len(images))
+                      if np.array_equal(images[i], x[r])]:
+                for got, want in zip(results[i], ref):
+                    if not np.array_equal(got, want[r]):
+                        raise AssertionError(
+                            f"request {i}: served result != row {r} of "
+                            "detect on its shipped batch")
+                rows += 1
+    if rows < len(images):
+        raise AssertionError(f"{rows} rows matched for {len(images)}")
+
+
+def _served_on_kernels(tag, eng, images, threads, want, dev):
+    """``_serve`` with the launch counters (and the NMS's host reads) set
+    to 0 just before the served run and read just after; on the card each
+    kernel of the path must count its launches a batch times the batches,
+    every other counter 0, with no im2col and no ragged GEMM. Then each
+    result is held to its row of detect."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    _reset_counts()
+    pp._greedy_fixpoint.host_syncs = 0
+    with XlaTierIm2col() as im2col:
+        shipped, results = _serve(eng, images, threads)
+    counts, syncs = _read_counts(), pp._greedy_fixpoint.host_syncs
+    batches = len(shipped)
+    if dev.type == "cuda":
+        expect = {**dict.fromkeys(_counters(), 0),
+                  **{k: v * batches for k, v in want.items()}}
+        if counts != expect:
+            raise AssertionError(f"{tag}: launches {counts} != {expect}")
+        if (im2col.calls or cv.conv2d_w8a8.im2col_launches
+                or gm.gemm_fused.ragged_launches):
+            raise AssertionError(f"{tag}: {im2col.calls} im2col copies, "
+                                 f"{gm.gemm_fused.ragged_launches} ragged "
+                                 "GEMMs")
+    _rows_equal_detect(eng, images, shipped, results)
+    print(f"{tag}: {len(images)} requests from {threads} threads in "
+          f"{batches} batches, each result equal to its row of detect; "
+          f"launches over the served run {counts}; NMS host reads per "
+          f"detect {syncs / batches:g}")
+    return syncs / batches
+
+
+def _window(batcher, images, outstanding: int, n: int) -> dict:
+    """One timed window: a closed loop keeps ``outstanding`` requests in
+    flight (each result submits the next of ``n``, the images taken in
+    turn) from the first submit to the ``n``-th result."""
+    import threading
+    lat, errors = [0.0] * n, []
+    lock, done = threading.Lock(), threading.Event()
+    state = {"next": outstanding, "done": 0}
+    before = batcher.stats()
+
+    def launch(i):
+        t0 = time.perf_counter()
+        batcher.submit(images[i % len(images)]).add_done_callback(
+            lambda f: finish(f, i, t0))
+
+    def finish(f, i, t0):
+        lat[i] = (time.perf_counter() - t0) * 1e3
+        if f.exception() is not None:
+            errors.append(f.exception())
+        with lock:
+            state["done"] += 1
+            nxt = state["next"]
+            state["next"] += 1
+            if state["done"] == n:
+                done.set()
+        if nxt < n:
+            launch(nxt)
+    t0 = time.perf_counter()
+    for i in range(min(outstanding, n)):
+        launch(i)
+    if not done.wait(timeout=600) or errors:
+        raise AssertionError(f"timed window: {state}, errors {errors[:3]}")
+    wall = time.perf_counter() - t0
+    after = batcher.stats()
+    return {"images_per_s": n / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "batch_fill": ((after["images"] - before["images"])
+                           / (after["batches"] - before["batches"]))}
+
+
+def _timed_windows(tag, eng, images, batches: int, windows: int = 3):
+    """The batcher on ``eng`` timed with nothing of this script in its
+    path: one warm-up batch, then ``windows`` windows of ``batches`` full
+    batches each, 2 ``max_batch`` requests in flight (one batch on the
+    card while the next assembles). Per window images/s, and p50/p99 of
+    submit-to-result ms over all its requests (host clock)."""
+    from dnn_inference_engine_tpu_torch.runtime.serve import (
+        ContinuousBatcher)
+    batcher = ContinuousBatcher(eng).start()
+    mb = batcher.max_batch
+    try:
+        for f in [batcher.submit(images[i % len(images)])
+                  for i in range(mb)]:
+            f.result(timeout=300)
+        runs = [_window(batcher, images, 2 * mb, batches * mb)
+                for _ in range(windows)]
+    finally:
+        batcher.stop()
+    print(f"{tag}: {windows} windows of {batches} batches ({batches * mb} "
+          f"requests, {2 * mb} in flight): images/s "
+          f"{[round(r['images_per_s'], 1) for r in runs]}, p50 ms "
+          f"{[round(r['p50_ms'], 2) for r in runs]}, p99 ms "
+          f"{[round(r['p99_ms'], 2) for r in runs]}, batch fill "
+          f"{[round(r['batch_fill'], 2) for r in runs]}")
+    return runs
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
+    """The NMS fixpoint's group size (``SWEEPS_PER_SYNC``) against what
+    it trades: the engine's ``device_nms_cols`` inputs of one detect of
+    ``x`` are kept; the sweeps to the fixpoint (group 1: one read a
+    sweep), then the NMS's host ms per detect (each call synced, median
+    of ``reps``) for each group, on the same inputs."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    from dnn_inference_engine_tpu_torch.runtime import engine as em
+    kept = []
+    real = em.device_nms_cols
+
+    def keep_args(*a, **kw):
+        kept.append((a, kw))
+        return real(*a, **kw)
+    em.device_nms_cols = keep_args
+    try:
+        eng.detect(x)
+    finally:
+        em.device_nms_cols = real
+    (boxes, scores), kw = kept[0]
+    saved, ms, out = pp.SWEEPS_PER_SYNC, {}, None
+    try:
+        for g in groups:
+            pp.SWEEPS_PER_SYNC = g
+            pp._greedy_fixpoint.host_syncs = 0
+            got = [t.cpu().numpy() for t in real(boxes, scores, **kw)]
+            if g == 1:
+                sweeps = 1 + pp._greedy_fixpoint.host_syncs
+            if out is not None and not all(
+                    np.array_equal(a, b) for a, b in zip(got, out)):
+                raise AssertionError(f"{tag}: group {g} changed the NMS")
+            out = got
+            ts = []
+            for _ in range(reps):
+                _sync(dev)
+                t0 = time.perf_counter()
+                real(boxes, scores, **kw)
+                _sync(dev)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            ms[g] = float(np.median(ts))
+    finally:
+        pp.SWEEPS_PER_SYNC = saved
+    k = min(kw["topk"], scores.shape[-1])
+    print(f"NMS {tag}: (B, C, K) {(scores.shape[0], scores.shape[1], k)}, "
+          f"{sweeps} sweeps to the fixpoint; host ms per NMS by sweeps a "
+          f"read {ms}")
+    return {"bck": [scores.shape[0], scores.shape[1], k], "sweeps": sweeps,
+            "nms_ms_by_group": ms}
+
+
+def _sweep_device_ms(shapes, reps=20):
+    """Device ms of one Jacobi sweep (``postprocess._sweep``) at each
+    (B, C, K): its cost rests on the shapes alone (dense bit operations),
+    so the dominance words and masks are random."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for b, c, k in shapes:
+        w = -(-k // 64)
+        dom = torch.randint(-2 ** 62, 2 ** 62, (b, c, k, w), device="cuda",
+                            dtype=torch.int64, generator=gen)
+        valid = torch.rand((b, c, k), device="cuda", generator=gen) < 0.5
+        out[f"{b}x{c}x{k}"] = device_ms(lambda: pp._sweep(dom, valid, valid),
+                                        reps)
+        del dom
+    print(f"one NMS sweep, device ms by BxCxK: {out}")
+    return out
+
+
+def _http(base: str, path: str, body=None):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + path, data=body,
+                                 method="POST" if body is not None
+                                 else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def _npy_bytes(img) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return buf.getvalue()
+
+
+def _http_round_trip(eng, card_images, size):
+    """``serve_http`` on port 0 in front of a batcher on ``eng``: 4 ``.npy``
+    POSTs from 4 threads, each JSON equal to ``boxes_to_original`` of a
+    direct detect of its image; /stats, /healthz, a bad body (400).
+    Returns the round trips of 20 POSTs one after another, ms."""
+    import threading
+    from dnn_inference_engine_tpu_torch.config import VOC_CLASSES
+    from dnn_inference_engine_tpu_torch.preprocess import (
+        boxes_to_original, preprocess_image)
+    from dnn_inference_engine_tpu_torch.runtime.serve import (
+        ContinuousBatcher)
+    batcher = ContinuousBatcher(eng).start()
+    srv = batcher.serve_http(port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    replies = {}
+    try:
+        ts = [threading.Thread(target=lambda i=i: replies.__setitem__(
+            i, _http(base, "/detect", _npy_bytes(card_images[i]))))
+              for i in range(len(card_images))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        body, one_ms = _npy_bytes(card_images[0]), []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            code, _ = _http(base, "/detect", body)
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError(f"POST /detect: {code}")
+        stats = _http(base, "/stats")
+        health = _http(base, "/healthz")
+        bad = _http(base, "/detect", b"neither an image nor .npy")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop()
+    if (stats[0] != 200 or stats[1]["images"] != len(card_images) + 20
+            or health != (200, {"ok": True}) or bad[0] != 400):
+        raise AssertionError(f"/stats {stats}, /healthz {health}, bad body "
+                             f"{bad}")
+    for i, img in enumerate(card_images):
+        x, meta = preprocess_image(img, size)
+        wire = np.zeros((eng.config.serve_max_batch, size, size, 3),
+                        np.uint8)
+        wire[0] = np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)
+        b, s, c = (t[0] for t in eng.detect(wire))
+        keep = s > 0
+        want = {"boxes": boxes_to_original(b[keep], meta).tolist(),
+                "scores": s[keep].tolist(), "classes": c[keep].tolist(),
+                "names": [VOC_CLASSES[k] for k in c[keep]]}
+        if replies[i] != (200, want):
+            raise AssertionError(f"POST {i}: {replies[i][0]}, JSON != the "
+                                 "direct detect's")
+    print(f"serve_http: {len(card_images)} .npy POSTs (images "
+          f"{[im.shape[:2] for im in card_images]}) equal to "
+          f"boxes_to_original of the direct detect; /stats, /healthz, a bad "
+          f"body 400; 20 POSTs one after another, ms: "
+          f"{[round(t, 2) for t in one_ms]}")
+    return one_ms
+
+
+def _subprocess(args, timeout=300, rc=0):
+    r = subprocess.run([sys.executable, "-m",
+                        "dnn_inference_engine_tpu_torch.cli", *args],
+                       cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != rc:
+        raise AssertionError(f"cli {args[0]} rc {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def _pil_steps(eng_eval, cpu_eval, ckpt: Path, size: int, dev_args):
+    """With PIL: evaluate_voc over a JPEG tree written here (card against
+    CPU, equal mAP), then ``cli detect --image --out`` in a process of its
+    own."""
+    from PIL import Image
+    from dnn_inference_engine_tpu_torch.eval.voc_dataset import evaluate_voc
+    root = frontdoor_dir() / "voc"
+    base = root / "VOC2007"
+    for sub in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(21)
+    ids = []
+    for i, (h, w) in enumerate([(375, 500), (333, 500), (500, 375),
+                                (416, 416)]):
+        name = f"{i:06d}"
+        ids.append(name)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+                        ).save(base / "JPEGImages" / f"{name}.jpg")
+        objs = "".join(
+            f"<object><name>{n}</name><difficult>{d}</difficult><bndbox>"
+            f"<xmin>{x}</xmin><ymin>{y}</ymin><xmax>{x + 90}</xmax>"
+            f"<ymax>{y + 120}</ymax></bndbox></object>"
+            for n, d, x, y in (("dog", 0, 20 + i, 30), ("car", 1, 100, 60),
+                               ("person", 0, 150, 90 + i)))
+        (base / "Annotations" / f"{name}.xml").write_text(
+            f"<annotation>{objs}</annotation>")
+    (base / "ImageSets/Main/test.txt").write_text("\n".join(ids))
+    t0 = time.time()
+    got = evaluate_voc(eng_eval, str(root))
+    want = evaluate_voc(cpu_eval, str(root))
+    if got != want or not np.isfinite(got["mAP@0.5"]):
+        raise AssertionError(f"evaluate_voc card {got['mAP@0.5']} != CPU "
+                             f"{want['mAP@0.5']}")
+    print(f"evaluate_voc over {got['images']} JPEGs: card == CPU, mAP@0.5 "
+          f"{got['mAP@0.5']} [{time.time() - t0:.1f} s]")
+    img = frontdoor_dir() / "img.png"
+    Image.fromarray(rng.integers(0, 256, (375, 500, 3)).astype(np.uint8)
+                    ).save(img)
+    out = _subprocess(["detect", "--mode", "w8a8", "--weights", str(ckpt),
+                       "--image", str(img), "--out",
+                       str(frontdoor_dir() / "det.png"), *dev_args])
+    if "detections in" not in out or not (frontdoor_dir()
+                                          / "det.png").exists():
+        raise AssertionError(f"cli detect printed {out[-500:]}")
+    print(f"cli detect --image --out: {out.splitlines()[-2]}")
+
+
+def _worst_rms(out: str) -> float:
+    """The worst layer of ``check-goldens``' relative RMS report."""
+    line = next(ln for ln in out.splitlines() if ", worst " in ln)
+    return float(line.split(", worst ")[1].rstrip(":"))
+
+
+def _golden_steps(ckpt: Path, darknet: Path, dev_args) -> dict:
+    """``dump-goldens`` of the darknet file on a seeded input, on the CPU
+    and on ``dev_args``' device: every layer of the device's dump within
+    F32_REL_TOL of that layer's largest CPU value. Then ``check-goldens``
+    in w8a8 from the checkpoint against the CPU dump at the CLI's own
+    limit (0.15 relative RMS a layer) must pass, and against the dump of
+    another seed's darknet file (a wrong forward) must fail. Each command
+    in a process of its own."""
+    from dnn_inference_engine_tpu_torch.eval.golden import load_goldens
+    from dnn_inference_engine_tpu_torch.models import build_model
+    d = frontdoor_dir()
+    g_cpu, g_dev, g_other = d / "g_cpu.npz", d / "g_dev.npz", d / "g_other.npz"
+    _subprocess(["dump-goldens", "--weights", str(darknet), "--out",
+                 str(g_cpu), *dev_args, "--device", "cpu"])
+    _subprocess(["dump-goldens", "--weights", str(darknet), "--out",
+                 str(g_dev), *dev_args])
+    cpu, dev = load_goldens(str(g_cpu)), load_goldens(str(g_dev))
+    rel = {li: float(np.abs(dev[li] - cpu[li]).max()
+                     / np.abs(cpu[li]).max()) for li in cpu}
+    if max(rel.values()) > F32_REL_TOL:
+        raise AssertionError(f"fp32 goldens device vs CPU, max diff over "
+                             f"the layer's largest value: {rel}")
+    q = _worst_rms(_subprocess(
+        ["check-goldens", "--mode", "w8a8", "--weights", str(ckpt),
+         "--goldens", str(g_cpu), *dev_args]))
+    other = write_darknet(build_model("yolov2-tiny"), d / "v2_other.weights",
+                          17)
+    _subprocess(["dump-goldens", "--weights", str(other), "--out",
+                 str(g_other), *dev_args])
+    out = _subprocess(["check-goldens", "--mode", "w8a8", "--weights",
+                       str(ckpt), "--goldens", str(g_other), *dev_args],
+                      rc=1)
+    if "# FAIL" not in out:
+        raise AssertionError(f"check-goldens passed a wrong forward: {out}")
+    control = _worst_rms(out)
+    print(f"goldens: fp32 device dump vs CPU dump, worst layer "
+          f"{max(rel.values()):.3g} of its largest value (limit "
+          f"{F32_REL_TOL:.3g}); check-goldens w8a8 vs the CPU dump worst "
+          f"layer {q:.4f} (limit 0.15), vs another seed's weights "
+          f"{control:.4f} (fails, as it must)")
+    return {"fp32_dev_vs_cpu_rel": max(rel.values()), "w8a8_worst_rms": q,
+            "wrong_weights_worst_rms": control}
+
+
+def phase_front_door(card: str, dev=None, size: int = 416):
+    """The user's front door, from files, on the card (``dev="cpu"`` and
+    ``size=64`` rehearse it on the CPU, without the launch counts):
+    a seeded darknet file and an ``.npz`` of uint8 calibration images
+    build the b32 W8A8 engine (the noise calibration refused); its
+    checkpoint loads into a card and a CPU engine (heads identical,
+    detections equal at b2); requests through ``ContinuousBatcher`` on the
+    b32 pin and (``max_batch`` 1) the b1 pin, each equal to its row of the
+    card's detect, through the path's kernels by the launch counters,
+    then the batcher timed in windows with nothing of this script in its
+    path; the NMS's sweeps to the fixpoint and its time for each group
+    size on the pins' and the eval grade's inputs, and one sweep's device
+    time at serving and eval-grade K; ``serve_http``; the eval-grade
+    detect card against CPU; the goldens (device dump against a CPU dump,
+    ``check-goldens`` in w8a8 at its own limit and against a wrong
+    forward); with PIL, evaluate_voc and ``cli detect``; the native host
+    library. Prints the phase's numbers as one JSON line."""
+    from dnn_inference_engine_tpu_torch import preprocess as pre
+    from dnn_inference_engine_tpu_torch.config import (
+        SCORE_THRESH_EVAL, EngineConfig)
+    from dnn_inference_engine_tpu_torch.models import build_model
+    from dnn_inference_engine_tpu_torch.models.weights import (
+        load_darknet_weights)
+    from dnn_inference_engine_tpu_torch.runtime import native_bridge
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device(dev or "cuda")
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    d = frontdoor_dir()
+    numbers = {}
+    t_phase = time.time()
+
+    def at() -> str:
+        return f"[{time.time() - t_phase:.1f} s into the phase]"
+    # 1. the files
+    darknet = write_darknet(build_model("yolov2-tiny"), d / "v2.weights", 7)
+    calib = d / "calib.npz"
+    np.savez(calib, images=np.random.default_rng(8).integers(
+        0, 256, (8, 375, 500, 3)).astype(np.uint8))
+    loads = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        load_darknet_weights(build_model("yolov2-tiny"), str(darknet))
+        loads.append((time.perf_counter() - t0) * 1e3)
+    numbers["darknet_load_ms"] = loads
+    # 2. the b32 engine from the files; noise calibration refused
+    kw = dict(mode="w8a8", batch=32, serve_max_batch=32,
+              weights=str(darknet), input_size=size)
+    try:
+        Engine(EngineConfig(**kw), device=dev).load_weights().prepare()
+    except ValueError as e:
+        if "needs real calibration images" not in str(e):
+            raise
+    else:
+        raise AssertionError("file weights took the noise calibration")
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(**kw, calib=str(calib)),
+                 device=dev).load_weights().prepare()
+    numbers["engine_from_files_s"] = time.perf_counter() - t0
+    # 3. its checkpoint into a card and a CPU engine, b2
+    ckpt = d / "ckpt.npz"
+    eng.save(str(ckpt))
+    b2 = dict(mode="w8a8", batch=2, input_size=size, weights=str(ckpt))
+    gpu2 = Engine(EngineConfig(**b2), device=dev).load_weights().prepare()
+    cpu2 = Engine(EngineConfig(**b2), device="cpu").load_weights().prepare()
+    # the checkpoint keeps the scales in float32, as the engine uses them
+    if not np.array_equal(np.float32(gpu2.act_scales),
+                          np.float32(eng.act_scales)):
+        raise AssertionError("checkpoint scales != the engine's")
+    imgs2 = np.random.default_rng(9).integers(
+        0, 256, (2, size, size, 3)).astype(np.uint8)
+    hg, hc = gpu2.classify(imgs2), cpu2.classify(imgs2)
+    if not np.array_equal(hg, hc):
+        raise AssertionError(f"checkpoint heads card != CPU: max diff "
+                             f"{np.abs(hg - hc).max()}")
+    surv = _same_detections("checkpoint b2", gpu2.detect(imgs2),
+                            cpu2.detect(imgs2))
+    print(f"front door: darknet file ({darknet.stat().st_size} bytes) and "
+          f"calibration .npz -> W8A8 b32 engine; noise calibration "
+          f"refused; its checkpoint: card == CPU heads at b2, survivors "
+          f"{surv} {at()}")
+    # 4-5. served on the b32 and the b1 pins: correct rows and launches,
+    # then timed windows; the NMS's sweeps and group size on their inputs
+    v2 = dict(conv_w8a8=7, gemm_fused=1, stem_fused_k2=1)
+    n32, n1 = (200, 400) if dev.type == "cuda" else (3, 6)
+    rng = np.random.default_rng(10)
+    reqs = rng.integers(0, 256, (96, size, size, 3)).astype(np.uint8)
+    syncs = _served_on_kernels("served b32 pin", eng, reqs, 4,
+                               dict(v2, shift_s2d2=1), dev)
+    numbers["serve_b32"] = {"nms_host_reads": syncs, "windows":
+                            _timed_windows("served b32 pin, timed", eng,
+                                           reqs, n32)}
+    b1 = Engine(EngineConfig(mode="w8a8", batch=1, serve_max_batch=1,
+                             input_size=size, weights=str(ckpt)),
+                device=dev).load_weights().prepare()
+    syncs = _served_on_kernels("served b1 pin", b1, reqs[:16], 4, v2, dev)
+    numbers["serve_b1"] = {"nms_host_reads": syncs, "windows":
+                           _timed_windows("served b1 pin, timed", b1, reqs,
+                                          n1)}
+    print(f"served both pins {at()}")
+    nms = {"b32": _nms_groups("b32 pin", eng, reqs[:32], dev),
+           "b1": _nms_groups("b1 pin", b1, reqs[:1], dev)}
+    # 6. HTTP
+    shapes = [(375, 500), (416, 416), (333, 500), (500, 375)]
+    card_images = [rng.integers(0, 256, (h * size // 416, w * size // 416,
+                                         3)).astype(np.uint8)
+                   for h, w in shapes]
+    numbers["http_npy_ms"] = _http_round_trip(eng, card_images, size)
+    # host preprocessing of one 375x500 uint8 image, native and numpy
+    img = card_images[0] if size != 416 else rng.integers(
+        0, 256, (375, 500, 3)).astype(np.uint8)
+    if not native_bridge.native_available():
+        raise AssertionError("the native host library is not in use")
+    saved = pre.native_preprocess_u8, pre.native_resize
+    times = {}
+    for name in ("native", "numpy"):
+        if name == "numpy":
+            pre.native_preprocess_u8 = pre.native_resize = \
+                lambda *a: None
+        try:
+            pre.preprocess_image(img, size)
+            ts = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                pre.preprocess_image(img, size)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[name] = float(np.median(ts))
+        finally:
+            pre.native_preprocess_u8, pre.native_resize = saved
+    numbers["preprocess_ms"] = times
+    # 7. eval grade: score 0.005, the NMS pool uncapped; card vs CPU, b2
+    ev = dict(b2, score_thresh=SCORE_THRESH_EVAL)
+    gpu_ev = Engine(EngineConfig(**ev), device=dev).load_weights().prepare()
+    cpu_ev = Engine(EngineConfig(**ev), device="cpu").load_weights(
+    ).prepare()
+    if gpu_ev.config.resolved_nms_topk() < 845:
+        raise AssertionError("the eval-grade pool is capped")
+    surv = _same_detections("eval grade b2", gpu_ev.detect(imgs2),
+                            cpu_ev.detect(imgs2))
+    print(f"eval-grade detect (score {SCORE_THRESH_EVAL}, pool uncapped): "
+          f"card == CPU at b2, survivors {surv} {at()}")
+    nms["eval_b2"] = _nms_groups("eval grade b2", gpu_ev, imgs2, dev)
+    if dev.type == "cuda":
+        nms["sweep_device_ms"] = _sweep_device_ms(
+            [(32, 20, 256), (1, 20, 256), (2, 20, 845), (32, 20, 845),
+             (2, 20, 2535), (16, 20, 2535)])
+    numbers["nms"] = nms
+    cfg = d / "config.json"
+    EngineConfig(input_size=size).to_json(str(cfg))
+    dev_args = [*dev_args, "--config", str(cfg)]
+    numbers["goldens"] = _golden_steps(ckpt, darknet, dev_args)
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    print(json.dumps({"pil": pil}))
+    if pil:
+        _pil_steps(gpu_ev, cpu_ev, ckpt, size, dev_args)
+    # 8. native host library
+    print(f"{at()} native host library in use: "
+          f"{native_bridge.native_available()} "
+          f"({native_bridge.SO_PATH.relative_to(Path(__file__).resolve().parent)})")
+    print(json.dumps({"front_door": numbers, "card": card}))
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2267,6 +2944,8 @@ def main() -> int:
     timed("sweep", phase_sweep, card)
     timed("modes card vs CPU", phase_modes_card_vs_cpu)
     timed("w8 pallas forward", phase_w8_pallas_forward, card)
+    torch.cuda.empty_cache()
+    timed("front door", phase_front_door, card)
     print(f"total {time.time() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + ")")
 
@@ -2349,7 +3028,22 @@ def qs2d4_ab(base: Path) -> int:
     return 0
 
 
+def front_door_only() -> int:
+    """Phase 10 alone (``--front-door``): the kernels build at first use."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    t0 = time.time()
+    phase_front_door(card)
+    print(f"front door: {time.time() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--qs2d4-ab":
         sys.exit(qs2d4_ab(Path(sys.argv[2])))
+    if sys.argv[1:] == ["--front-door"]:
+        sys.exit(front_door_only())
     sys.exit(main())

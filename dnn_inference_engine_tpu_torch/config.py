@@ -8,6 +8,7 @@ the port never imports the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 # Standard darknet yolov2-tiny-voc anchors, in grid-cell units.
@@ -51,7 +52,10 @@ LEAKY_SLOPE = 0.1
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Engine configuration (the fields this port supports so far)."""
+    """Engine configuration, field for field the JAX package's: a JSON
+    file written by either package loads in the other to an equal
+    config. ``Engine`` refuses a mesh other than (1, 1) and the channel
+    sharding (multi-device is ROADMAP item A14)."""
 
     model: str = "yolov2-tiny"          # yolov2-tiny | yolov3-tiny
     mode: str = "fp32"                  # fp32 | w8 | w8a8
@@ -62,10 +66,10 @@ class EngineConfig:
     batch: int = 1
     input_size: int = INPUT_SIZE
     num_classes: int = NUM_CLASSES
-    # Plan strategy: path to a `cli plan-sweep` artifact (or a bare
-    # {layer: [kind, fold, opts?]} JSON object); Engine.prepare then uses
-    # it instead of the pinned table.
-    strategy: Optional[str] = None
+
+    # (data, model) device mesh and weight sharding: one device only here
+    mesh_shape: Tuple[int, int] = (1, 1)
+    sharding: str = "replicated"        # replicated | channel
 
     score_thresh: float = SCORE_THRESH_VIS
     nms_iou_thresh: float = NMS_IOU_THRESH
@@ -73,6 +77,19 @@ class EngineConfig:
     # None = adaptive (capped at serving thresholds, uncapped at eval
     # thresholds); an int caps the NMS candidate pool explicitly.
     nms_topk: Optional[int] = None
+
+    # serving (runtime/serve.py): device batch and assembly window
+    serve_max_batch: int = 32
+    serve_timeout_ms: float = 5.0
+
+    # weight file (.npz checkpoint, pickle, darknet .weights) and
+    # calibration images (a directory, .npy or .npz) for w8a8
+    weights: Optional[str] = None
+    calib: Optional[str] = None
+    # Plan strategy: path to a `cli plan-sweep` artifact (or a bare
+    # {layer: [kind, fold, opts?]} JSON object); Engine.prepare then uses
+    # it instead of the pinned table.
+    strategy: Optional[str] = None
 
     def resolved_nms_topk(self) -> int:
         """Candidate-pool size of the detect path: explicit nms_topk wins;
@@ -83,3 +100,15 @@ class EngineConfig:
         if self.score_thresh >= NMS_TRUNCATION_MIN_THRESH:
             return NMS_TOPK
         return 1 << 30
+
+    @classmethod
+    def from_json(cls, path: str) -> "EngineConfig":
+        with open(path) as f:
+            d = json.load(f)
+        if "mesh_shape" in d:
+            d["mesh_shape"] = tuple(d["mesh_shape"])
+        return cls(**d)
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)

@@ -116,10 +116,11 @@ class Model:
 
     @torch.no_grad()
     def forward_fp32(self, params, x, capture_inputs: bool = False,
-                     kernel: str = "xla"):
+                     capture_outputs: bool = False, kernel: str = "xla"):
         """FP32 forward: the head, or the tuple of ``out_layers`` outputs.
         ``capture_inputs``: also return the tensor entering every layer
-        plus the final output (calibration)."""
+        plus the final output (calibration); ``capture_outputs``: also
+        return every layer's output (goldens, eval/golden.py)."""
         conv_fn = _get_conv_fn("fp32", kernel)
         captured: List[torch.Tensor] = []
         outs: List[torch.Tensor] = []
@@ -142,10 +143,13 @@ class Model:
         result = self._select_outputs(outs, x)
         if capture_inputs:
             return result, tuple(captured)
+        if capture_outputs:
+            return result, tuple(outs)
         return result
 
     @torch.no_grad()
-    def forward_w8(self, qparams, x, kernel: str = "xla"):
+    def forward_w8(self, qparams, x, capture_outputs: bool = False,
+                   kernel: str = "xla"):
         """INT8 weight-only forward: f32 activations, int8 weights with
         per-channel scales applied to each conv's output."""
         conv_fn = _get_conv_fn("w8", kernel)
@@ -164,14 +168,19 @@ class Model:
             else:
                 raise _unported(layer)
             outs.append(x)
-        return self._select_outputs(outs, x)
+        result = self._select_outputs(outs, x)
+        if capture_outputs:
+            return result, tuple(outs)
+        return result
 
     @torch.no_grad()
-    def forward_w8a8(self, qparams, act_scales, x, kernel: str = "xla"):
+    def forward_w8a8(self, qparams, act_scales, x,
+                     capture_outputs: bool = False, kernel: str = "xla"):
         """Layer-by-layer W8A8 forward: x enters f32, is quantized with
         the first conv's input scale and stays int8 across the chain;
         linear convs (the heads) emit f32. Returns the head, or the tuple
-        of ``out_layers`` outputs."""
+        of ``out_layers`` outputs; with ``capture_outputs`` also every
+        layer's output in f32."""
         conv_fn = _get_conv_fn("w8a8", kernel)
         cur_scale: Optional[float] = None      # None: x is f32
         outs: List[Tuple[torch.Tensor, Optional[float]]] = []
@@ -201,21 +210,27 @@ class Model:
                 raise _unported(layer)
             outs.append((x, cur_scale))
         if self.out_layers is not None:
-            return tuple(_to_f32(*outs[j]) for j in self.out_layers)
-        return _to_f32(x, cur_scale)
+            result = tuple(_to_f32(*outs[j]) for j in self.out_layers)
+        else:
+            result = _to_f32(x, cur_scale)
+        if capture_outputs:
+            return result, tuple(_to_f32(*o) for o in outs)
+        return result
 
     def forward(self, params, x, mode: str = "fp32", act_scales=None,
-                kernel: str = "xla"):
+                kernel: str = "xla", capture_outputs: bool = False):
         """The forward of ``mode`` (fp32 | w8 | w8a8) on ``kernel``'s tier;
-        w8a8 needs the calibration scales."""
+        w8a8 needs the calibration scales. ``capture_outputs``: also
+        every layer's output (f32)."""
+        kw = dict(kernel=kernel, capture_outputs=capture_outputs)
         if mode == "fp32":
-            return self.forward_fp32(params, x, kernel=kernel)
+            return self.forward_fp32(params, x, **kw)
         if mode == "w8":
-            return self.forward_w8(params, x, kernel=kernel)
+            return self.forward_w8(params, x, **kw)
         if mode == "w8a8":
             if act_scales is None:
                 raise ValueError("w8a8 needs calibration scales")
-            return self.forward_w8a8(params, act_scales, x, kernel=kernel)
+            return self.forward_w8a8(params, act_scales, x, **kw)
         raise ValueError(f"unknown mode {mode!r}; have fp32, w8, w8a8")
 
 

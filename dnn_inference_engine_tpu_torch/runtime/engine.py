@@ -7,7 +7,10 @@ forward is the fused stage plan (runtime/plan.py) for w8 and w8a8 with
 is illegal or, in w8, holds an int8-only kind. The columnar decode and
 the fixpoint NMS (postprocess.py) follow, all on the engine's device.
 The engine runs on the card unless ``device="cpu"`` is passed; without a
-card and without that, it raises rather than run on the CPU.
+card and without that, it raises rather than run on the CPU. Weights come
+from a file (``load_weights(path)`` or ``config.weights``: an ``.npz``
+checkpoint, a darknet ``.weights`` file or a pickle) or from a seed;
+``save`` writes the checkpoint. One device only: a mesh is ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ from dnn_inference_engine_tpu_torch.config import (
     EngineConfig, YOLOV2_TINY_ANCHORS, YOLOV3_TINY_ANCHORS,
 )
 from dnn_inference_engine_tpu_torch.models import build_model
-from dnn_inference_engine_tpu_torch.models.weights import params_from_numpy
+from dnn_inference_engine_tpu_torch.models.weights import (
+    load_checkpoint, load_darknet_weights, load_params, params_from_numpy,
+    save_checkpoint,
+)
 from dnn_inference_engine_tpu_torch.postprocess import (
     decode_yolov2_cols, decode_yolov3_cols, device_nms_cols,
 )
@@ -56,6 +62,12 @@ class Engine:
         if config.kernel not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown kernel tier {config.kernel!r}; have "
                              "auto, xla, pallas")
+        if tuple(config.mesh_shape) != (1, 1) or config.sharding != \
+                "replicated":
+            raise NotImplementedError(
+                f"mesh_shape={tuple(config.mesh_shape)}, sharding="
+                f"{config.sharding!r}: the port runs on one device; "
+                "multi-device is ROADMAP item A14")
         self.config = config
         self.device = resolve_device(device)
         self.model = build_model(config.model, num_classes=config.num_classes)
@@ -65,19 +77,34 @@ class Engine:
         self._plan = None
         self._plan_params = None
         self._prepared = False
+        self._weights_from_file = False
 
     # ------------------------------------------------------------------
     # Weights
     # ------------------------------------------------------------------
 
-    def load_weights(self, seed: int = 0,
+    def load_weights(self, path: Optional[str] = None, seed: int = 0,
                      params: Optional[Sequence[Dict]] = None,
                      act_scales: Optional[Sequence[float]] = None
                      ) -> "Engine":
-        """Random He init from ``torch.Generator().manual_seed(seed)``, or
-        the numpy ``params`` (and calibration ``act_scales``) carried
-        across, fp32 or already quantized (models/weights.py). Weight
-        files are ROADMAP item A4."""
+        """Weights from the file ``path``: ``.npz`` a checkpoint
+        (quantized params and calibration scales kept as they are),
+        ``.weights`` darknet's binary, anything else a pickle. Else the
+        numpy ``params`` (and ``act_scales``) carried across, fp32 or
+        already quantized. With neither, the file ``config.weights``
+        where one is set, else a random He init from
+        ``torch.Generator().manual_seed(seed)`` (a file takes the place
+        of the seed, as in the JAX engine). A file together with
+        ``params`` or ``act_scales`` raises."""
+        if path is not None and (params is not None
+                                 or act_scales is not None):
+            raise ValueError("load_weights: give a weight file or params "
+                             "and act_scales, not both")
+        if path is None and params is None and act_scales is None:
+            path = self.config.weights
+        self._weights_from_file = path is not None
+        if path is not None:
+            params, act_scales = self._weights_from_path(path)
         if params is None:
             gen = torch.Generator().manual_seed(seed)
             self.fp32_params = self.model.init_params(gen, self.device)
@@ -90,6 +117,19 @@ class Engine:
         else:
             self.fp32_params = ps
         return self
+
+    def _weights_from_path(self, path: str):
+        """(numpy params, act_scales or None) of a weight file."""
+        if path.endswith(".npz"):
+            return load_checkpoint(path)
+        if path.endswith(".weights"):
+            return load_darknet_weights(self.model, path), None
+        return load_params(path), None
+
+    def save(self, path: str) -> None:
+        """The engine's params (quantized once prepared) and calibration
+        scales as an ``.npz`` checkpoint, in numpy."""
+        save_checkpoint(path, self.params, self.act_scales)
 
     def prepare(self, calib_images: Optional[np.ndarray] = None) -> "Engine":
         """Quantize and calibrate as the mode needs, and build the fused
@@ -114,7 +154,19 @@ class Engine:
         if self.config.kernel == "auto":
             self._build_plan()
         if mode == "w8a8" and self.act_scales is None:
+            if calib_images is None and self.config.calib:
+                from dnn_inference_engine_tpu_torch.preprocess import (
+                    load_calib_images)
+                calib_images = load_calib_images(self.config.calib,
+                                                 self.config.input_size)
             if calib_images is None:
+                if self._weights_from_file:
+                    raise ValueError(
+                        "w8a8 with file-loaded weights needs real "
+                        "calibration images: pass calib_images to "
+                        "prepare(), load a checkpoint with saved scales, "
+                        "or set config.calib. (Uniform-noise fallback is "
+                        "only allowed for randomly initialized weights.)")
                 # uniform-noise calibration, the same batch the JAX engine
                 # draws: fine for synthetic weights only
                 warnings.warn(

@@ -16,9 +16,10 @@ to the artifact) makes ``Engine.prepare`` use the result.
 
 Both quantized plans are swept: w8a8 and the weight-only w8, whose
 candidates leave out the int8 kernel kinds (rs, rs2, the stems and
-fold_xla_s2). Weight files and calibration images are ROADMAP items A4
-and A11; weights are random from seed 0 and the w8a8 scales come from
-the engine's uniform-noise calibration, as in the JAX sweep.
+fold_xla_s2). The weights come from ``weights`` (a file the engine
+loads) or from seed 0, the w8a8 scales from ``calib`` (calibration
+images) or, for random weights only, the engine's uniform-noise
+calibration, as in the JAX sweep.
 """
 
 from __future__ import annotations
@@ -117,12 +118,15 @@ class _SweepContext:
     (calibration runs once)."""
 
     def __init__(self, model_name: str, mode: str, batch: int,
-                 input_size: Optional[int], seed: int = 0, device=None):
+                 input_size: Optional[int], seed: int = 0, device=None,
+                 weights: Optional[str] = None,
+                 calib: Optional[str] = None):
         from dnn_inference_engine_tpu_torch.config import EngineConfig
         from dnn_inference_engine_tpu_torch.runtime.engine import Engine
         # kernel="xla" builds no plan: the candidates are built here from
         # the same quantized params and scales
-        kw = dict(model=model_name, mode=mode, kernel="xla", batch=batch)
+        kw = dict(model=model_name, mode=mode, kernel="xla", batch=batch,
+                  weights=weights, calib=calib)
         if input_size:
             kw["input_size"] = input_size
         with warnings.catch_warnings():
@@ -234,16 +238,13 @@ def sweep(model_name: str = "yolov2-tiny", mode: str = "w8a8",
         raise ValueError(
             f"plan-sweep measures the fused quantized plans; mode={mode!r} "
             "has no plan (use --mode w8a8 or w8)")
-    if weights is not None or calib is not None:
-        raise NotImplementedError(
-            "weight files and calibration images are ROADMAP items A4 and "
-            "A11; the sweep runs seeded random weights")
 
     def log(*a):
         if verbose:
             print(*a, file=sys.stderr, flush=True)
 
-    ctx = _SweepContext(model_name, mode, batch, input_size, device=device)
+    ctx = _SweepContext(model_name, mode, batch, input_size, device=device,
+                        weights=weights, calib=calib)
     convs = _conv_indices(ctx.model)
     base: Strategy = {li: ("xla", 1) for li in convs}
 

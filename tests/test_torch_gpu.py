@@ -1247,3 +1247,89 @@ def test_conv_w8a8_group_max_follows_the_sign_of_scale(cuda, sign, s_out):
         ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w * sign, b, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (xs, sign, s_out)
+
+
+def test_batcher_rows_equal_detect_on_card(cuda, deadline):
+    """The b32 pin behind ContinuousBatcher at 416 px: 40 requests from 4
+    threads, every result equal to its row of detect on the padded batch
+    shipped; the kernels of the pin launched once per batch."""
+    import threading
+    import warnings
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    from dnn_inference_engine_tpu_torch.runtime.serve import (
+        ContinuousBatcher)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")            # noise calibration
+        eng = Engine(EngineConfig(mode="w8a8", batch=32, serve_max_batch=32,
+                                  score_thresh=0.02)).load_weights(
+            seed=0).prepare()
+    imgs = np.random.default_rng(4).integers(
+        0, 256, (40, 416, 416, 3)).astype(np.uint8)
+    shipped, results = [], {}
+    real = eng.detect_device
+    eng.detect_device = lambda x: (shipped.append(x.copy()), real(x))[1]
+    before = (cv.conv2d_w8a8.launches, fc.stem_fused_k2.launches)
+    b = ContinuousBatcher(eng).start()
+    try:
+        def client(idx):
+            futs = [(i, b.submit(imgs[i])) for i in idx]
+            for i, f in futs:
+                results[i] = f.result(timeout=100)
+        ts = [threading.Thread(target=client, args=(range(t, 40, 4),))
+              for t in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=100)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        b.stop()
+        del eng.detect_device
+    n = len(shipped)
+    assert len(results) == 40 and n >= 2
+    assert cv.conv2d_w8a8.launches - before[0] == 7 * n
+    assert fc.stem_fused_k2.launches - before[1] == n
+    for x in shipped:
+        ref = eng.detect(x)
+        for r in range(32):
+            for i in range(40):
+                if np.array_equal(imgs[i], x[r]):
+                    for got, want in zip(results[i], ref):
+                        np.testing.assert_array_equal(got, want[r])
+    assert any((results[i][1] > 0).any() for i in range(40))
+
+
+def test_yolov3_darknet_file_on_card(cuda, deadline, tmp_path):
+    """A YOLOv3-tiny darknet file (chip_smoke.py's seeded writer) calibrated
+    from an .npy batch: the card engine at b1 (its pin's per-tap stem,
+    stem_fused_dg, under file weights) gives the CPU engine's heads and
+    detections."""
+    from chip_smoke import write_darknet
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.models import build_model
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    path = str(write_darknet(build_model("yolov3-tiny"),
+                             tmp_path / "v3.weights", 5))
+    calib = str(tmp_path / "calib.npy")
+    np.save(calib, np.random.default_rng(6).integers(
+        0, 256, (4, 300, 400, 3)).astype(np.uint8))
+    kw = dict(model="yolov3-tiny", mode="w8a8", batch=1, weights=path,
+              calib=calib, score_thresh=0.02)
+    gpu = Engine(EngineConfig(**kw)).load_weights().prepare()
+    cpu = Engine(EngineConfig(**{**kw, "calib": None}), device="cpu")
+    cpu.load_weights()
+    cpu.act_scales = list(gpu.act_scales)
+    cpu.prepare()
+    img = np.random.default_rng(7).integers(
+        0, 256, (1, 416, 416, 3)).astype(np.uint8)
+    before = fc.stem_fused_dg.launches
+    hg = gpu.classify(img)
+    assert fc.stem_fused_dg.launches == before + 1
+    for a, c in zip(hg, cpu.classify(img)):
+        np.testing.assert_array_equal(a, c)
+    (bg, sg, cg), (bc, sc, cc) = gpu.detect(img), cpu.detect(img)
+    np.testing.assert_array_equal((sg > 0).sum(), (sc > 0).sum())
+    np.testing.assert_array_equal(cg, cc)
+    np.testing.assert_allclose(bg, bc, atol=1e-3, rtol=0)

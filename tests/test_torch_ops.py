@@ -584,7 +584,8 @@ def test_kernel_wrappers_refuse_bad_inputs(r):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) loads
-    neither jax nor the JAX package."""
+    neither jax nor the JAX package, nor PIL (an installation may lack
+    it: the port imports it where it decodes or draws an image)."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import dnn_inference_engine_tpu_torch as p\n"
@@ -593,7 +594,8 @@ def test_port_imports_no_jax():
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k.startswith('dnn_inference_engine_tpu.')\n"
-        "       or k == 'dnn_inference_engine_tpu']\n"
+        "       or k == 'dnn_inference_engine_tpu'\n"
+        "       or k == 'PIL' or k.startswith('PIL.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     import os

@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from dnn_inference_engine_tpu.models import build_model as jbuild
 from dnn_inference_engine_tpu.runtime import plan_sweep as jsweep
@@ -143,11 +144,48 @@ def test_sweep_records_candidate_crashes(monkeypatch):
     assert art["strategy"]["0"][0] != "stem_rs"
 
 
-def test_sweep_modes_and_inputs_that_raise():
+def test_sweep_modes_and_inputs_that_raise(tmp_path):
+    """fp32 has no plan; a weight file that is not there, and file weights
+    without calibration images (the engine refuses the noise batch)."""
     with pytest.raises(ValueError, match="plan-sweep"):
         tsweep.sweep(mode="fp32", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tsweep.sweep(weights="yolov2-tiny.weights", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        tsweep.sweep(weights=str(tmp_path / "none.weights"), **SMALL)
+    path = str(tmp_path / "w.pkl")
+    from dnn_inference_engine_tpu_torch.models.weights import save_params
+    eng = Engine(EngineConfig(input_size=64), device="cpu").load_weights(
+        seed=1)
+    save_params(eng.fp32_params, path)
+    with pytest.raises(ValueError, match="needs real calibration images"):
+        tsweep.sweep(weights=path, **SMALL)
+
+
+def test_sweep_loads_weights_and_calib_images(tmp_path, capsys):
+    """`plan-sweep --weights --calib-images`: the sweep's engine runs the
+    file's weights with scales from the images, as an engine built from
+    the same config calibrates them."""
+    from dnn_inference_engine_tpu_torch.models.weights import save_params
+    src = Engine(EngineConfig(input_size=64), device="cpu").load_weights(
+        seed=1)
+    wpath, cpath = str(tmp_path / "w.pkl"), str(tmp_path / "c.npy")
+    save_params(src.fp32_params, wpath)
+    np.save(cpath, np.random.default_rng(2).integers(
+        0, 256, (3, 64, 64, 3)).astype(np.uint8))
+    out = tmp_path / "s.json"
+    assert cli.main(["plan-sweep", "--device", "cpu", "--mode", "w8a8",
+                     "--batch", "2", "--input-size", "64", "--quick",
+                     "--iters", "2,1", "--reps", "1", "--weights", wpath,
+                     "--calib-images", cpath, "--out", str(out)]) == 0
+    art = json.loads(out.read_text())
+    assert art["input_size"] == 64 and art["crashed_candidates"] == 0
+    ctx = tsweep._SweepContext("yolov2-tiny", "w8a8", 2, 64, device="cpu",
+                               weights=wpath, calib=cpath)
+    ref = Engine(EngineConfig(mode="w8a8", batch=2, input_size=64,
+                              weights=wpath, calib=cpath),
+                 device="cpu").load_weights().prepare()
+    assert ctx.eng.act_scales == ref.act_scales
+    for a, b in zip(ctx.eng.params, ref.params):
+        assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_sweep_w8_runs_on_cpu():
@@ -192,9 +230,14 @@ def test_cli_plan_sweep_writes_an_artifact_engine_consumes(tmp_path,
 
 
 def test_cli_names_the_roadmap_item_of_other_commands(capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["bench", "--mode", "w8a8"])
-    assert "A11" in capsys.readouterr().err
+    """The JAX CLI's subcommands that wait for a ROADMAP item: the bench
+    for A8, profiling (trace, layer-times) for A13."""
+    for argv, item in ((["bench", "--mode", "w8a8"], "A8"),
+                       (["trace", "--runs", "3"], "A13"),
+                       (["layer-times"], "A13")):
+        with pytest.raises(SystemExit):
+            cli.main(argv)
+        assert f"ROADMAP item {item}" in capsys.readouterr().err
 
 
 def test_engine_names_strategy_file_and_illegal_layer(tmp_path):
