@@ -4,6 +4,7 @@
     python3 chip_smoke.py --qs2d4-ab DIR   # quant_space_to_depth4 against
                                           # the checkout in DIR, in turns
     python3 chip_smoke.py --front-door    # phase 10 alone
+    python3 chip_smoke.py --resnet18      # phase 11 alone
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -128,7 +129,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    its own; where PIL imports (``{"pil": ...}`` says), ``evaluate_voc``
    over a JPEG tree card against CPU and ``cli detect --image --out``;
    the native host library in use; and one JSON line of the phase's
-   numbers with the card.
+   numbers with the card;
+11. ResNet-18 at 224 px, 1000 classes, from seeded random weights:
+   conv_w8a8 at each of its new forms' shapes (the linear 3x3 convs'
+   f32 output on PATCH and TAP, the 3x3/s2 convs, the 1x1/s2
+   projections) at b32 and b1 against its plain version bit for bit
+   (f32 outputs too), through the wrapper and launched directly, timed
+   beside the im2col + ``gemm_fused`` route, ``torch._int_mm`` on the
+   im2col'd A and the bound (a 1x1/s2 conv's bytes count the quarter of
+   the input it reads); the stem (7x7/s2, Cin 3: im2col +
+   ``gemm_fused``'s ragged form) the same way; card against CPU at b2 in
+   w8a8 (every plan stage's entry state up to the pool identical, the
+   logits within RESNET_LOGIT_TOL), fp32 and w8; ``classify`` at b32 and
+   b1 in each mode with its launch counts (W8A8: 19 conv_w8a8, 1
+   gemm_fused in the ragged form, 1 im2col; fp32: 11 gemm_f32; w8: none),
+   every conv_w8a8 launch of a W8A8 classify bit for bit, throughput,
+   latency and the device breakdown; and ``plan-sweep --quick`` at b32 in
+   w8a8.
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1797,6 +1814,8 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),
                  ("host-to-device copies", "Memcpy HtoD"),
+                 # PyTorch's strided copies: im2col is one, of a window view
+                 ("strided copies (im2col)", "direct_copy_kernel"),
                  # the layout transposes around cuDNN's convs (NHWC views
                  # in, NCHW kernels), then cuDNN's float convs (the fp32
                  # and w8 xla tiers), then PyTorch's elementwise passes
@@ -2190,6 +2209,371 @@ def phase_sweep(card: str):
           f"parity rejections; strategy {json.dumps(art['strategy'])}; "
           f"whole_net_ms {art['whole_net_ms']}; wall {wall:.1f} s; its "
           f"engine's detect ran [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: ResNet-18 (224 px, 1000 classes)
+# ---------------------------------------------------------------------------
+
+# conv_w8a8's ResNet-18 forms at 224 px, one row a distinct shape: (layer,
+# x (H, W, Cin) a image, k, stride, Cout, requantizes, launches a forward
+# of that shape). The linear 3x3 convs emit f32 (L3 also stands for L6,
+# L14 for L17, L22 for L25 and L30), the 3x3/s2 convs int8, the 1x1/s2
+# projections f32. The int8 3x3 convs at stride 1 (L2, L5, L13, L21, L29)
+# are the YOLO forms, held in the forward by ConvCheck.
+RESNET_CONVS = [("L3", (56, 56, 64), 3, 1, 64, False, 2),
+                ("L8", (56, 56, 64), 3, 2, 128, True, 1),
+                ("L9", (28, 28, 128), 3, 1, 128, False, 1),
+                ("L11", (56, 56, 64), 1, 2, 128, False, 1),
+                ("L14", (14, 14, 256), 3, 1, 256, False, 2),
+                ("L16", (28, 28, 128), 3, 2, 256, True, 1),
+                ("L19", (28, 28, 128), 1, 2, 256, False, 1),
+                ("L22", (7, 7, 512), 3, 1, 512, False, 3),
+                ("L24", (14, 14, 256), 3, 2, 512, True, 1),
+                ("L27", (14, 14, 256), 1, 2, 512, False, 1)]
+# logits card against CPU, as a share of the largest: the global average
+# pool sums in another order on the card
+RESNET_LOGIT_TOL = 1e-5
+
+
+def resnet_conv_rows(g, dev, batch, ops_peak, bw, tag):
+    """conv_w8a8 at each RESNET_CONVS shape, through the wrapper and
+    launched directly, each against the plain version bit for bit (int8
+    codes, and the f32 outputs too: the same rounding order), timed
+    beside the im2col + ``gemm_fused`` route on the same inputs,
+    ``torch._int_mm`` on the im2col'd A (product only) and the bound."""
+    from dnn_inference_engine_tpu_torch.ops import _build
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+        extract_patches)
+    from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+    sms = _build.sm_count(dev)
+    rows = []
+    for layer, (h, w, cin), k, stride, cout, quant, per in RESNET_CONVS:
+        xs = (batch, h, w, cin)
+        x = torch.randint(-127, 128, xs, generator=g, device=dev,
+                          dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                           device=dev, dtype=torch.int8)
+        spread = 0.05 * 60.0 / (0.02 * (k * k * cin) ** 0.5 * 5376.0)
+        s_w = (torch.rand(cout, generator=g, device=dev) + 0.5) * spread
+        b = torch.randn(cout, generator=g, device=dev)
+        act, s_out = ("relu", 0.05) if quant else ("linear", None)
+        kw = dict(act=act, stride=stride, s_out=s_out)
+        form = cv.conv_w8a8_form(*xs, cout, k, k, stride, "SAME", None,
+                                 quant, False, sms)
+        launches = cv.conv2d_w8a8.launches
+        got = cv.conv2d_w8a8(x, 0.02, wq, s_w, b, **kw)
+        if (cv.conv2d_w8a8.launches != launches + 1
+                or form.route not in ("patch", "tap")):
+            raise AssertionError(f"conv_w8a8 resnet18 {tag} {layer}: not "
+                                 f"the kernel")
+        ref = cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw)
+        err = max_abs_err(got, ref)
+        ho, wo = -(-h // stride), -(-w // stride)
+        m, kk = batch * ho * wo, k * k * cin
+        wt = gm.kmajor_weights(wq)
+        scale = f32_scalar(0.02, dev) * s_w
+
+        def kernel(f=form):
+            return cv.conv_w8a8_launch(x, wt, scale, b, s_out, k, ho, wo, 0,
+                                       act, f, stride)
+
+        def im2col_gemm():
+            a_ = extract_patches(x, k, k, stride, "SAME").reshape(m, kk)
+            return gm.gemm_fused(a_, wt, scale, b, act=act,
+                                 s_out=s_out).reshape(batch, ho, wo, cout)
+        err = max(err, max_abs_err(kernel(), ref),
+                  max_abs_err(im2col_gemm(), ref))
+        ms = device_ms(kernel, 10)
+        im2col_ms = device_ms(im2col_gemm, 10)
+        plain_ms = device_ms(
+            lambda: cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw), 2)
+        a = extract_patches(x, k, k, stride, "SAME").reshape(m, kk)
+        lib_ms = device_ms(lambda: torch._int_mm(a, wt.t()), 10)
+        # a 1x1 conv reads only the pixels it lands on: the even rows and
+        # columns at stride 2
+        x_read = x.numel() if k > 1 else batch * ho * wo * cin
+        bound, by = _bound(2.0 * m * kk * cout,
+                           x_read + wq.numel() + 8 * cout
+                           + got.numel() * got.element_size(), ops_peak, bw)
+        rows.append(dict(layer=layer, x=list(xs), k=k, stride=stride,
+                         N=cout, M=m, K=kk, f32out=not quant,
+                         per_forward=per, route=form.route,
+                         max_abs_err=err, ms=ms,
+                         im2col_gemm_ms=im2col_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by, kb=form.kb,
+                         steps=form.steps, grid=form.grid,
+                         sk_tiles=form.sk_tiles))
+        print(f"  conv_w8a8 resnet18 {tag} {layer} x={xs} k={k} s={stride} "
+              f"Cout={cout} {'int8' if quant else 'f32'} out (M={m} K={kk}, "
+              f"{per} a forward): err={err} ms={ms:.4f} "
+              f"im2col+gemm_fused_ms={im2col_ms:.4f} "
+              f"int_mm_ms={lib_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound:.4f} ({by}); {form.route} kb {form.kb}, "
+              f"{schedule_line(form)}")
+        if err != 0:
+            raise AssertionError(f"conv_w8a8 resnet18 {tag} {layer}: "
+                                 f"kernel != plain")
+        del x, a, got, ref
+    return rows
+
+
+def resnet_stem_row(g, dev, batch, ops_peak, bw):
+    """ResNet-18's stem (7x7/s2, Cin 3, 224 px): the xla tier's im2col and
+    ``gemm_fused`` in its ragged form (K = 147), against the plain
+    version, timed beside ``torch._int_mm`` (K padded to 152, the nearest
+    it takes) and the bound."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+        extract_patches)
+    from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+    x = torch.randint(-127, 128, (batch, 224, 224, 3), generator=g,
+                      device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (7, 7, 3, 64), generator=g, device=dev,
+                       dtype=torch.int8)
+    s_w = (torch.rand(64, generator=g, device=dev) + 0.5) * 1e-3
+    b = torch.randn(64, generator=g, device=dev)
+    kw = dict(act="relu", stride=2, s_out=0.05)
+    ragged = gm.gemm_fused.ragged_launches
+    got = cv.conv2d_w8a8(x, 0.02, wq, s_w, b, **kw)
+    ragged = gm.gemm_fused.ragged_launches - ragged
+    err = max_abs_err(got, cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw))
+    wt = gm.kmajor_weights(wq)
+    scale = f32_scalar(0.02, dev) * s_w
+
+    def route():
+        # the wrapper's route on prepared operands (its scale upload would
+        # block the host behind the queued calls)
+        return gm.gemm_fused(extract_patches(x, 7, 7, 2, "SAME").reshape(
+            -1, 147), wt, scale, b, act="relu", s_out=0.05)
+    err = max(err, max_abs_err(route().reshape(got.shape), got))
+    ms = device_ms(route, 10)
+    plain_ms = device_ms(
+        lambda: cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw), 2)
+    a = extract_patches(x, 7, 7, 2, "SAME").reshape(-1, 147)
+    m = a.shape[0]
+    im2col_ms = device_ms(
+        lambda: extract_patches(x, 7, 7, 2, "SAME"), 10)
+    a8 = torch.cat([a, a.new_zeros(m, 5)], 1)
+    b8 = torch.cat([wt, a.new_zeros(64, 5)], 1)
+    lib_ms = device_ms(lambda: torch._int_mm(a8, b8.t()), 10)
+    bound, by = _bound(2.0 * m * 147 * 64,
+                       x.numel() + wq.numel() + 8 * 64 + got.numel(),
+                       ops_peak, bw)
+    print(f"  resnet18 stem b{batch} (7x7/s2, Cin 3, M={m} K=147 N=64): "
+          f"im2col + gemm_fused, {ragged} ragged launch: err={err} "
+          f"ms={ms:.4f} (the im2col alone {im2col_ms:.4f}) int_mm_ms="
+          f"{lib_ms:.4f} (K 152) plain_ms={plain_ms:.3f} bound_ms="
+          f"{bound:.4f} ({by})")
+    if err != 0 or ragged != 1:
+        raise AssertionError(f"resnet18 stem b{batch}: err {err}, ragged "
+                             f"launches {ragged}")
+    return dict(M=m, K=147, N=64, max_abs_err=err, ms=ms,
+                im2col_ms=im2col_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by)
+
+
+def phase_resnet_kernels(dev, ops_peak, bw):
+    """conv_w8a8's ResNet-18 forms at b32 and b1 and the stem; the sums
+    a forward weighted by each shape's launches."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for batch in (32, 1):
+        rows = resnet_conv_rows(g, dev, batch, ops_peak, bw, f"b{batch}")
+        stem = resnet_stem_row(g, dev, batch, ops_peak, bw)
+
+        def total(key, rows=rows):
+            return sum(r[key] * r["per_forward"] for r in rows)
+        print(f"  conv_w8a8 resnet18 b{batch}, the new forms a forward "
+              f"({sum(r['per_forward'] for r in rows)} launches): kernel "
+              f"{total('ms'):.4f} ms, im2col+gemm_fused "
+              f"{total('im2col_gemm_ms'):.4f}, int_mm "
+              f"{total('library_ms'):.4f}, bound {total('bound_ms'):.4f}")
+        out[f"b{batch}"] = dict(ms=total("ms"),
+                                im2col_gemm_ms=total("im2col_gemm_ms"),
+                                library_ms=total("library_ms"),
+                                bound_ms=total("bound_ms"), shapes=rows,
+                                stem=stem)
+    return out
+
+
+def _resnet_engine(batch, mode, dev=None, calib=None, **kw):
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    cfg = EngineConfig(model="resnet18", input_size=224, num_classes=1000,
+                       batch=batch, mode=mode)
+    return Engine(cfg, device=dev).load_weights(**kw).prepare(calib)
+
+
+def _resnet_calib():
+    return np.random.default_rng(7).uniform(
+        0, 1, (4, 224, 224, 3)).astype(np.float32)
+
+
+def phase_resnet_card_vs_cpu(card: str):
+    """ResNet-18 at 224 px, b2, card against a CPU engine (plain versions)
+    with the card's weights and scales: W8A8 (the all-xla plan) every
+    stage's entry state equal up to the global average pool, codes and
+    the linear convs' f32 outputs alike, the logits within
+    RESNET_LOGIT_TOL of the largest; fp32 within F32_REL_TOL and w8
+    within BF16_REL_TOL."""
+    from dnn_inference_engine_tpu_torch.runtime.plan import plan_forward_w8a8
+    imgs = np.random.default_rng(8).integers(
+        0, 256, (2, 224, 224, 3)).astype(np.uint8)
+    for mode, tol in (("w8a8", RESNET_LOGIT_TOL), ("fp32", F32_REL_TOL),
+                      ("w8", BF16_REL_TOL)):
+        t0 = time.time()
+        gpu = _resnet_engine(2, mode, calib=_resnet_calib(), seed=0)
+        fp32 = [{k: v.cpu().numpy() for k, v in p.items()}
+                for p in gpu.fp32_params]
+        cpu = _resnet_engine(2, mode, dev="cpu", params=fp32,
+                             act_scales=gpu.act_scales)
+        got, want = gpu.classify(imgs), cpu.classify(imgs)
+        if got.shape != (2, 1000) or not np.isfinite(got).all():
+            raise AssertionError(f"resnet18 {mode}: bad logits {got.shape}")
+        diff = float(np.abs(got - want).max())
+        atol = tol * float(np.abs(want).max())
+        states = ""
+        if mode == "w8a8":
+            recs = []
+            for eng in (gpu, cpu):
+                rec = []
+                plan_forward_w8a8(eng.model, eng._plan, eng._plan_params,
+                                  eng.act_scales, eng._device_batch(imgs),
+                                  record_states=rec)
+                recs.append(rec)
+            gap = [st.kind for st in gpu._plan].index("gap")
+            for si in range(gap + 1):
+                a, b = recs[0][si][0].cpu(), recs[1][si][0]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"resnet18 w8a8 stage {si} entry: "
+                                         f"card != CPU in "
+                                         f"{int((a != b).sum())} values")
+            states = (f"; the {gap + 1} stage entry states up to the pool "
+                      f"identical")
+        print(f"card vs CPU resnet18 {mode} @224 b2: logits max diff {diff} "
+              f"within {atol:.4g} ({tol:.3g} of the largest){states} "
+              f"[{time.time() - t0:.1f} s] [{card}]")
+        if diff > atol:
+            raise AssertionError(f"resnet18 {mode}: card logits != CPU "
+                                 f"logits: max diff {diff} > {atol}")
+
+
+def phase_resnet_path(batch: int, mode: str, want: dict, card: str,
+                      want_ragged: int = 0, want_im2col: int = 0):
+    """ResNet-18 ``classify`` at 224 px, 1000 classes, under ``mode``'s
+    path (w8a8 and w8: the all-xla plan; fp32: the generic auto forward):
+    one classify with the counters set to 0 just before and read just
+    after (they must equal ``want``, every counter named; the stem's
+    ``gemm_fused`` launch in the ragged form and its im2col, ``want_*``),
+    every conv_w8a8 launch held to its plain version (w8a8), then
+    throughput, latency and the device breakdown of the forward."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    want = {**dict.fromkeys(_counters(), 0), **want}
+    eng = _resnet_engine(batch, mode, calib=_resnet_calib(), seed=0)
+    imgs = np.random.default_rng(9).integers(
+        0, 256, (batch, 224, 224, 3)).astype(np.uint8)
+    x = torch.as_tensor(imgs).cuda()
+    tag = f"resnet18 {mode} b{batch}"
+    _reset_counts()
+    with XlaTierIm2col() as im2col:
+        logits = eng.classify(imgs)
+        torch.cuda.synchronize()
+    counts = _read_counts()
+    if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
+        raise AssertionError(f"{tag}: bad logits {logits.shape}")
+    got = (counts, gm.gemm_fused.ragged_launches, im2col.calls,
+           cv.conv2d_w8a8.im2col_launches, gm.gemm_f32.ragged_launches)
+    if got != (want, want_ragged, want_im2col, want_im2col, 0):
+        raise AssertionError(f"{tag}: launches {counts}, ragged gemm_fused "
+                             f"{got[1]}, im2col copies {got[2]}, im2col "
+                             f"route {got[3]}, ragged gemm_f32 {got[4]}; "
+                             f"want {want}, {want_ragged}, {want_im2col}")
+    if mode == "w8a8":
+        with ConvCheck() as chk:
+            eng.classify(imgs)
+            torch.cuda.synchronize()
+        chk.verify(tag, want["conv_w8a8"])
+
+    def fwd():
+        return eng._fwd(x)
+    t = dict(tp=throughput_ms(fwd, 20), lat=latency_ms(fwd, 20))
+    groups, ops = device_breakdown(fwd)
+    busy = sum(groups.values())
+    print(f"{tag} launches per classify {counts} (stem: {want_ragged} "
+          f"ragged gemm_fused, {want_im2col} im2col) [{card}]")
+    print(f"{tag} device ms per forward (torch.profiler, 5 forwards): "
+          + ", ".join(f"{g} {v:.4f}" for g, v in groups.items() if v)
+          + f"; busy {busy:.4f} = {busy / t['tp']:.2f} of the back-to-back "
+          f"forward [{card}]")
+    print(f"{tag} device operations per forward: "
+          + ", ".join(f"{g} {n:g}" for g, n in ops.items() if n)
+          + f"; total {sum(ops.values()):g} [{card}]")
+    print(f"{tag} back to back: forward {t['tp']:.3f} ms = "
+          f"{batch * 1e3 / t['tp']:.1f} img/s; latency (median of 20, "
+          f"synced) {t['lat']:.3f} ms [{card}]")
+    return dict(counts=counts, busy=busy, tp=t["tp"], lat=t["lat"],
+                groups=groups)
+
+
+def phase_resnet_sweep(card: str):
+    """``plan-sweep --model resnet18 --quick`` at b32 in w8a8 on the card:
+    the sweep's own timing (auto-scaled loop counts, min of 3 reps), no
+    crash, no parity rejection; every ResNet conv has the one candidate
+    ``xla`` under --quick, so its whole_net_ms is the all-xla pin's."""
+    from dnn_inference_engine_tpu_torch.runtime.plan_sweep import sweep
+    t0 = time.time()
+    art = sweep("resnet18", "w8a8", batch=32, input_size=224, quick=True,
+                verbose=False)
+    wall = time.time() - t0
+    bad = {f"L{li} {c}": v for li, row in art["measurements"].items()
+           for c, v in row.items() if isinstance(v, str)}
+    if bad or art["crashed_candidates"]:
+        raise AssertionError(f"resnet18 sweep recorded failures: {bad}")
+    path = strategies_dir() / "resnet18_w8a8_b32.json"
+    path.write_text(json.dumps(art))
+    print(f"plan-sweep resnet18 w8a8 b32 @224 --quick: whole_net_ms "
+          f"{art['whole_net_ms']} ({art['images_per_s']} img/s), strategy "
+          f"{json.dumps(art['strategy'])}, {art['passes']} passes, wall "
+          f"{wall:.1f} s [{card}]")
+    return art
+
+
+def phase_resnet18(card: str, ops_peak, bw):
+    """Phase 11: the conv_w8a8 forms, the card against the CPU, the
+    classify paths at b32 and b1 in each mode, the sweep."""
+    dev = torch.device("cuda")
+    t0 = time.time()
+    rows = phase_resnet_kernels(dev, ops_peak, bw)
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    phase_resnet_card_vs_cpu(card)
+    t2 = time.time()
+    # the stem on im2col + gemm_fused (ragged, K 147), the other 19 convs
+    # on conv_w8a8
+    w8a8 = dict(conv_w8a8=19, gemm_fused=1)
+    paths = {}
+    for batch in (32, 1):
+        paths[f"w8a8 b{batch}"] = phase_resnet_path(
+            batch, "w8a8", w8a8, card, want_ragged=1, want_im2col=1)
+        paths[f"w8 b{batch}"] = phase_resnet_path(batch, "w8", {}, card)
+        paths[f"fp32 b{batch}"] = phase_resnet_path(
+            batch, "fp32", dict(gemm_f32=11), card)
+    t3 = time.time()
+    art = phase_resnet_sweep(card)
+    print(f"resnet18 steps: kernels {t1 - t0:.1f} s, card vs CPU "
+          f"{t2 - t1:.1f} s, classify paths {t3 - t2:.1f} s, sweep "
+          f"{time.time() - t3:.1f} s")
+    print(json.dumps({"resnet18": {
+        k: {"busy_ms": v["busy"], "forward_ms": v["tp"],
+            "latency_ms": v["lat"]} for k, v in paths.items()},
+        "sweep_whole_net_ms": art["whole_net_ms"], "card": card}))
+    return rows, paths["w8a8 b32"]["counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -2945,6 +3329,14 @@ def main() -> int:
     timed("modes card vs CPU", phase_modes_card_vs_cpu)
     timed("w8 pallas forward", phase_w8_pallas_forward, card)
     torch.cuda.empty_cache()
+    resnet_rows, counts["resnet18"] = timed("resnet18", phase_resnet18, card,
+                                            ops_peak, bw)
+    rows["conv_w8a8"]["resnet18"] = {
+        b: {k: v for k, v in r.items() if k != "stem"}
+        for b, r in resnet_rows.items()}
+    rows["gemm_fused"]["resnet18_stem"] = {
+        b: r["stem"] for b, r in resnet_rows.items()}
+    torch.cuda.empty_cache()
     timed("front door", phase_front_door, card)
     print(f"total {time.time() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + ")")
@@ -2967,6 +3359,10 @@ def main() -> int:
         path = path_of.get(kname, "yolov2-tiny")
         row = dict(name=kname, **meta, launches=counts[path][kname])
         row.update(rows[kname])
+        if counts["resnet18"][kname]:
+            # the ResNet-18 W8A8 b32 classify's launches beside the row's
+            # own path's
+            row["resnet18_launches"] = counts["resnet18"][kname]
         kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3041,9 +3437,24 @@ def front_door_only() -> int:
     return 0
 
 
+def resnet18_only() -> int:
+    """Phase 11 alone (``--resnet18``): the kernels build at first use."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    t0 = time.time()
+    phase_resnet18(card, *peaks(torch.cuda.get_device_name(0)))
+    print(f"resnet18: {time.time() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--qs2d4-ab":
         sys.exit(qs2d4_ab(Path(sys.argv[2])))
     if sys.argv[1:] == ["--front-door"]:
         sys.exit(front_door_only())
+    if sys.argv[1:] == ["--resnet18"]:
+        sys.exit(resnet18_only())
     sys.exit(main())

@@ -57,7 +57,7 @@ class EngineConfig:
     config. ``Engine`` refuses a mesh other than (1, 1) and the channel
     sharding (multi-device is ROADMAP item A14)."""
 
-    model: str = "yolov2-tiny"          # yolov2-tiny | yolov3-tiny
+    model: str = "yolov2-tiny"          # yolov2-tiny | yolov3-tiny | resnet18
     mode: str = "fp32"                  # fp32 | w8 | w8a8
     # auto: the fused stage plan (w8 and w8a8) or the per-layer tier
     # choice (fp32, and where no plan applies); xla | pallas: every conv

@@ -9,13 +9,18 @@
 // fold_xla_k2, fold_xla_s2 and xla stages of runtime/plan.py run it
 // (:847, :902, :927). Same function:
 //   acc[n, oy, ox, o] = sum over taps (dh, dw) and ci of
-//       x[n, oy+dh-pad, ox+dw-pad, ci] * w[dh, dw, ci, o]       (int32)
+//       x[n, s*oy+dh-pad_h, s*ox+dw-pad_w, ci] * w[dh, dw, ci, o]  (int32)
 //   y = act(acc*scale[o] + bias[o]); q = clip(rint(y / s_out), +-127)
 // (scale = s_in*s_w), the conv order of requant.cuh (mode 0, or mode 4
-// where s_out is not a positive normal float); k = 3 SAME (pad 1) or k = 2
-// VALID (pad 0, the shifted fold), stride 1, the output trimmed to (Ho,
-// Wo). With go > 0 (Cout = 4 go) the output channel c < go is the max
-// over the pool groups k of the codes q[k*go + c]: the group-max of the
+// where s_out is not a positive normal float), or with f32out the float32
+// y itself, each step rounded (__fmul_rn, __fadd_rn) as XLA's op-by-op
+// acc.astype(f32) * (s_in*s_w) + b; stride s = 1 with k = 3 SAME (pad 1)
+// or k = 2 VALID (pad 0, the shifted fold), or s = 2 with k = 3 or 1 SAME
+// (XLA's pads: pad_h = the smaller half of (ceil(H/2)-1)*2 + k - H, so
+// none at the top of an even H: output row i reads rows 2i .. 2i+2), the
+// output trimmed to (Ho, Wo). With go > 0 (Cout = 4 go) the output
+// channel c < go is the max over the pool groups k of the codes
+// q[k*go + c]: the group-max of the
 // requantized int8 tensor that the fold stages take. The groups share
 // their scale and bias (a fold stage repeats its layer's), so the kernel
 // takes the code of the groups' largest accumulator (the smallest where
@@ -23,6 +28,10 @@
 // accumulator, so that is the largest code, exactly. (A code for each of
 // the four groups, then their max, took 0.0987 ms at L2 against 0.0688,
 // H100 80GB HBM3, 700.00 W.)
+//
+// ResNet-18's forms (224 px): f32out for its linear 3x3 convs (PATCH at
+// 56 px, TAP at 28, 14 and 7), stride 2 for its 3x3/s2 convs (PATCH) and,
+// k = 1, its 1x1/s2 projections (PATCH, f32out).
 //
 // What bounds it on an H100 (SXM data sheet at 700 W: 1,979 int8 TOP/s,
 // 3.35 TB/s): the int8 tensor-core rate at every b32 main-path shape
@@ -47,7 +56,12 @@
 //   coordinates is the SAME halo, the rows and columns past the input,
 //   and the K padding past Cin. The swizzle follows the absolute shared
 //   address, so a descriptor a row into the swizzle atom needs no base
-//   offset. Where one tap row is one step (Cin <= KB), a column block of
+//   offset. At stride 2 a step lands two boxes of the tap row, both with
+//   the map's traversal strides 2 along W and H (every other column of
+//   every other row): the even columns, TC + (k-1)/2 of them, and (k = 3)
+//   the odd ones, TC; tap column dw reads the even box from column dw/2
+//   (dw 0, 2) or the odd box (dw 1), the next core matrix a box row on.
+//   Where one tap row is one step (Cin <= KB), a column block of
 //   B (k*k taps x 128 rows x KB bytes) is resident, copied once a column
 //   block, else it streams with the patches, a box a tap. M runs over the
 //   trimmed (Ho, Wo) output only: L4's shifted fold of H/2+1 valid rows
@@ -100,12 +114,11 @@ constexpr int NREG = wg::NREG;
 constexpr int STAGING = BM * BN;          // a consumer's tile of codes
 constexpr int SCB = 2 * BN * 4;           // a consumer's scale and bias
 
-// PATCH: a tile's output rows and columns, a patch row's columns (the
-// halo's), a step's patch box rows
+// PATCH: a tile's output rows and columns, a stride-1 patch row's columns
+// (the halo's)
 constexpr int TR = 16;
 constexpr int TC = 8;
 constexpr int PC = TC + 2;
-constexpr int PATCH = TR * PC;
 
 // TAP: bytes of Cin a chunk, the ring's stages
 constexpr int KC = 128;
@@ -115,11 +128,12 @@ struct Conv {
   const float* scale;           // (Cout,)
   const float* bias;
   int8_t* out;                  // (N, Ho, Wo, go ? go : Cout)
+  float* outf;                  // f32out: (N, Ho, Wo, Cout)
   int* ws;                      // straddled tiles' partial sums
   int* counters;                // their arrival counters, zero
   int H, W, Cin, Ho, Wo, Cout;
   int go;                       // channels a pool group, 0: no group-max
-  int ks, pad, act, mode;
+  int ks, pad_h, pad_w, act, mode, f32out;
   rq::Requant q;
   int n_tiles;                  // column blocks
   // the schedule: tiles of `steps` K steps; the first sk_tiles stream-K
@@ -376,27 +390,90 @@ __device__ __forceinline__ void store(const int (&acc)[NREG],
   }
 }
 
-// The main paths' variant (conv order, leaky) in straight-line code; the
-// other activations and mode 4, which no pin reaches, read p.act.
+// The f32 output (f32out): each of the thread's accumulator pairs (tile
+// row 64q + 16w + g + 8h, columns 8j + 2t and + 1) as y = act(acc*scale
+// + bias), rounded step by step, straight to its output pixel, 8 bytes a
+// store (32 contiguous bytes a row of a warp's store). The warpgroup then
+// syncs: the next unit's load_scb rewrites the scale and bias read here.
 template <bool PATCH_ROUTE>
+__device__ __forceinline__ void store_f32(const int (&acc)[NREG],
+                                          const float* sc_s,
+                                          const float* bi_s, const Conv& p,
+                                          int t_pix, int nt, int c) {
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  long long pix[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    pix[r] = out_pixel<PATCH_ROUTE>(p, t_pix, 64 * (r / 2) + 16 * w + g +
+                                                  8 * (r % 2));
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int cl = 8 * j + 2 * t;
+    const int col = nt * BN + cl;
+    if (col >= p.Cout) continue;
+    const float2 sc = *reinterpret_cast<const float2*>(sc_s + cl);
+    const float2 bi = *reinterpret_cast<const float2*>(bi_s + cl);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (pix[r] < 0) continue;
+      const int i = 64 * (r / 2) + 4 * j + 2 * (r % 2);
+      float2 y;
+      y.x = s8mma::epilogue_f32(acc[i], sc.x, bi.x, p.act);
+      y.y = s8mma::epilogue_f32(acc[i + 1], sc.y, bi.y, p.act);
+      float* dst = p.outf + pix[r] * p.Cout + col;
+      if ((p.Cout & 1) == 0) {
+        *reinterpret_cast<float2*>(dst) = y;
+      } else {
+        dst[0] = y.x;
+        if (col + 1 < p.Cout) dst[1] = y.y;
+      }
+    }
+  }
+  wg::warpgroup_sync(c);
+}
+
+// The main paths' variant (conv order, leaky) in straight-line code; the
+// other activations and mode 4, which no pin reaches, read p.act; the f32
+// output of a linear conv (ResNet-18) its own store. GROUPS false leaves
+// out the group-max variants (the stride-2 forms have none), which keeps
+// the file's build time down.
+template <bool PATCH_ROUTE, bool GROUPS = true>
 __device__ __forceinline__ void epilogue(const int (&acc)[NREG],
                                          uint8_t* staging, const float* sc_s,
                                          const float* bi_s, const Conv& p,
                                          int t_pix, int nt, int c) {
+  if (p.f32out) {
+    store_f32<PATCH_ROUTE>(acc, sc_s, bi_s, p, t_pix, nt, c);
+    return;
+  }
   const bool leaky = p.mode == 0 && p.act == 1;
-  switch ((p.mode == 4) * 4 + leaky * 2 + (p.go != 0)) {
+  switch ((p.mode == 4) * 4 + leaky * 2 + (GROUPS && p.go != 0)) {
     case 0: store<0, -1, false, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p,
                                              t_pix, nt, c); break;
-    case 1: store<0, -1, true, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p,
-                                            t_pix, nt, c); break;
+    case 1:
+      if constexpr (GROUPS) {
+        store<0, -1, true, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p, t_pix,
+                                        nt, c);
+      }
+      break;
     case 2: store<0, 1, false, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p,
                                             t_pix, nt, c); break;
-    case 3: store<0, 1, true, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p,
-                                           t_pix, nt, c); break;
+    case 3:
+      if constexpr (GROUPS) {
+        store<0, 1, true, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p, t_pix,
+                                       nt, c);
+      }
+      break;
     case 4: store<4, -1, false, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p,
                                              t_pix, nt, c); break;
-    default: store<4, -1, true, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p,
-                                             t_pix, nt, c); break;
+    default:
+      if constexpr (GROUPS) {
+        store<4, -1, true, PATCH_ROUTE>(acc, staging, sc_s, bi_s, p, t_pix,
+                                        nt, c);
+      }
+      break;
   }
 }
 
@@ -414,18 +491,28 @@ __device__ __forceinline__ bool summed(int (&acc)[NREG], const Conv& p,
 // PATCH
 // ---------------------------------------------------------------------------
 
-template <int KB, bool RES>
+// A step's A: at stride 1 one box of PE = PC columns (TC + 2 whatever
+// KS, as the map is encoded); at stride 2 the even columns (PE) and the
+// odd ones (PO, none for KS 1), TR rows each. Every box is a multiple of
+// 1024 bytes, so each lands on the swizzle's period.
+template <int KB, bool RES, int KS, int ST>
 struct Patch {
   static_assert(RES || KB == 128, "B streams only in 128-byte steps");
-  static constexpr int A_BYTES = PATCH * KB;
+  static_assert(ST == 1 || (ST == 2 && (KS == 1 || KS == 3)),
+                "stride 2 takes k = 1 and k = 3");
+  static constexpr int PE = ST == 1 ? PC : TC + (KS - 1) / 2;
+  static constexpr int PO = ST == 1 || KS == 1 ? 0 : TC + (KS - 2) / 2;
+  static constexpr int E_BYTES = TR * PE * KB;
+  static constexpr int A_BYTES = TR * (PE + PO) * KB;
   static constexpr int B_TAP = BN * KB;       // one tap's B of a step
-  static constexpr int STAGE_BYTES = RES ? A_BYTES : A_BYTES + 3 * B_TAP;
-  static constexpr int STAGES = KB == 64 ? 8 : 2;
+  static constexpr int STAGE_BYTES = RES ? A_BYTES : A_BYTES + KS * B_TAP;
+  static constexpr int STAGES =
+      KB == 64 ? (ST == 2 && KS == 3 ? 6 : 8) : (KS == 1 ? 4 : 2);
   // dynamic shared memory: alignment slack, the resident B (ks*ks taps),
   // the ring, the staging and scale/bias of both consumers, the barriers
   // (full, empty, B full, B empty, two turns) and a flag per consumer
-  static constexpr int smem(int ks, int kc) {
-    return 1024 + (RES ? ks * ks * kc * B_TAP : 0) + STAGES * STAGE_BYTES +
+  static constexpr int smem(int kc) {
+    return 1024 + (RES ? KS * KS * kc * B_TAP : 0) + STAGES * STAGE_BYTES +
            2 * STAGING + 2 * SCB + (2 * STAGES + 4) * 8 + 16;
   }
 };
@@ -435,15 +522,15 @@ __device__ __forceinline__ uint64_t desc_b(const void* p) {
   return KB == 64 ? wg::desc_sw64(p) : wg::desc_sw128(p);
 }
 
-// The descriptor of tap column dw's A in a patch: core matrix j (tile row
-// j, 8 pixels) is patch row j from column dw, so KB-byte rows from p =
-// patch + dw*KB, the next core matrix a patch row (PC rows) on; the
-// KB-byte swizzle, base offset 0.
+// The descriptor of tap column dw's A in a box of `cols` columns: core
+// matrix j (tile row j, 8 pixels) is box row j from the tap's column, so
+// KB-byte rows from p (the box + that column * KB), the next core matrix
+// a box row (cols rows) on; the KB-byte swizzle, base offset 0.
 template <int KB>
-__device__ __forceinline__ uint64_t desc_patch(const void* p) {
+__device__ __forceinline__ uint64_t desc_patch(const void* p, int cols) {
   const uint64_t a = tma::smem_addr(p);
   return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(PC * KB >> 4) << 32) | (uint64_t(KB == 64 ? 2 : 1) << 62);
+         (uint64_t(cols * KB >> 4) << 32) | (uint64_t(KB == 64 ? 2 : 1) << 62);
 }
 
 // A patch tile: column block nt (outermost, so that a block walks one
@@ -456,11 +543,13 @@ __device__ __forceinline__ void patch_tile(const Conv& p, int tile, int& nt,
 
 // KS (the kernel size) is a template argument: with the taps of a step a
 // runtime loop, ptxas fenced the wgmma (warpgroup.arrive injected, C7519).
-template <int KB, bool RES, int KS>
+// ST is the stride; at 2 map_x lands the even columns, map_o the odd.
+template <int KB, bool RES, int KS, int ST>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_o,
                   const __grid_constant__ CUtensorMap map_b, const Conv p) {
-  using C = Patch<KB, RES>;
+  using C = Patch<KB, RES, KS, ST>;
   constexpr int STAGES = C::STAGES;
   constexpr int B_TAP = C::B_TAP;
   constexpr int taps = KS * KS;
@@ -491,6 +580,10 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
                  :: "l"(reinterpret_cast<uint64_t>(&map_x)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n"
                  :: "l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
+    if (C::PO) {
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&map_o)) : "memory");
+    }
   }
   __syncthreads();
 
@@ -523,14 +616,18 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
       }
       for (int s = x.sb; s < x.se; ++s) {
         // step s: tap row dh = s / kc, Cin chunk s % kc: the patch of rows
-        // y0+dh-pad .., columns x0-pad .. x0-pad+PC-1
+        // ST*y0+dh-pad_h + ST*j, columns ST*x0-pad_w + ST*i (+1: odd box)
         const int dh = s / p.kc, c0 = (s - dh * p.kc) * KB;
+        const int iy = ST * y0 + dh - p.pad_h, ix = ST * x0 - p.pad_w;
         uint8_t* st = ring + pipe.stage * C::STAGE_BYTES;
         wg::wait(&empty[pipe.stage], pipe.phase ^ 1);
         tma::mbar_expect_tx(&full[pipe.stage],
                             C::A_BYTES + (RES ? 0 : KS * B_TAP));
-        wg::tma_load_4d(st, &map_x, &full[pipe.stage], c0, x0 - p.pad,
-                        y0 + dh - p.pad, n);
+        wg::tma_load_4d(st, &map_x, &full[pipe.stage], c0, ix, iy, n);
+        if (C::PO) {
+          wg::tma_load_4d(st + C::E_BYTES, &map_o, &full[pipe.stage], c0,
+                          ix + 1, iy, n);
+        }
         if (!RES) {
           for (int dw = 0; dw < KS; ++dw) {
             wg::tma_load_2d(st + C::A_BYTES + dw * B_TAP, &map_b,
@@ -601,9 +698,13 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
       wg::wgmma_fence();
 #pragma unroll
       for (int dw = 0; dw < KS; ++dw) {
-        // tap (dh, dw): the patch from column dw; tile rows 8.. (the second
-        // m64 half) start 8 patch rows on
-        const uint64_t da = desc_patch<KB>(st + dw * KB);
+        // tap (dh, dw): the patch from column dw (stride 2: the even box
+        // from column dw/2, or the odd box); tile rows 8.. (the second m64
+        // half) start 8 box rows on
+        const bool odd = ST == 2 && (dw & 1);
+        const int cols = odd ? C::PO : C::PE;
+        const uint64_t da = desc_patch<KB>(
+            st + (odd ? C::E_BYTES : 0) + (ST == 1 ? dw : dw / 2) * KB, cols);
         const uint64_t db = desc_b<KB>(
             RES ? bres + ((KS * dh + dw) * p.kc + kq) * B_TAP
                 : st + C::A_BYTES + dw * B_TAP);
@@ -611,7 +712,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
         for (int kk = 0; kk < KB / 32; ++kk) {
           const int on = (s != x.sb) | dw | kk;
           wg::Mma<BN>::run(acc, da + 2 * kk, db + 2 * kk, on);
-          wg::Mma<BN>::run(acc + 64, da + (8 * PC * KB >> 4) + 2 * kk,
+          wg::Mma<BN>::run(acc + 64, da + (8 * cols * KB >> 4) + 2 * kk,
                            db + 2 * kk, on);
         }
       }
@@ -630,7 +731,7 @@ conv_patch_kernel(const __grid_constant__ CUtensorMap map_x,
     if (lead) wg::mbar_arrive(&empty[prev]);
     if (!summed(acc, p, x, &flags[c], c, BM)) continue;
     wg::warpgroup_sync(c);      // scale and bias written, staging free
-    epilogue<true>(acc, staging, sc_s, bi_s, p, pt, nt, c);
+    epilogue<true, ST == 1>(acc, staging, sc_s, bi_s, p, pt, nt, c);
   }
 }
 
@@ -757,25 +858,36 @@ cudaError_t allow_smem(K kernel, int bytes, unsigned* done) {
   return err;
 }
 
-template <int KB, bool RES, int KS>
-int launch_patch(const CUtensorMap& mx, const CUtensorMap& mb, const Conv& p,
-                 int grid, cudaStream_t st) {
-  using C = Patch<KB, RES>;
+template <int KB, bool RES, int KS, int ST>
+int launch_patch(const CUtensorMap& mx, const CUtensorMap& mo,
+                 const CUtensorMap& mb, const Conv& p, int grid,
+                 cudaStream_t st) {
+  using C = Patch<KB, RES, KS, ST>;
   static unsigned done = 0;
-  const cudaError_t err = allow_smem(conv_patch_kernel<KB, RES, KS>,
-                                     C::smem(KS, RES ? 1 : 0), &done);
+  // the attribute once, at the most this instantiation takes (kc 1
+  // where B is resident: the only kc a resident launch has)
+  const cudaError_t err = allow_smem(conv_patch_kernel<KB, RES, KS, ST>,
+                                     C::smem(RES ? 1 : 0), &done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_patch_kernel<KB, RES, KS><<<grid, wg::THREADS, C::smem(KS, p.kc),
-                                   st>>>(mx, mb, p);
+  conv_patch_kernel<KB, RES, KS, ST><<<grid, wg::THREADS, C::smem(p.kc),
+                                       st>>>(mx, mo, mb, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KS>
-int launch_patch_ks(const CUtensorMap& mx, const CUtensorMap& mb,
-                    const Conv& p, int kb, int grid, cudaStream_t st) {
-  if (kb == 64) return launch_patch<64, true, KS>(mx, mb, p, grid, st);
-  return p.kc == 1 ? launch_patch<128, true, KS>(mx, mb, p, grid, st)
-                   : launch_patch<128, false, KS>(mx, mb, p, grid, st);
+// B is resident where one tap row is one step (kc 1) and it fits beside
+// the ring: not for the stride-2 k3 form at 128-byte steps (9 taps of 16
+// KB and two 34 KB stages pass the 227 KB a block can have).
+template <int KS, int ST>
+int launch_patch_ks(const CUtensorMap& mx, const CUtensorMap& mo,
+                    const CUtensorMap& mb, const Conv& p, int kb, int grid,
+                    cudaStream_t st) {
+  if (kb == 64) return launch_patch<64, true, KS, ST>(mx, mo, mb, p, grid, st);
+  if constexpr (ST == 1 || KS == 1) {
+    if (p.kc == 1) {
+      return launch_patch<128, true, KS, ST>(mx, mo, mb, p, grid, st);
+    }
+  }
+  return launch_patch<128, false, KS, ST>(mx, mo, mb, p, grid, st);
 }
 
 // The most blocks that share one stream-K tile: the partial-sum slots a
@@ -792,32 +904,43 @@ int sk_slots(const Conv& p) {
   return most;
 }
 
+// XLA's SAME padding before the input along one dimension of n: the
+// smaller half of the total a k-wide window at stride s needs.
+int same_lo(int n, int k, int s) {
+  const int total = ((n + s - 1) / s - 1) * s + k - n;
+  return total > 0 ? total / 2 : 0;
+}
+
 }  // namespace
 
 // route 0 (PATCH) or 1 (TAP), as ops/conv.py conv_w8a8_form chooses: x
 // (N, H, W, Cin) int8, 16-byte aligned, Cin % 16 == 0 (TAP: % 128, ks 3,
-// Ho == H, Wo == W); wt the (rows, ks*ks*Cin)
+// stride 1, Ho == H, Wo == W); wt the (rows, ks*ks*Cin)
 // K-major weight matrix (go 0: (Cout, K); go > 0: rs_tile_matrix's
 // pool-major (ceil(go/32)*128, K) with Cout == 4 go), 16-byte aligned; ks
-// 3 (SAME) or 2 (VALID), the output trimmed to (Ho, Wo); kb 64 or 128
+// 3 (SAME) or 2 (VALID) at stride 1, ks 3 or 1 (SAME, PATCH, no group-max)
+// at stride 2, the output trimmed to (Ho, Wo); kb 64 or 128
 // bytes of Cin a PATCH step (64 iff Cin <= 64); `steps` a tile's K steps
 // (PATCH: ks*ceil(Cin/kb); TAP: 9*Cin/128), checked; the schedule
 // (`grid` persistent blocks, the first sk_tiles tiles stream-K over
 // sk_blocks blocks, ops/conv.py conv_schedule); ws holds sk_tiles * slots
 // * 128 * 128 int32 and counters sk_tiles zeroed int32 where a tile lies
 // on more than one block (slots, at least the most blocks on one tile, >
-// 1). out (N, Ho, Wo, go ? go : Cout) int8. Returns a cudaError_t, or
+// 1). out (N, Ho, Wo, go ? go : Cout) int8, or with f32out (no group-max)
+// (N, Ho, Wo, Cout) float32 and s_out unused. Returns a cudaError_t, or
 // minus the CUresult of a failed tensor-map encode.
 extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
                          const void* bias, float s_out, void* out, int N,
-                         int H, int W, int Cin, int Cout, int ks, int Ho,
-                         int Wo, int go, int act, int route, int kb,
-                         int steps, int grid, int sk_tiles, int sk_blocks,
-                         int slots, void* ws, void* counters, void* stream) {
+                         int H, int W, int Cin, int Cout, int ks, int stride,
+                         int Ho, int Wo, int go, int act, int f32out,
+                         int route, int kb, int steps, int grid,
+                         int sk_tiles, int sk_blocks, int slots, void* ws,
+                         void* counters, void* stream) {
   Conv p;
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<int8_t*>(out);
+  p.out = f32out ? nullptr : static_cast<int8_t*>(out);
+  p.outf = f32out ? static_cast<float*>(out) : nullptr;
   p.ws = static_cast<int*>(ws);
   p.counters = static_cast<int*>(counters);
   p.H = H;
@@ -828,20 +951,25 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
   p.Cout = Cout;
   p.go = go;
   p.ks = ks;
-  p.pad = ks == 3 ? 1 : 0;
+  p.pad_h = ks == 2 ? 0 : same_lo(H, ks, stride);
+  p.pad_w = ks == 2 ? 0 : same_lo(W, ks, stride);
   p.act = act;
+  p.f32out = f32out != 0;
   p.mode = 0;
   p.q = rq::requant(s_out, &p.mode);
   p.sk_tiles = sk_tiles;
   p.sk_blocks = sk_blocks;
   p.slots = slots;
   const int K = ks * ks * Cin;
+  const bool s1 = stride == 1 && (ks == 2 || ks == 3) &&
+                  Ho <= H - (ks == 2) && Wo <= W - (ks == 2);
+  const bool s2 = stride == 2 && (ks == 1 || ks == 3) && route == 0 &&
+                  go == 0 && Ho <= (H + 1) / 2 && Wo <= (W + 1) / 2;
   const bool bad =
       N < 1 || H < 1 || W < 1 || Cin < 16 || Cin % 16 || Cout < 1 ||
-      (ks != 2 && ks != 3) || Ho < 1 || Wo < 1 ||
-      Ho > H - (ks == 2) || Wo > W - (ks == 2) ||
-      (go != 0 && (go < 1 || 4 * go != Cout)) || grid < 1 || route < 0 ||
-      route > 1;
+      !(s1 || s2) || Ho < 1 || Wo < 1 ||
+      (go != 0 && (go < 1 || 4 * go != Cout || f32out)) || grid < 1 ||
+      route < 0 || route > 1;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   p.n_tiles = go ? (go + GN - 1) / GN : (Cout + BN - 1) / BN;
   const uint64_t b_rows = go ? static_cast<uint64_t>(p.n_tiles) * BN
@@ -857,7 +985,7 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
     p.ptiles = N * p.rtiles * p.ctiles;
     p.tiles = p.ptiles * p.n_tiles;
   } else {
-    if (ks != 3 || Cin % KC || Ho != H || Wo != W) {
+    if (ks != 3 || stride != 1 || Cin % KC || Ho != H || Wo != W) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.M = N * H * W;
@@ -876,7 +1004,7 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap mx, mb;
+  CUtensorMap mx, mo, mb;
   const uint64_t xdims[4] = {static_cast<uint64_t>(Cin),
                              static_cast<uint64_t>(W),
                              static_cast<uint64_t>(H),
@@ -889,15 +1017,35 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
   if (route == 0) {
     const CUtensorMapSwizzle sw =
         kb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-    const uint32_t xbox[4] = {static_cast<uint32_t>(kb), PC, TR, 1};
-    CUresult r = tma::encode_s8(&mx, x, 4, xdims, xstrides, xbox, sw);
+    const uint32_t ukb = static_cast<uint32_t>(kb);
+    CUresult r;
+    if (stride == 1) {
+      const uint32_t xbox[4] = {ukb, PC, TR, 1};
+      r = tma::encode_s8(&mx, x, 4, xdims, xstrides, xbox, sw);
+      mo = mx;
+    } else {
+      // every other column and row: a box of 2n elements lands n
+      const uint32_t every2[4] = {1, 2, 2, 1};
+      const uint32_t pe = TC + (ks - 1) / 2;
+      const uint32_t ebox[4] = {ukb, 2 * pe, 2 * TR, 1};
+      r = tma::encode_s8(&mx, x, 4, xdims, xstrides, ebox, sw, every2);
+      mo = mx;
+      if (r == CUDA_SUCCESS && ks == 3) {
+        const uint32_t obox[4] = {ukb, 2 * TC, 2 * TR, 1};
+        r = tma::encode_s8(&mo, x, 4, xdims, xstrides, obox, sw, every2);
+      }
+    }
     if (r == CUDA_SUCCESS) {
-      const uint32_t bbox[2] = {static_cast<uint32_t>(kb), BN};
+      const uint32_t bbox[2] = {ukb, BN};
       r = tma::encode_s8(&mb, wt, 2, bdims, bstride, bbox, sw);
     }
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-    return ks == 3 ? launch_patch_ks<3>(mx, mb, p, kb, grid, st)
-                   : launch_patch_ks<2>(mx, mb, p, kb, grid, st);
+    if (stride == 2) {
+      return ks == 3 ? launch_patch_ks<3, 2>(mx, mo, mb, p, kb, grid, st)
+                     : launch_patch_ks<1, 2>(mx, mo, mb, p, kb, grid, st);
+    }
+    return ks == 3 ? launch_patch_ks<3, 1>(mx, mo, mb, p, kb, grid, st)
+                   : launch_patch_ks<2, 1>(mx, mo, mb, p, kb, grid, st);
   }
   // the bounding box of a tap's top-left corner: columns -1 .. W-2, rows
   // -1 .. H-2 (the output grid, one pixel up and left)

@@ -39,11 +39,15 @@ namespace tma {
 // elements of a box read as zeros (FLOAT_OOB_FILL_NONE). `swizzle` is the
 // shared-memory layout of the box (CU_TENSOR_MAP_SWIZZLE_128B for a wgmma
 // operand: the box's inner extent is then at most 128 bytes, and its
-// destination 1024-byte aligned). Returns the encode's CUresult.
+// destination 1024-byte aligned). `elem` (rank long, or null for all
+// ones) are the traversal strides: a box of box[i] elements along
+// dimension i lands every elem[i]-th of them, box[i] / elem[i] elements,
+// densely (the innermost stride must be 1). Returns the encode's CUresult.
 inline CUresult encode_s8(
     CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
     const uint64_t* strides, const uint32_t* box,
-    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE,
+    const uint32_t* elem = nullptr) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -67,7 +71,7 @@ inline CUresult encode_s8(
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
-    e[i] = 1;
+    e[i] = elem != nullptr ? elem[i] : 1;
   }
   for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,

@@ -2,14 +2,16 @@
 
 Counterpart of ``dnn_inference_engine_tpu/models/model.py``. Params are
 a list with one dict per layer:
-  Conv fp32:  {"w": f32 HWIO, "b": f32}
-  Conv int8:  {"wq": int8 HWIO, "s_w": f32 (Cout,), "b": f32}
-  otherwise:  {}
+  Conv/Dense fp32:  {"w": f32 HWIO or (Cin, Cout), "b": f32}
+  Conv/Dense int8:  {"wq": int8, "s_w": f32 (Cout,), "b": f32}
+  otherwise:        {}
 
 ``act_scales[li]`` is the calibrated scale of the tensor entering layer
 li (``act_scales[n_layers]``: the final output). The w8a8 forward keeps
 tensors int8 between convs; max pools and upsamples are scale-preserving,
-and a route rescales its pieces to its own output scale in f32.
+a route rescales its pieces to its own output scale in f32, and a
+shortcut adds its two sides in f32 and requantizes; the global average
+pool and the dense head are f32.
 
 Every forward takes the JAX package's ``kernel`` tier: ``xla`` (the
 default), ``pallas`` (the port's gemm tier, forced on every conv) or
@@ -24,20 +26,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from dnn_inference_engine_tpu_torch.models.layers import (
-    Conv, Dense, MaxPool, Route, Shortcut, Upsample,
+    Conv, Dense, GlobalAvgPool, MaxPool, Route, Shortcut, Upsample,
 )
 from dnn_inference_engine_tpu_torch.ops.conv import (
     conv2d_fp32, conv2d_w8, conv2d_w8a8)
 from dnn_inference_engine_tpu_torch.ops.dispatch import (
     conv2d_fp32_dispatch, conv2d_w8_dispatch, conv2d_w8a8_dispatch)
+from dnn_inference_engine_tpu_torch.ops.activations import apply_activation
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import dequantize, quantize_act
-
-
-def _unported(layer):
-    return NotImplementedError(
-        f"{type(layer).__name__} layers are ported with ResNet-18 "
-        "(ROADMAP item A10)")
 
 
 def _upsample_nearest(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -49,6 +46,38 @@ def _upsample_nearest(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 def _to_f32(t: torch.Tensor, s) -> torch.Tensor:
     return t if s is None else dequantize(t, s)
+
+
+def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(N, Cin) @ (Cin, Cout) in full float32, TF32 off whatever the
+    caller's setting: the JAX package's ``Precision.HIGHEST``."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return x @ w
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def dense_weights(q: Dict) -> torch.Tensor:
+    """A quantized dense layer's f32 weights, ``wq * s_w`` per output
+    column (the JAX forwards' order)."""
+    return q["wq"].to(torch.float32) * q["s_w"]
+
+
+def _graph_layer(layer, x, outs):
+    """The fp32 and w8 forwards' non-conv layers (all f32 tensors)."""
+    if isinstance(layer, MaxPool):
+        return maxpool(x, layer.size, layer.stride, layer.padding)
+    if isinstance(layer, Route):
+        return torch.cat([outs[j] for j in layer.layers], dim=-1)
+    if isinstance(layer, Shortcut):
+        return apply_activation(x + outs[layer.frm], layer.act)
+    if isinstance(layer, Upsample):
+        return _upsample_nearest(x, layer.stride)
+    if isinstance(layer, GlobalAvgPool):
+        return torch.mean(x, dim=(1, 2))
+    raise TypeError(f"unknown layer {layer!r}")
 
 
 class Model:
@@ -102,10 +131,13 @@ class Model:
                                 generator=generator) * (2.0 / fan_in) ** 0.5
                 b = 0.01 * torch.randn(layer.out_ch, generator=generator)
                 params.append({"w": w.to(device), "b": b.to(device)})
-            elif isinstance(layer, (MaxPool, Route, Upsample)):
-                params.append({})
+            elif isinstance(layer, Dense):
+                w = torch.randn(prev, layer.out,
+                                generator=generator) * (2.0 / prev) ** 0.5
+                b = 0.01 * torch.randn(layer.out, generator=generator)
+                params.append({"w": w.to(device), "b": b.to(device)})
             else:
-                raise _unported(layer)
+                params.append({})
             prev = chans[li]
         return params
 
@@ -130,14 +162,11 @@ class Model:
             if isinstance(layer, Conv):
                 x = conv_fn(x, p["w"], p["b"], act=layer.act,
                             stride=layer.stride, padding=layer.padding)
-            elif isinstance(layer, MaxPool):
-                x = maxpool(x, layer.size, layer.stride, layer.padding)
-            elif isinstance(layer, Route):
-                x = torch.cat([outs[j] for j in layer.layers], dim=-1)
-            elif isinstance(layer, Upsample):
-                x = _upsample_nearest(x, layer.stride)
+            elif isinstance(layer, Dense):
+                x = apply_activation(dense_f32(x, p["w"]) + p["b"],
+                                     layer.act)
             else:
-                raise _unported(layer)
+                x = _graph_layer(layer, x, outs)
             outs.append(x)
         captured.append(x)
         result = self._select_outputs(outs, x)
@@ -159,14 +188,11 @@ class Model:
             if isinstance(layer, Conv):
                 x = conv_fn(x, p["wq"], p["s_w"], p["b"], act=layer.act,
                             stride=layer.stride, padding=layer.padding)
-            elif isinstance(layer, MaxPool):
-                x = maxpool(x, layer.size, layer.stride, layer.padding)
-            elif isinstance(layer, Route):
-                x = torch.cat([outs[j] for j in layer.layers], dim=-1)
-            elif isinstance(layer, Upsample):
-                x = _upsample_nearest(x, layer.stride)
+            elif isinstance(layer, Dense):
+                x = apply_activation(dense_f32(x, dense_weights(p)) + p["b"],
+                                     layer.act)
             else:
-                raise _unported(layer)
+                x = _graph_layer(layer, x, outs)
             outs.append(x)
         result = self._select_outputs(outs, x)
         if capture_outputs:
@@ -206,8 +232,20 @@ class Model:
                               dim=-1)
                 x = quantize_act(x, s_next)
                 cur_scale = s_next
+            elif isinstance(layer, Shortcut):
+                x = _to_f32(x, cur_scale) + _to_f32(*outs[layer.frm])
+                x = quantize_act(apply_activation(x, layer.act), s_next)
+                cur_scale = s_next
+            elif isinstance(layer, GlobalAvgPool):
+                x = torch.mean(_to_f32(x, cur_scale), dim=(1, 2))
+                cur_scale = None
+            elif isinstance(layer, Dense):
+                q = qparams[li]
+                x = dense_f32(_to_f32(x, cur_scale), dense_weights(q))
+                x = apply_activation(x + q["b"], layer.act)
+                cur_scale = None
             else:
-                raise _unported(layer)
+                raise TypeError(f"unknown layer {layer!r}")
             outs.append((x, cur_scale))
         if self.out_layers is not None:
             result = tuple(_to_f32(*outs[j]) for j in self.out_layers)

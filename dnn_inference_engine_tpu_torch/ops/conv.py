@@ -9,11 +9,13 @@ int8 conv is a kernel of the port: ``conv2d_w8a8`` launches
 reads the activation in place, with the conv-order epilogue and,
 optionally, a fold stage's group-max) for every form that
 ``conv_w8a8_form`` gives it: the 3x3 SAME and shifted-fold 2x2 VALID
-convs of the plans and of ``Model.forward``. A 1x1 conv is the fused
-int8 GEMM (ops/gemm.py) on a view of the activation; the forms the
-kernel refuses (Cin % 16 != 0, f32 output from a k > 1 conv, stride !=
-1) take an im2col and that GEMM. ``conv2d_w8a8_plain`` is the plain
-version of the whole function.
+convs of the plans and of ``Model.forward``, int8 or (a linear conv, no
+group-max) f32 out, and ResNet-18's stride-2 3x3 and 1x1 SAME convs. A
+1x1 stride-1 conv is the fused int8 GEMM (ops/gemm.py) on a view of the
+activation; the forms the kernel refuses (Cin % 16 != 0, any other
+kernel size, stride or padding: ResNet-18's 7x7/s2 stem, Cin 3) take an
+im2col and that GEMM. ``conv2d_w8a8_plain`` is the plain version of the
+whole function.
 """
 
 from __future__ import annotations
@@ -125,10 +127,10 @@ class ConvForm(NamedTuple):
     """How ``conv2d_w8a8`` runs a conv on the card. ``route``: "patch" or
     "tap" (the kernel, by its two ways of bringing A to wgmma), "gemm" (a
     1x1 conv: ``gemm_fused`` on a view of the activation) or "im2col" (a
-    form the kernel refuses: im2col + ``gemm_fused``). ``kb``: bytes of
-    Cin a patch step (the boxes' inner extent); ``steps`` a tile's K
-    steps (patch: k tap rows x ceil(Cin/kb); tap: 9 taps x Cin/128
-    chunks); ``tiles`` block tiles, ``grid`` persistent blocks.
+    form the kernel refuses: im2col + ``gemm_fused``).
+    ``kb``: bytes of Cin a patch step (the boxes' inner extent); ``steps``
+    a tile's K steps (patch: k tap rows x ceil(Cin/kb); tap: 9 taps x
+    Cin/128 chunks); ``tiles`` block tiles, ``grid`` persistent blocks.
 
     The schedule (``conv_schedule``): the first ``sk_tiles`` tiles are
     summed stream-K, their ``sk_tiles * steps`` (tile, step) iterations
@@ -159,11 +161,14 @@ class Work(NamedTuple):
 
 
 def conv_out_hw(h: int, w: int, k: int, padding="SAME",
-                out_hw=None) -> Tuple[int, int]:
-    """The (Ho, Wo) of a stride-1 k x k conv with "SAME" or "VALID"
-    ``padding`` on an (h, w) input, trimmed to ``out_hw`` (the
+                out_hw=None, stride: int = 1) -> Tuple[int, int]:
+    """The (Ho, Wo) of a k x k conv with "SAME" or "VALID" ``padding`` at
+    ``stride`` on an (h, w) input, trimmed to ``out_hw`` (the
     shifted-fold stages' real rows and columns, ``extract_patches``)."""
-    ho, wo = (h, w) if padding == "SAME" else (h - k + 1, w - k + 1)
+    if padding == "SAME":
+        ho, wo = -(-h // stride), -(-w // stride)
+    else:
+        ho, wo = (h - k) // stride + 1, (w - k) // stride + 1
     if out_hw is not None:
         ho, wo = min(ho, out_hw[0]), min(wo, out_hw[1])
     return ho, wo
@@ -250,28 +255,36 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
     before any launch:
 
     - kh = kw = 1, stride 1: "gemm" (the conv is the GEMM of a view);
-    - the kernel's forms, int8 output (``quantized``, the conv order with
-      an s_out), stride 1, Cin % 16 == 0, and k = 3 SAME or k = 2 VALID
-      (with ``gmax`` also Cout % 4 == 0):
-      - "tap" for k = 3 SAME, Cin % 128 == 0, W <= 31, untrimmed: the
-        batch folded into M, one im2col box of the copy engine a (tap,
-        128 channels) step (the kernel takes any width; PATCH keeps the
-        52 and 104 px layers, where TAP was not timed against it);
+    - the kernel's forms, Cin % 16 == 0, int8 output in the conv order
+      (``quantized``, an s_out) or f32 (no ``gmax``), and at stride 1 k =
+      3 SAME or k = 2 VALID (with ``gmax`` also Cout % 4 == 0), at stride
+      2 k = 3 or 1 SAME, no ``gmax``:
+      - "tap" for stride 1, k = 3 SAME, Cin % 128 == 0, W <= 31,
+        untrimmed: the batch folded into M, one im2col box of the copy
+        engine a (tap, 128 channels) step (the kernel takes any width;
+        PATCH keeps the 52 and 104 px layers, where TAP was not timed
+        against it);
       - "patch" for the rest: 16 x 8 pixel tiles of the trimmed output,
-        64-byte steps up to Cin 64, else 128;
+        64-byte steps up to Cin 64, else 128 (at stride 2, a step's boxes
+        land every other row and column of the input; the 1x1/s2
+        projections of ResNet-18 too, which took 0.0419 ms at b32 where
+        ``gemm_fused`` on one strided copy took 0.0473, PERF.md);
       each with ``conv_schedule``'s schedule;
     - anything else: "im2col" (ROADMAP B13).
     """
     if kh == kw == 1 and stride == 1 and not gmax:
         return ConvForm("gemm")
-    k_ok = (kh, kw, padding) in ((3, 3, "SAME"), (2, 2, "VALID"))
-    if (not quantized or stride != 1 or not k_ok or cin % 16
-            or (gmax and cout % 4)):
+    if stride == 1:
+        k_ok = (kh, kw, padding) in ((3, 3, "SAME"), (2, 2, "VALID"))
+    else:
+        k_ok = (stride == 2 and kh == kw and kh in (1, 3)
+                and padding == "SAME" and not gmax)
+    if (not k_ok or cin % 16 or (gmax and (cout % 4 or not quantized))):
         return ConvForm("im2col")
-    ho, wo = conv_out_hw(h, w, kh, padding, out_hw)
+    ho, wo = conv_out_hw(h, w, kh, padding, out_hw, stride)
     n_tiles = (-(-(cout // 4) // (WG_BN // 4)) if gmax
                else -(-cout // WG_BN))
-    if (kh == 3 and cin % TAP_KC == 0 and w <= TAP_MAX_W
+    if (kh == 3 and stride == 1 and cin % TAP_KC == 0 and w <= TAP_MAX_W
             and (ho, wo) == (h, w)):
         route, kb = "tap", 0
         tiles = -(-(n * h * w) // WG_BM) * n_tiles
@@ -287,13 +300,14 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
 
 def _im2col_conv(gemm, xq, s_in, wq, s_w, b, act, stride, padding, s_out,
                  wt, out_hw, gmax):
-    """im2col (none for a 1x1 conv: the GEMM reads the activation), then
-    ``gemm`` (``gemm_fused`` or its plain version) in the conv order, then
-    the group-max."""
+    """im2col (none for a 1x1 conv: the GEMM reads the activation, at
+    stride 2 its even rows and columns, which are what XLA's SAME and
+    VALID pads leave a 1x1 window), then ``gemm`` (``gemm_fused`` or its
+    plain version) in the conv order, then the group-max."""
     kh, kw, _, cout = wq.shape
-    if (kh == kw == 1 and stride == 1 and out_hw is None
+    if (kh == kw == 1 and out_hw is None
             and padding in ("SAME", "VALID")):
-        patches = xq
+        patches = xq[:, ::stride, ::stride]
     else:
         patches = extract_patches(xq, kh, kw, stride, padding, out_hw)
     n, ho, wo, k = patches.shape
@@ -370,21 +384,24 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
     else:
         bt = wt if wt is not None else kmajor_weights(wq)
     scale = f32_scalar(s_in, xq.device) * s_w
-    ho, wo = conv_out_hw(h, w, kh, padding, out_hw)
-    return conv_w8a8_launch(xq, bt, scale, b, s_out, kh, ho, wo, go, act, f)
+    ho, wo = conv_out_hw(h, w, kh, padding, out_hw, stride)
+    return conv_w8a8_launch(xq, bt, scale, b, s_out, kh, ho, wo, go, act, f,
+                            stride)
 
 
 def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, s_out: Scale, k: int, ho: int,
-                     wo: int, go: int, act: str, f: ConvForm) -> torch.Tensor:
+                     bias: torch.Tensor, s_out: Optional[Scale], k: int,
+                     ho: int, wo: int, go: int, act: str, f: ConvForm,
+                     stride: int = 1) -> torch.Tensor:
     """One launch of ``csrc/conv_w8a8.cu`` on operands ``conv2d_w8a8``
     prepared: x (N, H, W, Cin) int8 on the card; bt the K-major weight
     matrix (``kmajor_weights(w)``, or with ``go`` > 0 channels a pool
     group ``rs_tile_matrix(w, go)``); scale = s_in*s_w and bias, (Cout,)
-    float32; the k x k conv (k 3 SAME, 2 VALID) trimmed to (ho, wo), in
-    the form ``f`` of ``conv_w8a8_form`` (route "patch" or "tap", with its
-    schedule). Returns (N, ho, wo, go or Cout) int8; counts in
-    ``conv2d_w8a8.launches``."""
+    float32; the k x k conv (stride 1: k 3 SAME, 2 VALID; stride 2: k 3
+    or 1 SAME) trimmed to (ho, wo), in the form ``f`` of
+    ``conv_w8a8_form`` (route "patch" or "tap", with its schedule).
+    Returns (N, ho, wo, go or Cout) int8, or with ``s_out`` None the
+    float32 act(acc*scale + bias); counts in ``conv2d_w8a8.launches``."""
     routes = ("patch", "tap")
     if f.route not in routes:
         raise ValueError(f"conv_w8a8_launch: route {f.route!r} is not the "
@@ -403,7 +420,12 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     bt = bt.contiguous()
     scale = scale.contiguous()
     bias = bias.to(torch.float32).contiguous()
-    out = torch.empty((n, ho, wo, go or cout), dtype=torch.int8,
+    f32out = s_out is None
+    if f32out and go:
+        raise ValueError("conv_w8a8_launch: the group-max takes int8 codes "
+                         "(an s_out)")
+    out = torch.empty((n, ho, wo, go or cout),
+                      dtype=torch.float32 if f32out else torch.int8,
                       device=x.device)
     if out.numel() == 0:
         return out
@@ -412,11 +434,12 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
                                                f.grid))
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("conv_w8a8", "conv_w8a8",
-                         [p, p, p, p, ctypes.c_float, p] + [i] * 17
+                         [p, p, p, p, ctypes.c_float, p] + [i] * 19
                          + [p, p, p])
     err = fn(x.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             float(s_out), out.data_ptr(), n, h, w, cin, cout, k, ho, wo,
-             go, KERNEL_ACT_CODES[act], routes.index(f.route), f.kb,
+             0.0 if f32out else float(s_out), out.data_ptr(), n, h, w, cin,
+             cout, k, stride, ho, wo, go, KERNEL_ACT_CODES[act], int(f32out),
+             routes.index(f.route), f.kb,
              f.steps, f.grid, f.sk_tiles, f.sk_blocks, f.slots,
              ptr_or_none(ws), ptr_or_none(cnt), _build.stream_ptr(x.device))
     conv2d_w8a8.launches += 1
@@ -426,5 +449,6 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
 
 conv2d_w8a8.launches = 0
 # convs in a form the kernel refuses (conv_w8a8_form's "im2col" route):
-# on the plans' paths none; Model.forward's entry conv (Cin 3)
+# on the YOLO plans' paths none; Model.forward's entry conv (Cin 3) and
+# ResNet-18's 7x7/s2 stem (Cin 3)
 conv2d_w8a8.im2col_launches = 0

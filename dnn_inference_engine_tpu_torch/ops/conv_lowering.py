@@ -55,10 +55,9 @@ def extract_patches(x: torch.Tensor, kh: int, kw: int, stride: int,
         ho, wo = min(ho, out_hw[0]), min(wo, out_hw[1])
     if kh == kw == 1 and stride == 1:
         return xp[:, :ho, :wo]
-    pieces = [xp[:, i:i + (ho - 1) * stride + 1:stride,
-                 j:j + (wo - 1) * stride + 1:stride]
-              for i in range(kh) for j in range(kw)]
-    return torch.cat(pieces, dim=-1)
+    # one copy of the (N, Ho, Wo, kh, kw, C) window view
+    win = xp.unfold(1, kh, stride).unfold(2, kw, stride)[:, :ho, :wo]
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(n, ho, wo, kh * kw * c)
 
 
 def gemm_weights(wq: torch.Tensor) -> torch.Tensor:

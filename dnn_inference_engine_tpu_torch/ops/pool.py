@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from dnn_inference_engine_tpu_torch.ops.conv_lowering import _same_pads
+
 
 def _lowest(dtype: torch.dtype):
     if dtype.is_floating_point:
@@ -23,16 +25,22 @@ def maxpool(x: torch.Tensor, size: int = 2, stride: int = 2,
     stride == 1: darknet's 'same' pool — the window runs past the right
     and bottom edges only, which are padded with the dtype's minimum
     (-inf for f32, -128 for int8), so the output keeps the input's size.
+    padding "SAME" with stride > 1 (the ResNet-18 stem's 3x3/s2 pool):
+    XLA's SAME pads, ceil(H / stride) outputs, the padding split with
+    the smaller half first (112 px, 3x3/s2: 0 rows top and left, 1
+    bottom and right), filled with the dtype's minimum.
     """
-    if padding == "SAME" and stride != 1:
-        raise NotImplementedError(
-            "symmetric SAME max-pool (ResNet-18 stem) is ported with the "
-            "stretch models, ROADMAP item A10")
     n, h, w, c = x.shape
     if stride == 1:
-        xp = torch.full((n, h + size - 1, w + size - 1, c), _lowest(x.dtype),
+        ph, pw = (0, size - 1), (0, size - 1)
+    elif padding == "SAME":
+        ph, pw = _same_pads(h, size, stride), _same_pads(w, size, stride)
+    else:
+        ph = pw = (0, 0)
+    if any(ph + pw):
+        xp = torch.full((n, h + sum(ph), w + sum(pw), c), _lowest(x.dtype),
                         dtype=x.dtype, device=x.device)
-        xp[:, :h, :w] = x
+        xp[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w] = x
     else:
         xp = x
     ho = (xp.shape[1] - size) // stride + 1

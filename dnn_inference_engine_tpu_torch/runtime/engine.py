@@ -213,8 +213,9 @@ class Engine:
     @torch.no_grad()
     def _fwd(self, x: torch.Tensor):
         """The f32 head, or the tuple of heads (YOLOv3-tiny). A uint8
-        batch is divided by 255 here unless a w8a8 plan's entry stage
-        ingests it."""
+        batch is divided by 255 here, on the device, unless a w8a8 plan's
+        entry stage ingests it (ResNet-18's entry is an ``xla`` stage,
+        which does not)."""
         mode = self.config.mode
         if x.dtype == torch.uint8 and not (
                 self._plan is not None and mode == "w8a8"
@@ -235,9 +236,13 @@ class Engine:
         """heads -> (boxes xyxy (B,D,4), scores (B,D), classes (B,D)).
         YOLOv3-tiny's two heads decode with their anchor halves and
         concatenate along the candidate axis, 13x13 head first (the
-        order sets the NMS tie-breaks)."""
+        order sets the NMS tie-breaks). A classifier (ResNet-18) is not a
+        detector and raises ``ValueError``, as in the JAX engine."""
         c = self.config
-        if self.model.name == "yolov3-tiny":
+        if self.model.name == "yolov2-tiny":
+            boxes, scores = decode_yolov2_cols(
+                heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
+        elif self.model.name == "yolov3-tiny":
             h1, h2 = heads
             b1, s1 = decode_yolov3_cols(h1, YOLOV3_TINY_ANCHORS[3:],
                                         c.num_classes, c.input_size)
@@ -246,8 +251,7 @@ class Engine:
             boxes = torch.cat([b1, b2], dim=-1)
             scores = torch.cat([s1, s2], dim=-1)
         else:
-            boxes, scores = decode_yolov2_cols(
-                heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
+            raise ValueError(f"{self.model.name} is not a detector")
         return device_nms_cols(boxes, scores,
                                iou_thresh=c.nms_iou_thresh,
                                score_thresh=c.score_thresh,
@@ -279,7 +283,8 @@ class Engine:
         return b.cpu().numpy(), s.cpu().numpy(), cl.cpu().numpy()
 
     def classify(self, images):
-        """Image batch -> the f32 head as numpy, or a tuple of them."""
+        """Image batch -> the f32 head as numpy (ResNet-18: the (N,
+        num_classes) logits), or a tuple of them (YOLOv3-tiny)."""
         if not self._prepared:
             raise RuntimeError("prepare first")
         heads = self._fwd(self._device_batch(images))

@@ -38,6 +38,14 @@ there. Stage kinds of the W8A8 plan, with what runs them on the card:
   pool         ops/pool.maxpool
   route        dequantize the saved pieces, concat, requantize
   upsample     nearest repeat of the int8 tensor (keeps its scale)
+  shortcut     dequantize both sides (an f32 side as it is), add in f32,
+               the activation, requantize
+  gap          the global average pool, in f32 (scale None)
+  dense        f32 x (wq * s_w) + b, the activation (full float32)
+
+A stride-2 conv and a linear conv's f32 output (ResNet-18's projection
+skips and the second conv of each block) run as ``xla`` stages on
+``conv2d_w8a8``: the conv_w8a8 kernel's stride-2 and f32-output forms.
 
 Layer outputs consumed out of sequence (route sources, the heads of a
 multi-head model) are saved de-folded with their scale.
@@ -57,11 +65,12 @@ import numpy as np
 import torch
 
 from dnn_inference_engine_tpu_torch.models.layers import (
-    Conv, MaxPool, Route, Shortcut, Upsample,
+    Conv, Dense, GlobalAvgPool, MaxPool, Route, Shortcut, Upsample,
 )
 from dnn_inference_engine_tpu_torch.models.model import (
-    _to_f32, _upsample_nearest,
+    _to_f32, _upsample_nearest, dense_f32, dense_weights,
 )
+from dnn_inference_engine_tpu_torch.ops.activations import apply_activation
 from dnn_inference_engine_tpu_torch.ops.attic.stage0 import (
     build_stage0_weights_v2, dense_k_from_v2, stage0_fused_v2,
     stage0_tile_matrix)
@@ -89,7 +98,7 @@ class Stage:
     kind: str                     # conv kinds: stem_rs | stem_dg | s0
                                   # | fold_xla | fold_xla_k2 | fold_xla_s2
                                   # | rs | xla | gemm | auto; pool | route
-                                  # | upsample
+                                  # | upsample | shortcut | gap | dense
     conv_li: int                  # layer index this stage implements
     pool_li: Optional[int]        # fused following MaxPool layer (or None)
     fold: int = 1                 # 1 (unfolded) or fold factor (+ gmax)
@@ -281,12 +290,22 @@ def plan_or_reason(model, strategy: Optional[Dict] = None,
         elif isinstance(layer, Route):
             stages.append(Stage(kind="route", conv_li=li, pool_li=None))
             li += 1
+        elif isinstance(layer, Shortcut):
+            stages.append(Stage(kind="shortcut", conv_li=li, pool_li=None,
+                                act=layer.act))
+            li += 1
         elif isinstance(layer, Upsample):
             stages.append(Stage(kind="upsample", conv_li=li, pool_li=None))
             li += 1
+        elif isinstance(layer, GlobalAvgPool):
+            stages.append(Stage(kind="gap", conv_li=li, pool_li=None))
+            li += 1
+        elif isinstance(layer, Dense):
+            stages.append(Stage(kind="dense", conv_li=li, pool_li=None,
+                                act=layer.act))
+            li += 1
         else:
-            raise NotImplementedError(
-                f"{type(layer).__name__} plan stages are ROADMAP item A10")
+            return None, f"layer {li}: no plan stage for {layer!r}"
     # fold_xla_s2 emits the SHIFTED fold-2 layout; only a fold_xla_k2 f=2
     # stage right after it can read that
     for i, st in enumerate(stages):
@@ -325,7 +344,8 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
     and the conv_w8a8 kernel's without a group-max), and lay out the
     stem_dg kernel's weight slabs, the rs kernel's K-major matrix, the
     conv_w8a8 kernel's pool-major matrix of a fold stage and the s0
-    kernel's dense-K matrix and tile (each cached on its weights)."""
+    kernel's dense-K matrix and tile (each cached on its weights); a
+    dense stage keeps its params and gains its f32 weights ``w``."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -359,7 +379,9 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
                  "b": p["b"].repeat(f * f)}
         else:
             q = dict(p)
-        if st.kind == "stem_dg":
+        if st.kind == "dense":
+            q["w"] = dense_weights(q)
+        elif st.kind == "stem_dg":
             stem_dg_weight_slabs(q["wq"])
         elif st.kind == "rs":
             rs_weight_matrix(q["wq"])
@@ -456,6 +478,17 @@ def plan_forward_w8(model, stages: Sequence[Stage],
         elif st.kind == "upsample":
             x, cur_fold = _defold(x, cur_fold)
             x = _upsample_nearest(x, layers[li].stride)
+        elif st.kind == "shortcut":
+            x, cur_fold = _defold(x, cur_fold)
+            x = (x.to(torch.float32)
+                 + saved[layers[li].frm].to(torch.float32))
+            x = apply_activation(x, st.act).to(torch.bfloat16)
+        elif st.kind == "gap":
+            x, cur_fold = _defold(x, cur_fold)
+            x = torch.mean(x.to(torch.float32), dim=(1, 2))
+        elif st.kind == "dense":
+            x = apply_activation(
+                dense_f32(x.to(torch.float32), pp["w"]) + pp["b"], st.act)
         elif st.kind in ("fold_xla_k2", "stem_rs", "stem_dg"):
             f = st.fold
             if cur_fold != 1:
@@ -563,7 +596,7 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
     """One plan stage; returns (x, cur_scale, cur_fold). Scales are
     Python floats (f32-rounded where used), as the JAX plan's
     ``jnp.float32(act_scales[i])``. ``saved``: the de-folded outputs a
-    route stage reads (plan_forward_w8a8)."""
+    route or shortcut stage reads (plan_forward_w8a8)."""
     li = st.conv_li
     s_next = act_scales[li + 1]
     dev = x.device
@@ -580,6 +613,17 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
         x, cur_fold = _defold(x, cur_fold)
         x = _upsample_nearest(x, layers[li].stride)        # scale-preserving
         return x, cur_scale, cur_fold
+    if st.kind == "shortcut":
+        x, cur_fold = _defold(x, cur_fold)
+        x = _to_f32(x, cur_scale) + _to_f32(*saved[layers[li].frm])
+        x = apply_activation(x, st.act)
+        return quantize_act(x, s_next), s_next, 1
+    if st.kind == "gap":
+        x, cur_fold = _defold(x, cur_fold)
+        return torch.mean(_to_f32(x, cur_scale), dim=(1, 2)), None, cur_fold
+    if st.kind == "dense":
+        x = dense_f32(_to_f32(x, cur_scale), pp["w"]) + pp["b"]
+        return apply_activation(x, st.act), None, cur_fold
 
     if st.kind in ("stem_rs", "stem_dg"):
         # the whole stage 0 in one kernel: quantize (uint8 wire or f32) +

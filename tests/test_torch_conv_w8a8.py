@@ -12,7 +12,9 @@ Three things, at toy sizes:
   that take the kernel's mode 4;
 - a numpy replay of the kernel's two ways of bringing A to wgmma (PATCH:
   16 x 8 pixel tiles, a TMA box a tap row with the copy engine's zero
-  fill, the taps as row shifts, the trimmed output; TAP: the batch as
+  fill, the taps as row shifts, the trimmed output; at stride 2 (ResNet-18's
+  3x3/s2 and 1x1/s2 convs, XLA's SAME pads) two boxes a tap row landing
+  every other column and row, held to ``extract_patches``; TAP: the batch as
   flat rows, the copy engine's im2col box a (tap, chunk) step, walking
   the output grid across rows and images with its zero fill) under its
   schedules (round robin, stream-K pieces summed by the fixup), its
@@ -36,6 +38,8 @@ from dnn_inference_engine_tpu.ops import conv as jconv
 from dnn_inference_engine_tpu.runtime import plan as jplan
 
 from dnn_inference_engine_tpu_torch.ops import conv as tconv
+from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+    _same_pads, extract_patches)
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
     group_max4, rs_tile_matrix)
 from dnn_inference_engine_tpu_torch.ops.gemm import kmajor_weights
@@ -208,11 +212,32 @@ def _sum_units(f, tile_sum):
     return totals
 
 
-def replay_patch(x, w, pad, ho, wo, go, f):
+def _box(xi, n, c0, iy0, ix0, rows, cols, step, kb):
+    """A TMA box of ``rows`` x ``cols`` pixels of kb bytes from (c0, ix0,
+    iy0, n), every ``step``-th column and row (the map's traversal
+    strides), zeros outside the tensor."""
+    _, h, wd, _ = xi.shape
+    box = np.zeros((rows, cols, kb), np.int64)
+    for j in range(rows):
+        iy = iy0 + step * j
+        for i in range(cols):
+            ix = ix0 + step * i
+            if 0 <= iy < h and 0 <= ix < wd:
+                src = xi[n, iy, ix, c0:c0 + kb]
+                box[j, i, :src.shape[0]] = src
+    return box
+
+
+def replay_patch(x, w, pad, ho, wo, go, f, stride=1):
     """The PATCH route's int32 sums in (N, Ho, Wo, conv channel) order,
     under form ``f`` (kb, steps, schedule), with every tile row's pixel as
-    the epilogue maps it."""
+    the epilogue maps it. ``pad``: the pad before rows and columns (an
+    int) or (pad_h, pad_w). At stride 2 a step's A is two boxes with
+    traversal strides 2 (csrc/conv_w8a8.cu, Patch<KB, RES, KS, 2>): the
+    even columns, TC + (k-1)/2 of them, and for k = 3 the odd ones, TC;
+    tap column dw reads the even box from column dw/2 or the odd box."""
     n_img, h, wd, cin = x.shape
+    pad_h, pad_w = (pad, pad) if isinstance(pad, int) else pad
     ks, cout = w.shape[0], w.shape[3]
     bt = _b_rows(w, go)
     kb = f.kb
@@ -230,18 +255,23 @@ def replay_patch(x, w, pad, ho, wo, go, f):
         part = np.zeros((BM, BN), np.int64)
         for s in range(sb, se):
             dh, c0 = s // kc, s % kc * kb
-            # the box {kb, PC, TR, 1} at (c0, x0-pad, y0+dh-pad, n)
-            patch = np.zeros((TR, PC, kb), np.int64)
-            for j in range(TR):
-                iy = y0 + dh - pad + j
-                for i in range(PC):
-                    ix = x0 - pad + i
-                    if 0 <= iy < h and 0 <= ix < wd:
-                        src = xi[n, iy, ix, c0:c0 + kb]
-                        patch[j, i, :src.shape[0]] = src
+            iy0, ix0 = stride * y0 + dh - pad_h, stride * x0 - pad_w
+            if stride == 1:
+                # the box {kb, PC, TR, 1} at (c0, x0-pad, y0+dh-pad, n)
+                boxes = [_box(xi, n, c0, iy0, ix0, TR, PC, 1, kb)]
+            else:
+                boxes = [_box(xi, n, c0, iy0, ix0, TR, TC + (ks - 1) // 2,
+                              2, kb)]
+                if ks > 1:
+                    boxes.append(_box(xi, n, c0, iy0, ix0 + 1, TR, TC, 2,
+                                      kb))
             for dw in range(ks):
-                # core matrix j: patch row j from column dw
-                a = patch[:, dw:dw + TC].reshape(BM, kb)
+                # core matrix j: box row j from the tap's column
+                if stride == 1:
+                    a = boxes[0][:, dw:dw + TC]
+                else:
+                    a = boxes[dw % 2][:, dw // 2:dw // 2 + TC]
+                a = a.reshape(BM, kb)
                 bbox = _b_box(bt, nt * BN, (ks * dh + dw) * cin + c0, kb)
                 part += a @ bbox.T
         return part
@@ -412,6 +442,54 @@ def test_patch_replay_matches_plain(case):
                                    padding=padding, s_out=0.05,
                                    out_hw=out_hw, gmax=gmax)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# (x shape, k, Cout, schedule on SMs): the stride-2 PATCH forms of
+# ResNet-18 (k = 3 and the 1x1 projection, SAME) at even sizes (no pad at
+# the top: output row i reads rows 2i .. 2i+2) and odd ones (one pad row
+# at the top), 64-byte and 128-byte steps (Cin 160: a ragged last chunk),
+# a tile's rows past the input, round robin and stream-K
+S2_CASES = [((2, 14, 14, 64), 3, 128, ("own", 4)),
+            ((1, 15, 13, 64), 3, 72, ("own", 3)),
+            ((1, 36, 20, 32), 3, 64, ("sk", 5)),
+            ((1, 9, 18, 160), 3, 128, ("sk", 3)),
+            ((2, 14, 12, 64), 1, 128, ("own", 3)),
+            ((1, 13, 17, 256), 1, 136, ("sk", 4))]
+
+
+@pytest.mark.parametrize("f32out", [False, True])
+@pytest.mark.parametrize("case", S2_CASES, ids=str)
+def test_patch_stride2_replay_matches_extract_patches(case, f32out):
+    """The stride-2 PATCH route's sums equal the int product of
+    ``extract_patches`` (XLA's SAME pads) with the weights; its int8 codes
+    (or, ``f32out``, the float32 epilogue, each step rounded) equal the
+    plain version."""
+    xs, k, cout, schedule = case
+    r = np.random.default_rng(sum(xs) + k)
+    x, w, s_w, b = _args(r, xs, k, cout)
+    n, h, wd, cin = xs
+    ho, wo = -(-h // 2), -(-wd // 2)
+    f = tconv.conv_w8a8_form(*xs, cout, k, k, 2, "SAME", None, not f32out,
+                             False, schedule[1])
+    assert f.route == "patch" and f.kb == (64 if cin <= 64 else 128)
+    assert f.steps == k * -(-cin // f.kb)
+    f = _scheduled(f, schedule)
+    pads = (_same_pads(h, k, 2)[0], _same_pads(wd, k, 2)[0])
+    acc, seen = replay_patch(x, w, pads, ho, wo, 0, f, stride=2)
+    np.testing.assert_array_equal(seen, 1)
+    patches = extract_patches(T(x), k, k, 2, "SAME").numpy().astype(np.int64)
+    ref = patches @ w.reshape(k * k * cin, cout).astype(np.int64)
+    np.testing.assert_array_equal(acc, ref)
+    want = tconv.conv2d_w8a8_plain(T(x), 0.02, T(w), T(s_w), T(b),
+                                   stride=2, s_out=None if f32out else 0.05)
+    if f32out:
+        y = (acc.astype(np.int32).astype(np.float32)
+             * (np.float32(0.02) * s_w) + b)
+        got = np.where(y > 0, y, np.float32(0.1) * y)
+        np.testing.assert_array_equal(got, want.numpy())
+    else:
+        got = _codes(acc, s_w, b, 0.05, False)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 # (x shape, Cout, group-max, schedule on SMs): the TAP forms (ragged last

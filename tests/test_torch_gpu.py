@@ -1206,27 +1206,70 @@ def test_conv_w8a8_schedules_match_plain(cuda, deadline, case, schedule):
 
 
 def test_conv_w8a8_refused_forms_take_the_im2col_route(cuda):
-    """Cin % 16 != 0, f32 output from a 3x3 conv and stride 2 take the
-    im2col + gemm_fused route (its own counter, no kernel launch); a 1x1
-    conv the GEMM on a view (neither counter); each equals the plain
-    version."""
+    """Cin % 16 != 0 (a 3x3 or a 7x7/s2 stem) takes the im2col +
+    gemm_fused route (its own counter, no kernel launch); f32 output from
+    a 3x3 conv and the stride-2 forms (3x3 int8 out, 1x1 f32 out) take
+    the kernel; a 1x1 stride-1 conv the GEMM on a view
+    (neither counter); each equals the plain version, bit for bit."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     g = torch.Generator(device=cuda).manual_seed(5)
-    cases = [((2, 20, 20, 3), 3, 1, 0.05, 1),
-             ((2, 13, 13, 64), 3, 1, None, 1),
-             ((2, 14, 14, 32), 3, 2, 0.05, 1),
-             ((2, 13, 13, 64), 1, 1, 0.05, 0),
-             ((2, 13, 13, 64), 1, 1, None, 0)]
-    for xs, k, stride, s_out, im2col in cases:
+    # (x shape, k, stride, s_out, kernel launches, im2col launches)
+    cases = [((2, 20, 20, 3), 3, 1, 0.05, 0, 1),
+             ((2, 20, 20, 3), 7, 2, None, 0, 1),
+             ((2, 13, 13, 64), 3, 1, None, 1, 0),
+             ((2, 14, 14, 32), 3, 2, 0.05, 1, 0),
+             ((2, 13, 15, 128), 3, 2, 0.05, 1, 0),
+             ((2, 14, 14, 64), 1, 2, None, 1, 0),
+             ((2, 13, 13, 64), 1, 1, 0.05, 0, 0),
+             ((2, 13, 13, 64), 1, 1, None, 0, 0)]
+    for xs, k, stride, s_out, kern, im2col in cases:
         x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, 32, 0.05)
         before = (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches)
         got = cv.conv2d_w8a8(x, s_in, w, s_w, b, stride=stride, s_out=s_out)
         assert (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches) == (
-            before[0], before[1] + im2col), (xs, k, stride, s_out)
+            before[0] + kern, before[1] + im2col), (xs, k, stride, s_out)
         ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, stride=stride,
                                    s_out=s_out)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (xs, k, stride, s_out)
+
+
+# ResNet-18's conv_w8a8 forms at 224 px (b2 and b1): (tag, x shape, k,
+# stride, Cout, requantizes)
+RESNET_CONV_CASES = [
+    ("L3 f32 patch", (2, 56, 56, 64), 3, 1, 64, False),
+    ("L8 s2", (2, 56, 56, 64), 3, 2, 128, True),
+    ("L9 f32 tap", (2, 28, 28, 128), 3, 1, 128, False),
+    ("L11 proj", (2, 56, 56, 64), 1, 2, 128, False),
+    ("L16 s2", (2, 28, 28, 128), 3, 2, 256, True),
+    ("L19 proj", (2, 28, 28, 128), 1, 2, 256, False),
+    ("L24 s2", (1, 14, 14, 256), 3, 2, 512, True),
+    ("L27 proj", (1, 14, 14, 256), 1, 2, 512, False),
+    ("L30 f32 tap", (1, 7, 7, 512), 3, 1, 512, False)]
+
+
+@pytest.mark.parametrize("act", ["relu", "linear"])
+@pytest.mark.parametrize("case", RESNET_CONV_CASES,
+                         ids=[c[0] for c in RESNET_CONV_CASES])
+def test_conv_w8a8_resnet_forms_match_plain(cuda, deadline, case, act):
+    """The stride-2 and f32-output forms at ResNet-18's shapes: one kernel
+    launch, equal to the plain
+    version bit for bit, f32 output included (the same rounding order)."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    tag, xs, k, stride, cout, quant = case
+    g = torch.Generator(device=cuda).manual_seed(len(tag) + k)
+    x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, cout, 0.05)
+    s_out = 0.05 if quant else None
+    before = cv.conv2d_w8a8.launches
+    got = cv.conv2d_w8a8(x, s_in, w, s_w, b, act=act, stride=stride,
+                         s_out=s_out)
+    assert cv.conv2d_w8a8.launches == before + 1, tag
+    ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, act=act, stride=stride,
+                               s_out=s_out)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), (tag, float((got.double()
+                                               - ref.double()).abs().max()))
 
 
 @pytest.mark.parametrize("sign,s_out", [(-1.0, 0.05), (1.0, -0.05),

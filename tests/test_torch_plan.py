@@ -357,12 +357,14 @@ def test_build_plan_legality_grid_matches_jax(nets, c2):
 
 
 def test_unported_model_raises_with_roadmap_item():
-    """ResNet-18 (shortcut, global average pool, dense) is still to
-    come; an unknown name lists the ported models."""
+    """Every model of the JAX registry is ported: ResNet-18 (shortcut,
+    global average pool, dense) builds, and its plan too; an unknown name
+    still lists the models."""
     from dnn_inference_engine_tpu_torch.models import build_model
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model("resnet18")
-    with pytest.raises(ValueError, match="yolov3-tiny"):
+    m = build_model("resnet18")
+    assert len(m.layers) == 34 and m.out_channels()[-1] == 1000
+    assert tplan.build_plan(m) is not None
+    with pytest.raises(ValueError, match="resnet18.*yolov3-tiny"):
         build_model("yolov4")
 
 

@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from dnn_inference_engine_tpu.models import build_model as jbuild
@@ -33,9 +34,20 @@ SMALL = dict(batch=2, input_size=64, iters=(4, 2), reps=1,
              auto_iters=False, verbose=False, device="cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the sweeps run thousands of tiny ops: under ``-n 6`` a pool of
+    # intra-op threads in every worker spins the host's cores
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(torch_threads)
+
+
 @pytest.mark.parametrize("quick", [False, True])
 @pytest.mark.parametrize("mode", ["w8a8", "w8"])
-@pytest.mark.parametrize("model", ["yolov2-tiny", "yolov3-tiny"])
+@pytest.mark.parametrize("model", ["yolov2-tiny", "yolov3-tiny", "resnet18"])
 def test_candidate_entries_match_jax(model, mode, quick):
     jm, tm = jbuild(model), build_model(model)
     convs = tsweep._conv_indices(tm)
