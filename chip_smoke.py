@@ -5,6 +5,7 @@
                                           # the checkout in DIR, in turns
     python3 chip_smoke.py --front-door    # phase 10 alone
     python3 chip_smoke.py --resnet18      # phase 11 alone
+    python3 chip_smoke.py --profiling     # phase 12 alone
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -145,7 +146,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    gemm_fused in the ragged form, 1 im2col; fp32: 11 gemm_f32; w8: none),
    every conv_w8a8 launch of a W8A8 classify bit for bit, throughput,
    latency and the device breakdown; and ``plan-sweep --quick`` at b32 in
-   w8a8.
+   w8a8;
+12. profiling: one conv_w8a8 launch traced inside a stage scope must
+   land in it; ``Engine.stage_times_traced`` of the W8A8 YOLOv2-tiny pin
+   at 416 px (b32, b1) and ResNet-18 at 224 px (b32), with auto-scaled
+   loop counts and PROFILE_RUNS traced forwards: a line a stage (isolated
+   and in-context ms, executed work, traffic, binding floor and its
+   share), the trace's module time beside ``device_breakdown``'s busy time,
+   the trace time by stage kind; it fails where the trace rows miss the
+   module time by 2%, a kernel's traced count is not its launch count
+   after 3 traces, or a stage reads over BINDING_PCT_MAX of its floor in
+   context (or, resolved, looped alone); then the CLI's ``trace --detect`` (its post_decode and nms_*
+   scopes) and ``layer-times`` (fp32) in processes of their own.
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -161,6 +173,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from dnn_inference_engine_tpu_torch.runtime.benchlib import (
+    f32_peak, peaks, tf32_peak)
+from dnn_inference_engine_tpu_torch.runtime.profiling import (
+    device_breakdown, kernel_counters, read_counts, reset_counts)
 
 KERNELS = {
     "gemm_fused": dict(
@@ -316,36 +333,6 @@ BT_SHAPES = [("L8 b32", (32, 26, 26, 128), 256),
              ("L13 b32", (32, 13, 13, 1024), 1024),
              ("L12 b1", (1, 13, 13, 512), 1024),
              ("L13 b1", (1, 13, 13, 1024), 1024)]
-
-
-def peaks(name: str):
-    """(dense int8 ops/s, HBM bytes/s) from NVIDIA's data sheets for the
-    H100 variant the card's name gives."""
-    if "PCIe" in name:
-        return 1513e12, 2.0e12
-    if "NVL" in name:
-        return 1671e12, 3.9e12
-    return 1979e12, 3.35e12          # SXM
-
-
-def f32_peak(name: str) -> float:
-    """Float32 FMA operations/s outside the tensor cores (NVIDIA's data
-    sheets), for the same variants as ``peaks``."""
-    if "PCIe" in name:
-        return 51e12
-    if "NVL" in name:
-        return 60e12
-    return 67e12                     # SXM
-
-
-def tf32_peak(name: str) -> float:
-    """Dense TF32 tensor-core operations/s (NVIDIA's data sheets), for the
-    same variants as ``peaks``."""
-    if "PCIe" in name:
-        return 378e12
-    if "NVL" in name:
-        return 417e12
-    return 495e12                    # SXM
 
 
 def device_ms(fn, reps: int) -> float:
@@ -1430,36 +1417,6 @@ def phase_dma_kernels(dev, ops_peak, bw):
     return rows, launches
 
 
-def _counters():
-    from dnn_inference_engine_tpu_torch.ops import conv as cv
-    from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
-    from dnn_inference_engine_tpu_torch.ops import gemm as gm
-    from dnn_inference_engine_tpu_torch.ops.attic import stage0, tail
-    from dnn_inference_engine_tpu_torch.tools import probe_dma_rules as pr
-    from dnn_inference_engine_tpu_torch.tools import proto_conv_dma as pc
-    return {"gemm_fused": gm.gemm_fused, "gemm_f32": gm.gemm_f32,
-            "stem_fused_k2": fc.stem_fused_k2,
-            "shift_s2d2": fc.shift_s2d2, "stem_fused_dg": fc.stem_fused_dg,
-            "quant_space_to_depth4": fc.quant_space_to_depth4,
-            "gmax_shift_s2d2": fc.gmax_shift_s2d2,
-            "conv3x3_rs": fc.conv3x3_rs,
-            "stage0_fused": stage0.stage0_fused,
-            "conv3x3_bt": tail.conv3x3_bt,
-            "conv_dma": pc.conv_dma, "tma_probe": pr.probe,
-            "conv_w8a8": cv.conv2d_w8a8}
-
-
-def _reset_counts():
-    from dnn_inference_engine_tpu_torch.ops import conv as cv
-    from dnn_inference_engine_tpu_torch.ops import gemm as gm
-    for fn in _counters().values():
-        fn.launches = 0
-    cv.conv2d_w8a8.im2col_launches = 0
-    gm.gemm_fused.folded_launches = 0
-    gm.gemm_fused.ragged_launches = 0
-    gm.gemm_f32.ragged_launches = 0
-
-
 class GemmShapes:
     """While active, records the (M, K, N) of every ``gemm_fused`` call:
     each module of the port that holds the wrapper gets a recorder in its
@@ -1553,10 +1510,6 @@ class XlaTierIm2col:
     def __exit__(self, *exc):
         from dnn_inference_engine_tpu_torch.ops import conv as cv
         cv.extract_patches = self.fn
-
-
-def _read_counts():
-    return {k: fn.launches for k, fn in _counters().items()}
 
 
 def _heads(h):
@@ -1793,80 +1746,6 @@ def phase_card_vs_cpu(model: str, batch: int, check_calibration: bool,
     return gpu
 
 
-# (group, substring of the kernel's name); first match wins, so
-# gmax_shift_s2d2 comes before shift_s2d2. The three stems are
-# instantiations of one mainloop (csrc/stem_common.cuh), each under its own
-# kernel name.
-KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
-                 ("gemm_f32", "gemm_f32_kernel"),
-                 ("stem_fused_k2", "stem_k2_kernel"),
-                 ("stem_fused_dg", "stem_dg_kernel"),
-                 ("quant_space_to_depth4", "qs2d4_kernel"),
-                 ("gmax_shift_s2d2", "gmax_shift_s2d2_kernel"),
-                 ("conv3x3_rs", "conv_rs_kernel"),
-                 ("stage0_fused", "stage0_kernel"),
-                 ("conv3x3_bt", "conv_bt_kernel"),
-                 ("conv_dma", "conv_dma_kernel"),
-                 ("tma_probe", "tma_probe_kernel"),
-                 ("conv_w8a8", "conv_patch_kernel"),
-                 ("conv_w8a8", "conv_window_kernel"),
-                 ("conv_w8a8", "conv_tap_kernel"),
-                 ("shift_s2d2", "shift_s2d2_kernel"),
-                 ("im2col and route torch.cat", "CatArrayBatchedCopy"),
-                 ("host-to-device copies", "Memcpy HtoD"),
-                 # PyTorch's strided copies: im2col is one, of a window view
-                 ("strided copies (im2col)", "direct_copy_kernel"),
-                 # the layout transposes around cuDNN's convs (NHWC views
-                 # in, NCHW kernels), then cuDNN's float convs (the fp32
-                 # and w8 xla tiers), then PyTorch's elementwise passes
-                 ("NCHW/NHWC transposes", "nchwToNhwc"),
-                 ("NCHW/NHWC transposes", "nhwcToNchw"),
-                 ("cuDNN conv", "conv"), ("cuDNN conv", "xmma"),
-                 ("cuDNN conv", "fprop"), ("cuDNN conv", "winograd"),
-                 ("cuDNN conv", "implicit"), ("cuDNN conv", "cudnn"),
-                 ("torch elementwise", "elementwise_kernel"))
-
-
-def device_breakdown(fn, reps: int = 5):
-    """Device time and device operations per call by kernel group, from
-    ``torch.profiler`` over ``reps`` calls. The trace now and then lacks a
-    run of one call's kernels, so it must hold every port kernel exactly
-    as many times as its launch counter counted it: a trace that does not
-    is printed, dropped and taken again, and the phase fails after three
-    such traces."""
-    from torch.profiler import ProfilerActivity, profile
-
-    tries = 3
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, tries + 1):
-        _reset_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        launched = _read_counts()
-        names = [g for g, _ in KERNEL_GROUPS] + ["other"]
-        groups, ops = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            group = next((g for g, key in KERNEL_GROUPS if key in ev.key),
-                         "other")
-            groups[group] += us / 1e3 / reps
-            ops[group] += ev.count
-        lost = {k: (ops[k], n) for k, n in launched.items() if ops[k] != n}
-        if not lost:
-            return groups, {g: n / reps for g, n in ops.items()}
-        print(f"  trace {attempt} of {tries} lost kernel events over {reps} "
-              f"calls (traced, launched): {lost}; all ops traced "
-              f"{sum(ops.values())}")
-    raise AssertionError(f"{tries} traces of {reps} calls lost kernel events")
-
-
 def upload_wait_ms() -> float:
     """Host time of one float32 scale upload from a Python float (as the
     plan's stages make them) queued behind ~25-30 ms of device work: near
@@ -1897,7 +1776,7 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
-    want = {**dict.fromkeys(_counters(), 0), **want}
+    want = {**dict.fromkeys(kernel_counters(), 0), **want}
     cfg = EngineConfig(model=model, batch=batch,
                        strategy=strategy and strategy_file(strategy))
     if mode != cfg.mode:
@@ -1907,11 +1786,11 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     imgs = np.random.default_rng(2).integers(
         0, 256, (batch, 416, 416, 3)).astype(np.uint8)
     x = torch.as_tensor(imgs).cuda()
-    _reset_counts()
+    reset_counts()
     with XlaTierIm2col() as im2col:
         b, s, c = eng.detect(imgs)
         torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = read_counts()
     tag = f"{model} {mode} {strategy or 'pin'} b{batch}"
     if b.shape != (batch, 128, 4) or not np.isfinite(b).all():
         raise AssertionError(f"{tag}: bad detections {b.shape}")
@@ -1994,12 +1873,12 @@ def _generic_counts(gpu, tag: str, want: dict, want_folded: int,
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     imgs = np.random.default_rng(4).integers(
         0, 256, (2, 416, 416, 3)).astype(np.uint8)
-    _reset_counts()
+    reset_counts()
     gpu.classify(imgs)
     torch.cuda.synchronize()
-    counts, folded = _read_counts(), gm.gemm_fused.folded_launches
+    counts, folded = read_counts(), gm.gemm_fused.folded_launches
     im2col = cv.conv2d_w8a8.im2col_launches
-    want = {**dict.fromkeys(_counters(), 0), **want}
+    want = {**dict.fromkeys(kernel_counters(), 0), **want}
     print(f"  {tag}: launches per forward {counts}, folded-order (gemm "
           f"tier) gemm_fused {folded}, conv2d_w8a8 im2col route {im2col}")
     if gm.gemm_f32.ragged_launches:
@@ -2083,11 +1962,11 @@ def phase_w8_pallas_forward(card: str):
         x = torch.rand((2, 416, 416, 3),
                        generator=torch.Generator().manual_seed(5))
         ref = _heads(model.forward(q, x, mode="w8", kernel="pallas"))
-        _reset_counts()
+        reset_counts()
         got = _heads(model.forward(qg, x.cuda(), mode="w8",
                                    kernel="pallas"))
         torch.cuda.synchronize()
-        counts = _read_counts()
+        counts = read_counts()
         ragged = gm.gemm_f32.ragged_launches
         convs = sum(1 for p in q if "wq" in p)
         atol = F32_REL_TOL * max(float(h.abs().max()) for h in ref)
@@ -2096,7 +1975,7 @@ def phase_w8_pallas_forward(card: str):
               f" (tolerance {atol:.4g}); launches {counts}, of them the "
               f"ragged form (layer 0, K = 27) {ragged} [{card}]")
         if max(diffs) > atol or ragged != 1 or counts != {
-                **dict.fromkeys(_counters(), 0), "gemm_f32": convs}:
+                **dict.fromkeys(kernel_counters(), 0), "gemm_f32": convs}:
             raise AssertionError(f"w8 pallas forward {name}: diffs {diffs},"
                                  f" launches {counts}")
 
@@ -2474,17 +2353,17 @@ def phase_resnet_path(batch: int, mode: str, want: dict, card: str,
     throughput, latency and the device breakdown of the forward."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
-    want = {**dict.fromkeys(_counters(), 0), **want}
+    want = {**dict.fromkeys(kernel_counters(), 0), **want}
     eng = _resnet_engine(batch, mode, calib=_resnet_calib(), seed=0)
     imgs = np.random.default_rng(9).integers(
         0, 256, (batch, 224, 224, 3)).astype(np.uint8)
     x = torch.as_tensor(imgs).cuda()
     tag = f"resnet18 {mode} b{batch}"
-    _reset_counts()
+    reset_counts()
     with XlaTierIm2col() as im2col:
         logits = eng.classify(imgs)
         torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = read_counts()
     if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
         raise AssertionError(f"{tag}: bad logits {logits.shape}")
     got = (counts, gm.gemm_fused.ragged_launches, im2col.calls,
@@ -2574,6 +2453,137 @@ def phase_resnet18(card: str, ops_peak, bw):
             "latency_ms": v["lat"]} for k, v in paths.items()},
         "sweep_whole_net_ms": art["whole_net_ms"], "card": card}))
     return rows, paths["w8a8 b32"]["counts"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: profiling (stage scopes, trace_attribution, stage_times, the CLI)
+# ---------------------------------------------------------------------------
+
+# the W8A8 paths whose stages are profiled: (model, batch, input size)
+PROFILED = (("yolov2-tiny", 32, 416), ("yolov2-tiny", 1, 416),
+            ("resnet18", 32, 224))
+PROFILE_RUNS = 20                   # forwards a trace holds
+BINDING_PCT_MAX = 105.0             # a stage above it: a miscount or bad timing
+POST_SCOPES = ("post_decode", "nms_candidates", "nms_suppress", "nms_merge")
+
+
+def scope_link_check(card: str):
+    """One conv_w8a8 launch inside ``scope("stage0_xla_L0")``, traced: the
+    kernel, launched through ctypes with no ATen op around it, must land
+    in that scope, not in ``unattributed/``."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.runtime.profiling import (
+        scope, trace_attribution)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(-127, 128, (2, 52, 52, 128), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, 128, 256), generator=g, device=dev,
+                      dtype=torch.int8)
+    s_w = torch.rand(256, generator=g, device=dev) * 1e-3
+    b = torch.randn(256, generator=g, device=dev)
+
+    def fn(xx):
+        with scope("stage0_xla_L0"):
+            return cv.conv2d_w8a8(xx, 0.05, w, s_w, b, act="leaky",
+                                  s_out=0.05)
+    art = trace_attribution(fn, x, runs=5)
+    conv = [r for r in art["top_ops"] if r["group"] == "conv_w8a8"]
+    if not conv or any(r["scope"] != "stage0_xla_L0" for r in conv):
+        raise AssertionError(f"the conv_w8a8 launch is not attributed to "
+                             f"its scope: {art['by_scope_us']}")
+    print(f"scope link: conv_w8a8 {conv[0]['us']:.2f} us a launch in "
+          f"stage0_xla_L0 ({conv[0]['op_name']}); by scope "
+          f"{art['by_scope_us']} [{card}]")
+
+
+def profile_path(model: str, batch: int, size: int, card: str) -> dict:
+    """``stage_times_traced`` of the W8A8 plan of ``model`` at ``batch``:
+    one line a stage (isolated ms, in-context trace ms, work, traffic,
+    binding floor and its share of each time), the trace's module time
+    beside ``device_breakdown``'s busy time of the same forward, and the
+    trace ms by stage kind. Fails where a stage runs faster than its
+    binding floor allows, above BINDING_PCT_MAX of it: in context
+    (``trace_pct_of_binding``, device time, the share that exposes a
+    miscount of work or bytes) or, where resolved, looped alone
+    (``pct_of_binding``, which times the host's launches too). The
+    trace's own checks: its rows within 2% of the module time, every
+    kernel's count its launches."""
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    if model == "resnet18":
+        eng = _resnet_engine(batch, "w8a8", calib=_resnet_calib(), seed=0)
+    else:
+        eng = Engine(EngineConfig(model=model, mode="w8a8", batch=batch,
+                                  input_size=size)).load_weights(
+            seed=0).prepare()
+    tag = f"profile {model} w8a8 b{batch}"
+    t0 = time.time()
+    rep = eng.stage_times_traced(batch=batch, runs=PROFILE_RUNS)
+    took = time.time() - t0
+    x = eng._bench_input(batch)
+    groups, _ = device_breakdown(lambda: eng._fwd(x))
+    busy = sum(groups.values())
+    print(f"{tag}: trace module {rep['module_ms']:.4f} ms device a forward "
+          f"({rep['runs_traced']} forwards), device_breakdown busy "
+          f"{busy:.4f} ({rep['module_ms'] / busy:.3f} of it); trace rows "
+          f"{rep['trace_total_ms']:.4f}; isolated stages "
+          f"{rep['total_stage_ms']:.4f}, in-context overhead "
+          f"{rep['in_context_overhead_ms']:.4f} ms; {took:.1f} s [{card}]")
+    by_kind = {}
+    for r in rep["stages"]:
+        by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["trace_ms"]
+        if r["stage"] is None:
+            print(f"  {'':>3s} {r['name']:40s} trace_ms {r['trace_ms']:.4f}")
+            continue
+        pct, tpct = r["pct_of_binding"], r["trace_pct_of_binding"]
+        print(f"  {r['stage']:3d} {r['name']:20s} ms {r['ms']:.4f} trace_ms "
+              f"{r['trace_ms']:.4f} gop_exec {r['gop_exec']:.3f} hbm_mb "
+              f"{r['hbm_mb']:.2f} binding {r['binding']:>3s} bound_ms "
+              f"{r['bound_ms']:.4f} pct_of_binding "
+              + ("<res." if pct is None else f"{pct:.2f}")
+              + " in context "
+              + ("-" if tpct is None else f"{tpct:.2f}")
+              + f" noise {r['noise_pct']:.1f}% iters {r['iters']}"
+              + ("  SUSPECT" if r["suspect"] else ""))
+    print(f"{tag} trace ms by stage kind: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_kind.items())
+          + f" [{card}]")
+    over = [r["name"] for r in rep["stages"] if r["stage"] is not None
+            and any(r[k] is not None and r[k] > BINDING_PCT_MAX
+                    for k in ("pct_of_binding", "trace_pct_of_binding"))]
+    if over:
+        raise AssertionError(f"{tag}: stages above {BINDING_PCT_MAX}% of "
+                             f"their binding floor: {over}")
+    return {"module_ms": rep["module_ms"], "busy_ms": busy,
+            "total_stage_ms": rep["total_stage_ms"],
+            "in_context_overhead_ms": rep["in_context_overhead_ms"],
+            "trace_ms_by_kind": by_kind, "seconds": took}
+
+
+def phase_profiling(card: str) -> dict:
+    """Phase 12: the scope link, ``stage_times_traced`` on PROFILED, and
+    the CLI's ``trace --detect`` (its post_decode and nms_* scopes) and
+    ``layer-times`` in processes of their own."""
+    scope_link_check(card)
+    out = {f"{m} b{b}": profile_path(m, b, size, card)
+           for m, b, size in PROFILED}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    text = _subprocess(["trace", "--mode", "w8a8", "--batch", "1",
+                        "--detect", "--runs", "5"])
+    missing = [s for s in POST_SCOPES if s not in text]
+    if missing:
+        raise AssertionError(f"cli trace --detect lacks {missing}:\n{text}")
+    print(f"cli trace --mode w8a8 --batch 1 --detect --runs 5 [{card}]:\n"
+          + text.rstrip())
+    text = _subprocess(["layer-times", "--mode", "fp32", "--batch", "1",
+                        "--iters", "20,5"])
+    print(f"cli layer-times --mode fp32 --batch 1 --iters 20,5 [{card}]:\n"
+          + text.rstrip())
+    print(f"profiling cli: {time.time() - t0:.1f} s")
+    print(json.dumps({"profiling": out, "card": card}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2702,14 +2712,14 @@ def _served_on_kernels(tag, eng, images, threads, want, dev):
     from dnn_inference_engine_tpu_torch import postprocess as pp
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
-    _reset_counts()
+    reset_counts()
     pp._greedy_fixpoint.host_syncs = 0
     with XlaTierIm2col() as im2col:
         shipped, results = _serve(eng, images, threads)
-    counts, syncs = _read_counts(), pp._greedy_fixpoint.host_syncs
+    counts, syncs = read_counts(), pp._greedy_fixpoint.host_syncs
     batches = len(shipped)
     if dev.type == "cuda":
-        expect = {**dict.fromkeys(_counters(), 0),
+        expect = {**dict.fromkeys(kernel_counters(), 0),
                   **{k: v * batches for k, v in want.items()}}
         if counts != expect:
             raise AssertionError(f"{tag}: launches {counts} != {expect}")
@@ -3337,6 +3347,8 @@ def main() -> int:
     rows["gemm_fused"]["resnet18_stem"] = {
         b: r["stem"] for b, r in resnet_rows.items()}
     torch.cuda.empty_cache()
+    timed("profiling", phase_profiling, card)
+    torch.cuda.empty_cache()
     timed("front door", phase_front_door, card)
     print(f"total {time.time() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + ")")
@@ -3424,6 +3436,19 @@ def qs2d4_ab(base: Path) -> int:
     return 0
 
 
+def profiling_only() -> int:
+    """Phase 12 alone (``--profiling``): the kernels build at first use."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    t0 = time.time()
+    phase_profiling(card)
+    print(f"profiling: {time.time() - t0:.1f} s")
+    return 0
+
+
 def front_door_only() -> int:
     """Phase 10 alone (``--front-door``): the kernels build at first use."""
     if not torch.cuda.is_available():
@@ -3457,4 +3482,6 @@ if __name__ == "__main__":
         sys.exit(front_door_only())
     if sys.argv[1:] == ["--resnet18"]:
         sys.exit(resnet18_only())
+    if sys.argv[1:] == ["--profiling"]:
+        sys.exit(profiling_only())
     sys.exit(main())

@@ -11,10 +11,13 @@ the plain PyTorch versions):
   python -m dnn_inference_engine_tpu_torch.cli dump-goldens --out g.npz
   python -m dnn_inference_engine_tpu_torch.cli check-goldens --goldens g.npz
   python -m dnn_inference_engine_tpu_torch.cli plan-sweep --mode w8a8 --batch 8 --out s.json
+  python -m dnn_inference_engine_tpu_torch.cli layer-times --mode w8a8 --batch 32
+  python -m dnn_inference_engine_tpu_torch.cli trace --mode w8a8 --detect --out t.json
 
-``bench`` waits for the card's bench (ROADMAP item A8), ``layer-times``
-and ``trace`` for profiling (A13); a mesh, the channel sharding and
-several serving processes for multi-device (A14).
+``layer-times`` with ``--device cpu`` times the plain versions on the
+CPU (no percentages of the card); ``trace`` needs the card.
+``bench`` waits for the card's bench (ROADMAP item A8); a mesh, the
+channel sharding and several serving processes for multi-device (A14).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import time
 import numpy as np
 
 # subcommands of the JAX CLI that wait for a ROADMAP item
-_LATER = {"bench": "A8", "layer-times": "A13", "trace": "A13"}
+_LATER = {"bench": "A8"}
 
 
 def _add_common(p):
@@ -223,6 +226,74 @@ def cmd_check_goldens(args) -> int:
     return 0
 
 
+def _iters(text):
+    return tuple(int(v) for v in text.split(",")) if text else None
+
+
+def cmd_layer_times(args) -> int:
+    """The W8A8 plan's stages (``Engine.stage_times``, with their
+    roofline) where the engine runs one, else each conv of the generic
+    forward (``Engine.layer_times``)."""
+    eng = _build_engine(args)
+    iters = _iters(args.iters)
+    if eng._plan is not None and eng.config.mode == "w8a8":
+        print(f"# per-stage steady-state times of the executed plan, "
+              f"batch={args.batch}"
+              + (" (auto-scaled iteration counts)" if iters is None else ""))
+        print(f"{'stage':>5s} {'name':18s} {'ms':>9s} {'GOP':>8s} "
+              f"{'GOPexec':>8s} {'MFU%':>7s} {'HWutil%':>8s} "
+              f"{'HBM MB':>7s} {'bind':>4s} {'bind%':>7s} {'noise%':>7s}")
+        total = 0.0
+        for r in eng.stage_times(batch=args.batch, iters=iters):
+            # None: under the resolution floor, or timed on the CPU
+            na = "<res." if r["sub_resolution"] else "n/a"
+            mfu = (f"{na:>7s}" if r["mfu_pct"] is None
+                   else f"{r['mfu_pct']:7.2f}")
+            hwu = (f"{na:>8s}" if r["hw_util_pct"] is None
+                   else f"{r['hw_util_pct']:8.2f}")
+            bnd = (f"{na:>7s}" if r["pct_of_binding"] is None
+                   else f"{r['pct_of_binding']:7.2f}")
+            sus = "  SUSPECT" if r["suspect"] else ""
+            print(f"{r['stage']:5d} {r['name']:18s} {r['ms']:9.4f} "
+                  f"{r['gop']:8.3f} {r['gop_exec']:8.3f} {mfu} {hwu} "
+                  f"{r['hbm_mb']:7.2f} {r['binding']:>4s} {bnd} "
+                  f"{r['noise_pct']:7.1f}{sus}")
+            total += r["ms"]
+        print(f"# TOTAL stages {total:.4f} ms")
+        return 0
+    print(f"# per-layer steady-state times, batch={args.batch}, "
+          f"mode={args.mode}, kernel={args.kernel}")
+    total = 0.0
+    for name, t in eng.layer_times(batch=args.batch,
+                                   **({"iters": iters} if iters else {})):
+        print(f"{name:32s} {t * 1e6:10.1f} us")
+        total += t
+    print(f"{'TOTAL conv':32s} {total * 1e6:10.1f} us")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Trace the engine's forward (or, with ``--detect``, the detect:
+    forward, decode and NMS) on the card and print the device time of
+    each stage and postprocess scope (``trace_attribution``)."""
+    from dnn_inference_engine_tpu_torch.runtime.profiling import (
+        trace_attribution)
+    eng = _build_engine(args)
+    x = eng._bench_input(args.batch)
+    fn = eng.detect_fn() if args.detect else eng._fwd
+    art = trace_attribution(fn, x, runs=args.runs)
+    print(f"# module device time {art['module_device_us_per_run']:.1f} us"
+          f" over {art['runs_traced']} runs; ops sum "
+          f"{art['sum_of_ops_us_per_run']:.1f} us")
+    for k, v in art["by_scope_us"].items():
+        print(f"{v:10.2f} us  {k}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(art, f, indent=1)
+        print(f"# wrote {args.out}")
+    return 0
+
+
 def cmd_plan_sweep(args) -> int:
     """Measure each conv layer's legal plan kinds and emit the fastest
     strategy as JSON."""
@@ -255,6 +326,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--image", required=True)
     p.add_argument("--out", default=None, help="write annotated image here")
     p.set_defaults(fn=cmd_detect)
+
+    p = sub.add_parser("layer-times", help="per-stage (W8A8 plan) or "
+                       "per-layer timing report")
+    _add_common(p)
+    p.add_argument("--iters", default=None, metavar="HI,LO",
+                   help="fixed loop-difference counts (quick but noisy); "
+                        "default auto-scales per stage")
+    p.set_defaults(fn=cmd_layer_times)
 
     p = sub.add_parser("eval", help="VOC mAP evaluation")
     _add_common(p)
@@ -301,6 +380,17 @@ def _parser() -> argparse.ArgumentParser:
                    help="loop-difference iteration counts per candidate")
     p.add_argument("--reps", type=int, default=3)
     p.set_defaults(fn=cmd_plan_sweep)
+
+    p = sub.add_parser("trace",
+                       help="per-scope device time of the forward on the "
+                            "card (torch.profiler)")
+    _add_common(p)
+    p.add_argument("--runs", type=int, default=30)
+    p.add_argument("--detect", action="store_true",
+                   help="trace the detect (forward + decode + NMS); the "
+                        "postprocess shows as post_decode / nms_* scopes")
+    p.add_argument("--out", default=None, metavar="JSON")
+    p.set_defaults(fn=cmd_trace)
 
     p = sub.add_parser("calibrate", help="calibrate activation scales")
     _add_common(p)

@@ -13,6 +13,8 @@ a route rescales its pieces to its own output scale in f32, and a
 shortcut adds its two sides in f32 and requantizes; the global average
 pool and the dense head are f32.
 
+Each conv runs in the profiler scope ``L{li}_conv``
+(runtime/profiling.layer_scope), opened only while a profiler runs.
 Every forward takes the JAX package's ``kernel`` tier: ``xla`` (the
 default), ``pallas`` (the port's gemm tier, forced on every conv) or
 ``auto`` (per layer, ops/dispatch.py).
@@ -35,6 +37,7 @@ from dnn_inference_engine_tpu_torch.ops.dispatch import (
 from dnn_inference_engine_tpu_torch.ops.activations import apply_activation
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import dequantize, quantize_act
+from dnn_inference_engine_tpu_torch.runtime.profiling import layer_scope
 
 
 def _upsample_nearest(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -160,8 +163,9 @@ class Model:
             captured.append(x)
             p = params[li]
             if isinstance(layer, Conv):
-                x = conv_fn(x, p["w"], p["b"], act=layer.act,
-                            stride=layer.stride, padding=layer.padding)
+                with layer_scope(li, layer):
+                    x = conv_fn(x, p["w"], p["b"], act=layer.act,
+                                stride=layer.stride, padding=layer.padding)
             elif isinstance(layer, Dense):
                 x = apply_activation(dense_f32(x, p["w"]) + p["b"],
                                      layer.act)
@@ -186,8 +190,9 @@ class Model:
         for li, layer in enumerate(self.layers):
             p = qparams[li]
             if isinstance(layer, Conv):
-                x = conv_fn(x, p["wq"], p["s_w"], p["b"], act=layer.act,
-                            stride=layer.stride, padding=layer.padding)
+                with layer_scope(li, layer):
+                    x = conv_fn(x, p["wq"], p["s_w"], p["b"], act=layer.act,
+                                stride=layer.stride, padding=layer.padding)
             elif isinstance(layer, Dense):
                 x = apply_activation(dense_f32(x, dense_weights(p)) + p["b"],
                                      layer.act)
@@ -218,10 +223,11 @@ class Model:
                     cur_scale = act_scales[li]
                     x = quantize_act(x, cur_scale)
                 requant = layer.act != "linear"
-                x = conv_fn(x, cur_scale, p["wq"], p["s_w"], p["b"],
-                            act=layer.act, stride=layer.stride,
-                            padding=layer.padding,
-                            s_out=s_next if requant else None)
+                with layer_scope(li, layer):
+                    x = conv_fn(x, cur_scale, p["wq"], p["s_w"], p["b"],
+                                act=layer.act, stride=layer.stride,
+                                padding=layer.padding,
+                                s_out=s_next if requant else None)
                 cur_scale = s_next if requant else None
             elif isinstance(layer, MaxPool):
                 x = maxpool(x, layer.size, layer.stride, layer.padding)

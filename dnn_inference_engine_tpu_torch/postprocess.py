@@ -15,6 +15,11 @@ Counterpart of ``dnn_inference_engine_tpu/postprocess.py``:
 - ``host_nms``: per-class greedy NMS of one image in numpy, through the
   native library's ``nms_greedy`` where it builds.
 
+The profiler scopes of the JAX package (``post_decode``,
+``nms_candidates``, ``nms_suppress``, ``nms_merge``; opened only while a
+profiler runs) let ``runtime/profiling.trace_attribution`` split a
+detect's device time.
+
 Plain PyTorch: no Pallas kernel computes these. Tie-breaks follow the
 JAX package: ``jax.lax.top_k`` puts the lower index first among equal
 values, so every top-K here is a stable descending sort, and candidates
@@ -32,6 +37,7 @@ from dnn_inference_engine_tpu_torch.config import (
     INPUT_SIZE, MAX_DETECTIONS, NMS_IOU_THRESH, NUM_CLASSES,
     SCORE_THRESH_VIS, YOLOV2_TINY_ANCHORS,
 )
+from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
 # Jacobi sweeps of the NMS fixpoint between two host reads of its
 # convergence test. Measured on an H100 (700 W) by chip_smoke.py phase
@@ -61,17 +67,18 @@ def _decode_rows(head, anchors, num_classes: int, input_size: int,
     row = (mi // (a * s)).to(torch.float32)
     anc = torch.tensor(anchors, dtype=torch.float32, device=head.device)
     anc_w, anc_h = anc[:, 0].repeat(s * s), anc[:, 1].repeat(s * s)
-    bx = (col + torch.sigmoid(x[..., 0])) * cell_px
-    by = (row + torch.sigmoid(x[..., 1])) * cell_px
-    bw = anc_w * torch.exp(x[..., 2])
-    bh = anc_h * torch.exp(x[..., 3])
-    if anchors_in_cells:
-        bw, bh = bw * cell_px, bh * cell_px
-    obj = torch.sigmoid(x[..., 4])
-    logits = x[..., 5:]
-    cls = (torch.softmax(logits, dim=-1) if softmax_cls
-           else torch.sigmoid(logits))
-    return torch.stack([bx, by, bw, bh], dim=-1), obj[..., None] * cls
+    with scope("post_decode"):
+        bx = (col + torch.sigmoid(x[..., 0])) * cell_px
+        by = (row + torch.sigmoid(x[..., 1])) * cell_px
+        bw = anc_w * torch.exp(x[..., 2])
+        bh = anc_h * torch.exp(x[..., 3])
+        if anchors_in_cells:
+            bw, bh = bw * cell_px, bh * cell_px
+        obj = torch.sigmoid(x[..., 4])
+        logits = x[..., 5:]
+        cls = (torch.softmax(logits, dim=-1) if softmax_cls
+               else torch.sigmoid(logits))
+        return torch.stack([bx, by, bw, bh], dim=-1), obj[..., None] * cls
 
 
 def decode_yolov2(head, anchors=YOLOV2_TINY_ANCHORS,
@@ -111,20 +118,21 @@ def _decode_cols(head, anchors, num_classes: int, input_size: int,
     col = (cell % s).to(torch.float32)
     row = (cell // s).to(torch.float32)
     anc = torch.tensor(anchors, dtype=torch.float32, device=head.device)
-    bx = (col + torch.sigmoid(x[:, :, 0, :])) * cell_px        # (N,A,S2)
-    by = (row + torch.sigmoid(x[:, :, 1, :])) * cell_px
-    scale_wh = cell_px if anchors_in_cells else 1.0
-    bw = anc[:, 0][None, :, None] * torch.exp(x[:, :, 2, :]) * scale_wh
-    bh = anc[:, 1][None, :, None] * torch.exp(x[:, :, 3, :]) * scale_wh
-    obj = torch.sigmoid(x[:, :, 4, :])
-    logits = x[:, :, 5:, :]                                    # (N,A,C,S2)
-    cls = (torch.softmax(logits, dim=2) if softmax_cls
-           else torch.sigmoid(logits))
-    scores = obj[:, :, None, :] * cls                          # (N,A,C,S2)
-    boxes = torch.stack([bx, by, bw, bh], dim=1)               # (N,4,A,S2)
-    scores = scores.permute(0, 2, 1, 3)                        # (N,C,A,S2)
-    return (boxes.reshape(n, 4, a * s2),
-            scores.reshape(n, num_classes, a * s2))
+    with scope("post_decode"):
+        bx = (col + torch.sigmoid(x[:, :, 0, :])) * cell_px    # (N,A,S2)
+        by = (row + torch.sigmoid(x[:, :, 1, :])) * cell_px
+        scale_wh = cell_px if anchors_in_cells else 1.0
+        bw = anc[:, 0][None, :, None] * torch.exp(x[:, :, 2, :]) * scale_wh
+        bh = anc[:, 1][None, :, None] * torch.exp(x[:, :, 3, :]) * scale_wh
+        obj = torch.sigmoid(x[:, :, 4, :])
+        logits = x[:, :, 5:, :]                                # (N,A,C,S2)
+        cls = (torch.softmax(logits, dim=2) if softmax_cls
+               else torch.sigmoid(logits))
+        scores = obj[:, :, None, :] * cls                      # (N,A,C,S2)
+        boxes = torch.stack([bx, by, bw, bh], dim=1)           # (N,4,A,S2)
+        scores = scores.permute(0, 2, 1, 3)                    # (N,C,A,S2)
+        return (boxes.reshape(n, 4, a * s2),
+                scores.reshape(n, num_classes, a * s2))
 
 
 def decode_yolov2_cols(head, anchors=YOLOV2_TINY_ANCHORS,
@@ -228,41 +236,48 @@ def device_nms_cols(boxes: torch.Tensor, scores: torch.Tensor,
     (``_greedy_fixpoint.host_syncs``)."""
     b, c, m = scores.shape
     topk = min(topk, m)
-    if topk < m:
-        _, oidx = _desc_topk(scores.amax(dim=1), topk)         # (B,K)
-        bk = torch.gather(boxes, 2, oidx[:, None, :].expand(b, 4, topk))
-        sk = torch.gather(scores, 2, oidx[:, None, :].expand(b, c, topk))
-    else:
-        oidx = torch.arange(m, device=boxes.device).expand(b, m)
-        bk, sk = boxes, scores
-    x1 = bk[:, 0] - bk[:, 2] * 0.5                             # (B,K)
-    y1 = bk[:, 1] - bk[:, 3] * 0.5
-    x2 = bk[:, 0] + bk[:, 2] * 0.5
-    y2 = bk[:, 1] + bk[:, 3] * 0.5
-    area = torch.clamp_min(x2 - x1, 0) * torch.clamp_min(y2 - y1, 0)
-    ix1 = torch.maximum(x1[:, :, None], x1[:, None, :])
-    iy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
-    ix2 = torch.minimum(x2[:, :, None], x2[:, None, :])
-    iy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
-    inter = torch.clamp_min(ix2 - ix1, 0) * torch.clamp_min(iy2 - iy1, 0)
-    union = area[:, :, None] + area[:, None, :] - inter
-    iou = inter / torch.clamp_min(union, 1e-9)
-    valid = sk > score_thresh
-    keep = _greedy_fixpoint(sk, oidx, iou > iou_thresh, valid)
-
-    sk_out = torch.where(keep, sk, torch.zeros_like(sk)).reshape(b, c * topk)
-    d = min(max_det, c * topk)
-    s_top, i_top = _desc_topk(sk_out, d)
-    cls = (i_top // topk).to(torch.int32)
-    k_idx = i_top % topk
-    bxyxy = torch.stack([x1, y1, x2, y2], dim=1)               # (B,4,K)
-    bk_out = torch.gather(bxyxy, 2, k_idx[:, None, :].expand(b, 4, d))
-    bk_out = bk_out.transpose(1, 2)                            # (B,D,4)
-    if d < max_det:           # keep the advertised static shape
-        pad = max_det - d
-        bk_out = torch.cat([bk_out, bk_out.new_zeros(b, pad, 4)], dim=1)
-        s_top = torch.cat([s_top, s_top.new_zeros(b, pad)], dim=1)
-        cls = torch.cat([cls, cls.new_zeros(b, pad)], dim=1)
+    with scope("nms_candidates"):
+        if topk < m:
+            _, oidx = _desc_topk(scores.amax(dim=1), topk)     # (B,K)
+            bk = torch.gather(boxes, 2,
+                              oidx[:, None, :].expand(b, 4, topk))
+            sk = torch.gather(scores, 2,
+                              oidx[:, None, :].expand(b, c, topk))
+        else:
+            oidx = torch.arange(m, device=boxes.device).expand(b, m)
+            bk, sk = boxes, scores
+    with scope("nms_suppress"):
+        x1 = bk[:, 0] - bk[:, 2] * 0.5                         # (B,K)
+        y1 = bk[:, 1] - bk[:, 3] * 0.5
+        x2 = bk[:, 0] + bk[:, 2] * 0.5
+        y2 = bk[:, 1] + bk[:, 3] * 0.5
+        area = torch.clamp_min(x2 - x1, 0) * torch.clamp_min(y2 - y1, 0)
+        ix1 = torch.maximum(x1[:, :, None], x1[:, None, :])
+        iy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
+        ix2 = torch.minimum(x2[:, :, None], x2[:, None, :])
+        iy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
+        inter = (torch.clamp_min(ix2 - ix1, 0)
+                 * torch.clamp_min(iy2 - iy1, 0))
+        union = area[:, :, None] + area[:, None, :] - inter
+        iou = inter / torch.clamp_min(union, 1e-9)
+        valid = sk > score_thresh
+        keep = _greedy_fixpoint(sk, oidx, iou > iou_thresh, valid)
+    with scope("nms_merge"):
+        sk_out = torch.where(keep, sk,
+                             torch.zeros_like(sk)).reshape(b, c * topk)
+        d = min(max_det, c * topk)
+        s_top, i_top = _desc_topk(sk_out, d)
+        cls = (i_top // topk).to(torch.int32)
+        k_idx = i_top % topk
+        bxyxy = torch.stack([x1, y1, x2, y2], dim=1)           # (B,4,K)
+        bk_out = torch.gather(bxyxy, 2, k_idx[:, None, :].expand(b, 4, d))
+        bk_out = bk_out.transpose(1, 2)                        # (B,D,4)
+        if d < max_det:           # keep the advertised static shape
+            pad = max_det - d
+            bk_out = torch.cat([bk_out, bk_out.new_zeros(b, pad, 4)],
+                               dim=1)
+            s_top = torch.cat([s_top, s_top.new_zeros(b, pad)], dim=1)
+            cls = torch.cat([cls, cls.new_zeros(b, pad)], dim=1)
     return bk_out, s_top, cls
 
 

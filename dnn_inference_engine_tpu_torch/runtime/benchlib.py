@@ -1,4 +1,5 @@
-"""Steady-state timing by loop difference.
+"""Steady-state timing by loop difference, wall clock, and the card's
+roofline.
 
 Counterpart of ``dnn_inference_engine_tpu/runtime/benchlib.py``
 (``per_iter_time_stats``, ``per_iter_time``), with the same contract: two
@@ -13,6 +14,12 @@ The JAX version chains each iteration's input to the last one's output
 so that XLA can neither hoist the body out of its loop nor overlap
 iterations. PyTorch runs eagerly and hoists nothing, so the calls here
 are plain repeated calls.
+
+The roofline (``roofline_pct``, ``binding_bound_s``) takes the peaks of
+NVIDIA's data sheets for the H100 variant the card's name gives
+(``peaks``, ``tf32_peak``, ``f32_peak``), not the JAX package's TPU v5e
+constants; the compute floor is the tensor cores' (``"tc"``), the
+bandwidth floor the HBM's (``"hbm"``).
 """
 
 from __future__ import annotations
@@ -96,3 +103,79 @@ def per_iter_time(fn: Callable, args: Sequence, iters_hi: int = 0,
                             reps=reps, target_delta_s=target_delta_s,
                             max_iters=max_iters)
     return s["min"] if stat == "min" else s["median"]
+
+
+def wall_time(fn: Callable, args: Sequence, reps: int = 5) -> float:
+    """Median wall-clock seconds of one call, from the call to its result
+    on the host (the device synced): what a single-image client waits."""
+    dev = _device_of(args)
+
+    def once():
+        fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    once()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        once()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def peaks(name: str):
+    """(dense int8 ops/s, HBM bytes/s) from NVIDIA's data sheets for the
+    H100 variant the card's name gives (the SXM part for any other
+    name)."""
+    if "PCIe" in name:
+        return 1513e12, 2.0e12
+    if "NVL" in name:
+        return 1671e12, 3.9e12
+    return 1979e12, 3.35e12          # SXM
+
+
+def f32_peak(name: str) -> float:
+    """Float32 FMA operations/s outside the tensor cores (NVIDIA's data
+    sheets), for the same variants as ``peaks``."""
+    if "PCIe" in name:
+        return 51e12
+    if "NVL" in name:
+        return 60e12
+    return 67e12                     # SXM
+
+
+def tf32_peak(name: str) -> float:
+    """Dense TF32 tensor-core operations/s (NVIDIA's data sheets), for the
+    same variants as ``peaks``."""
+    if "PCIe" in name:
+        return 378e12
+    if "NVL" in name:
+        return 417e12
+    return 495e12                    # SXM
+
+
+def device_peaks(device) -> tuple:
+    """``peaks`` of the card ``device`` names; of the H100 SXM's data
+    sheet for any other device (a CPU run times nothing of the card)."""
+    device = torch.device(device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "")
+    return peaks(name)
+
+
+def roofline_pct(ops: float, seconds: float, peak: float) -> float:
+    """``ops`` done in ``seconds`` as a percentage of ``peak`` ops/s."""
+    return 100.0 * ops / seconds / peak
+
+
+def binding_bound_s(ops: float, hbm_bytes: float, peak_ops: float,
+                    hbm_bps: float):
+    """(bound seconds, "tc" | "hbm"): the larger of the tensor cores'
+    floor (``ops`` at ``peak_ops``) and the bandwidth floor (``hbm_bytes``
+    at ``hbm_bps``), the binding roofline of work that must execute
+    ``ops`` operations and move at least ``hbm_bytes``. ``bound /
+    measured`` is then auditable against 100% for every stage, bandwidth
+    bound or not."""
+    t_tc = ops / peak_ops
+    t_hbm = hbm_bytes / hbm_bps
+    return (t_tc, "tc") if t_tc >= t_hbm else (t_hbm, "hbm")

@@ -11,12 +11,18 @@ card and without that, it raises rather than run on the CPU. Weights come
 from a file (``load_weights(path)`` or ``config.weights``: an ``.npz``
 checkpoint, a darknet ``.weights`` file or a pickle) or from a seed;
 ``save`` writes the checkpoint. One device only: a mesh is ROADMAP A14.
+
+Timing (the JAX engine's, on the engine's device): ``stage_times``
+times each stage of the W8A8 plan on its own input state with its
+roofline, ``stage_times_traced`` adds each stage's in-context device time
+from a trace (runtime/profiling.py), ``layer_times`` times each conv of
+the generic forward.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -274,7 +280,8 @@ class Engine:
     def detect_device(self, images):
         """Dispatch detection without waiting for the device: returns
         device tensors (boxes, scores, classes). The NMS fixpoint syncs
-        with the host once per sweep."""
+        with the host once a group of ``SWEEPS_PER_SYNC`` sweeps
+        (postprocess.py)."""
         return self.detect_fn()(self._device_batch(images))
 
     def detect(self, images):
@@ -291,3 +298,218 @@ class Engine:
         if isinstance(heads, tuple):
             return tuple(h.cpu().numpy() for h in heads)
         return heads.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Timing (the JAX engine's per-stage and per-layer reports)
+    # ------------------------------------------------------------------
+
+    def _bench_input(self, batch: int) -> torch.Tensor:
+        """A seeded batch in the format the forward executes: uint8 (the
+        serving wire format) where the W8A8 plan's entry ingests it, f32
+        in [0, 1] otherwise; the JAX engine's numbers."""
+        size = self.config.input_size
+        x = np.random.default_rng(0).uniform(
+            0, 1, (batch, size, size, 3)).astype(np.float32)
+        if (self._plan is not None and self.config.mode == "w8a8"
+                and plan_input_uint8_ok(self._plan)):
+            x = np.clip(np.round(x * 255), 0, 255).astype(np.uint8)
+        return torch.as_tensor(x, device=self.device)
+
+    def stage_times(self, batch: Optional[int] = None,
+                    iters: Optional[Tuple[int, int]] = None) -> List[Dict]:
+        """Per-stage times and roofline of the W8A8 plan as it executes:
+        each stage timed by loop difference (``per_iter_time_stats``, min
+        of 3 reps) on its own input state from one forward. Per stage:
+        ``name``, ``kind``, ``ms``, ``gop`` (useful work, 2 ops a MAC),
+        ``gop_exec`` (the work the stage's formulation executes),
+        ``mfu_pct`` and ``hw_util_pct`` (those over the int8 tensor-core
+        peak), ``hbm_mb`` (the least traffic of the stage's contract:
+        input, output and the plan's parameters, not the port's derived
+        copies of them), ``binding`` ("tc" | "hbm": the floor that binds,
+        from the data sheet's peaks, ``benchlib.device_peaks``),
+        ``bound_ms`` (that floor), ``pct_of_binding`` (the floor over the
+        time), ``noise_pct`` (the reps' spread), ``iters``,
+        ``sub_resolution`` (under 20 ms of work resolved: the percentages
+        are None) and ``suspect`` (sub-resolution, or a utilization above
+        the peak: the timing is wrong, not the kernel fast). On the CPU
+        the percentages are None: a CPU time is no measure of the card.
+
+        Without ``iters`` the loop counts scale so that each stage's loop
+        difference is about 120 ms of work; ``iters=(hi, lo)`` fixes them
+        (quick, noisy)."""
+        from dnn_inference_engine_tpu_torch.runtime.benchlib import (
+            binding_bound_s, device_peaks, per_iter_time_stats,
+            roofline_pct)
+        from dnn_inference_engine_tpu_torch.runtime.plan import (
+            _run_stage, stage_flops)
+        if self._plan is None or self.config.mode != "w8a8":
+            raise ValueError("stage_times needs the fused w8a8 plan "
+                             "(mode=w8a8, kernel=auto); use layer_times "
+                             "for other configs")
+        batch = batch or self.config.batch
+        x = self._bench_input(batch)
+        states: List = []
+        plan_forward_w8a8(self.model, self._plan, self._plan_params,
+                          self.act_scales, x, record_states=states)
+        flops = stage_flops(self.model, self._plan,
+                            input_size=self.config.input_size)
+        peak_ops, hbm_bps = device_peaks(self.device)
+        on_card = self.device.type == "cuda"
+        layers = self.model.layers
+        report: List[Dict] = []
+        for si, st in enumerate(self._plan):
+            x0, cs0, cf0, saved0 = states[si]
+            pp = self._plan_params[si]
+
+            @torch.no_grad()
+            def f(xx, _st=st, _pp=pp, _cs=cs0, _cf=cf0, _sv=saved0):
+                return _run_stage(layers, _st, _pp, xx, _cs, _cf,
+                                  self.act_scales, _sv)[0]
+            x_out = states[si + 1][0] if si + 1 < len(states) else f(x0)
+            hbm_bytes = (_nbytes(x0) + _nbytes(x_out)
+                         + sum(_nbytes(pp[k]) for k in _CONTRACT_PARAMS
+                               if k in pp))
+            s = per_iter_time_stats(f, (x0,), *(iters or ()))
+            t = max(s["min"], 1e-9)
+            useful, executed = flops[si]
+            gop = 2 * useful * batch / 1e9
+            gop_exec = 2 * executed * batch / 1e9
+            sub_res = s["delta_work_s"] < 0.02
+            mfu = roofline_pct(gop * 1e9, t, peak_ops)
+            hw = roofline_pct(gop_exec * 1e9, t, peak_ops)
+            bound_s, binding = binding_bound_s(gop_exec * 1e9, hbm_bytes,
+                                               peak_ops, hbm_bps)
+            shown = on_card and not sub_res
+            report.append({
+                "stage": si,
+                "name": f"L{st.conv_li}_{st.kind}"
+                        + (f"_f{st.fold}" if st.fold > 1 else ""),
+                "kind": st.kind,
+                "ms": round(t * 1e3, 4),
+                "gop": round(gop, 3),
+                "gop_exec": round(gop_exec, 3),
+                "mfu_pct": round(mfu, 2) if shown else None,
+                "hw_util_pct": round(hw, 2) if shown else None,
+                "hbm_mb": round(hbm_bytes / 1e6, 2),
+                "binding": binding,
+                "bound_ms": round(bound_s * 1e3, 6),
+                "pct_of_binding": (round(100.0 * bound_s / t, 2) if shown
+                                   else None),
+                "noise_pct": round(min(s["spread_pct"], 999.9), 1),
+                "iters": list(s["iters"]),
+                "sub_resolution": sub_res,
+                "suspect": bool(sub_res or (on_card and (
+                    mfu > 100.0 or hw > 105.0))),
+            })
+        return report
+
+    def stage_times_traced(self, batch: Optional[int] = None,
+                           runs: int = 30) -> Dict:
+        """``stage_times`` rows with each stage's in-context device time
+        from a trace of the whole forward (``trace_attribution``):
+        ``trace_ms``, the stage scope's device time per forward (the
+        isolated ``ms`` leaves out what only exists in context), plus
+        ``unattributed/*`` rows (time outside every stage scope) with
+        only ``trace_ms``, so that the ``trace_ms`` column sums to the
+        forward's device busy time ``module_ms``; that is checked to 2%.
+        ``trace_pct_of_binding``: the stage's binding floor over its
+        ``trace_ms``, how close it runs to the roofline in context (the
+        isolated loop of a short stage times the host's launches).
+        ``in_context_overhead_ms``: ``module_ms`` less the isolated
+        stages' sum. Needs the card."""
+        from dnn_inference_engine_tpu_torch.runtime.profiling import (
+            trace_attribution)
+        batch = batch or self.config.batch
+        rep = self.stage_times(batch=batch)
+        art = trace_attribution(self._fwd, self._bench_input(batch),
+                                runs=runs)
+        scopes = dict(art["by_scope_us"])
+        used = set()
+        for row in rep:
+            keys = [k for k in scopes if k.startswith(f"stage{row['stage']}_")]
+            used.update(keys)
+            row["trace_ms"] = round(sum(scopes[k] for k in keys) / 1e3, 4)
+            row["trace_pct_of_binding"] = (
+                round(100.0 * row["bound_ms"] / row["trace_ms"], 2)
+                if row["trace_ms"] > 0 else None)
+        extra = [{"stage": None, "name": k, "kind": "unattributed",
+                  "ms": None, "trace_ms": round(v / 1e3, 4)}
+                 for k, v in scopes.items() if k not in used]
+        module_ms = art["module_device_us_per_run"] / 1e3
+        trace_total = sum(r["trace_ms"] for r in rep + extra)
+        if abs(trace_total - module_ms) >= 0.02 * max(module_ms, 1e-9):
+            raise AssertionError(
+                f"trace rows ({trace_total:.4f} ms) do not sum to the "
+                f"forward's device time ({module_ms:.4f} ms)")
+        iso_total = sum(r["ms"] for r in rep)
+        return {
+            "batch": batch,
+            "module_ms": round(module_ms, 4),
+            "total_stage_ms": round(iso_total, 4),
+            "trace_total_ms": round(trace_total, 4),
+            "in_context_overhead_ms": round(module_ms - iso_total, 4),
+            "runs_traced": art["runs_traced"],
+            "stages": rep + extra,
+        }
+
+    def layer_times(self, batch: Optional[int] = None,
+                    iters: Tuple[int, int] = (60, 10)
+                    ) -> List[Tuple[str, float]]:
+        """Steady-state seconds of each conv of the generic forward (the
+        mode's conv on ``config.kernel``'s tier), each on its input from
+        an fp32 forward of a seeded batch: [("layer{li}
+        conv{k}x{k}->{Cout}", s), ...]. In w8a8 the input is quantized
+        with the layer's scale and the conv emits f32."""
+        from dnn_inference_engine_tpu_torch.models.layers import Conv
+        from dnn_inference_engine_tpu_torch.models.model import _get_conv_fn
+        from dnn_inference_engine_tpu_torch.quant.quantize import (
+            quantize_act)
+        from dnn_inference_engine_tpu_torch.runtime.benchlib import (
+            per_iter_time)
+        if self.fp32_params is None:
+            raise RuntimeError("layer_times needs the fp32 params (load "
+                               "weights that are not quantized)")
+        batch = batch or self.config.batch
+        mode = self.config.mode
+        size = self.config.input_size
+        x = torch.as_tensor(np.random.default_rng(0).uniform(
+            0, 1, (batch, size, size, 3)).astype(np.float32),
+            device=self.device)
+        _, inputs = self.model.forward_fp32(self.fp32_params, x,
+                                            capture_inputs=True)
+        conv_fn = _get_conv_fn(mode, self.config.kernel)
+        report = []
+        for li, layer in enumerate(self.model.layers):
+            if not isinstance(layer, Conv):
+                continue
+            p, xin = self.params[li], inputs[li]
+            kw = dict(act=layer.act, stride=layer.stride,
+                      padding=layer.padding)
+            if mode == "fp32":
+                args = (p["w"], p["b"])
+            elif mode == "w8":
+                args = (p["wq"], p["s_w"], p["b"])
+            else:
+                s_in = self.act_scales[li]
+                xin = quantize_act(xin, s_in)
+                args = (s_in, p["wq"], p["s_w"], p["b"])
+
+            @torch.no_grad()
+            def f(xx, _args=args, _kw=kw):
+                return conv_fn(xx, *_args, **_kw)
+            t = per_iter_time(f, (xin,), iters_hi=iters[0],
+                              iters_lo=iters[1])
+            report.append((f"layer{li} conv{layer.ksize}x{layer.ksize}"
+                           f"->{layer.out_ch}", t))
+        return report
+
+
+# the plan parameters of the stage contract, as the JAX plan holds them;
+# the port's derived copies of the same weights (the K-major ``wt``, a
+# dense stage's f32 ``w``, the kernels' cached tiles) are not traffic of
+# the contract
+_CONTRACT_PARAMS = ("wq", "s_w", "b", "wv")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()

@@ -50,6 +50,11 @@ skips and the second conv of each block) run as ``xla`` stages on
 Layer outputs consumed out of sequence (route sources, the heads of a
 multi-head model) are saved de-folded with their scale.
 
+Each stage runs in a profiler scope (runtime/profiling.py), opened only
+while a profiler runs: ``stage{si}_{kind}_L{li}`` (``_fold{f}`` when
+folded) in the W8A8 plan, ``w8stage{si}_{kind}_L{li}`` in the w8 plan,
+the JAX plan's named scopes. ``stage_flops`` gives each stage's work.
+
 The strategy tables are the JAX package's pins, measured there on a TPU;
 the port uses them as its parity contract. A strategy file measured by
 the port's sweep (runtime/plan_sweep.py) replaces them through
@@ -91,6 +96,7 @@ from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import (
     f32_scalar, quantize_act,
 )
+from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
 
 @dataclasses.dataclass
@@ -415,9 +421,11 @@ def plan_forward_w8a8(model, stages: Sequence[Stage],
     for si, st in enumerate(stages):
         if record_states is not None:
             record_states.append((x, cur_scale, cur_fold, dict(saved)))
-        x, cur_scale, cur_fold = _run_stage(
-            model.layers, st, plan_params[si], x, cur_scale, cur_fold,
-            act_scales, saved)
+        with scope(f"stage{si}_{st.kind}_L{st.conv_li}"
+                   + (f"_fold{st.fold}" if st.fold > 1 else "")):
+            x, cur_scale, cur_fold = _run_stage(
+                model.layers, st, plan_params[si], x, cur_scale, cur_fold,
+                act_scales, saved)
         out_li = st.pool_li if st.pool_li is not None else st.conv_li
         if out_li in refs:
             t = depth_to_space(x, cur_fold) if cur_fold > 1 else x
@@ -435,6 +443,67 @@ def plan_input_uint8_ok(stages: Sequence[Stage]) -> bool:
     st = stages[0]
     return (st.kind in ("fold_xla", "fold_xla_k2", "stem_rs", "stem_dg")
             and st.fold == 4)
+
+
+def _conv_flops(model, input_size: Optional[int] = None) -> Dict[int, float]:
+    """Useful MACs per image of each conv layer, its spatial size tracked
+    through strided convs and pools, upsamples and routes (the JAX
+    package's ``parallel/sharding._conv_flops``)."""
+    flops = {}
+    h = w = input_size or model.input_size
+    prev_c = model.in_ch
+    chans = model.out_channels()
+    sizes = []
+    for li, layer in enumerate(model.layers):
+        if isinstance(layer, Conv):
+            ho, wo = -(-h // layer.stride), -(-w // layer.stride)
+            flops[li] = (ho * wo * layer.ksize * layer.ksize
+                         * prev_c * layer.out_ch)
+            h, w = ho, wo
+        elif isinstance(layer, MaxPool) and layer.stride > 1:
+            h, w = -(-h // layer.stride), -(-w // layer.stride)
+        elif isinstance(layer, Upsample):
+            h, w = h * layer.stride, w * layer.stride
+        elif isinstance(layer, Route):
+            h, w = sizes[layer.layers[0]]
+        sizes.append((h, w))
+        prev_c = chans[li]
+    return flops
+
+
+def stage_flops(model, stages: Sequence[Stage],
+                input_size: Optional[int] = None
+                ) -> List[Tuple[float, float]]:
+    """Per-stage (useful MACs, executed MACs) per image.
+
+    ``useful``: the layer's own MAC count, the work any implementation
+    must do. ``executed``: the MACs the stage's formulation performs (a
+    k=3 fold f executes f^2 times the useful MACs, the shifted k=2 fold
+    4f^2/9 times, the s0 kernel 3 products of K=128 per 27-MAC output).
+    The graph stages (pool, route, shortcut, upsample, gap) move bytes
+    only: (0, 0)."""
+    per_layer = _conv_flops(model, input_size)
+    out: List[Tuple[float, float]] = []
+    for st in stages:
+        if st.kind in ("pool", "route", "shortcut", "upsample", "gap"):
+            out.append((0.0, 0.0))
+            continue
+        if st.kind == "dense":
+            chans = model.out_channels()
+            cin = chans[st.conv_li - 1] if st.conv_li else model.in_ch
+            out.append((float(cin * model.layers[st.conv_li].out),) * 2)
+            continue
+        useful = float(per_layer[st.conv_li])
+        if st.kind == "s0":
+            factor = 3 * 128 / 27.0
+        elif st.fold > 1 and st.k == 2:
+            factor = 4.0 * st.fold ** 2 / 9.0
+        elif st.fold > 1:
+            factor = float(st.fold ** 2)
+        else:
+            factor = 1.0
+        out.append((useful, useful * factor))
+    return out
 
 
 @torch.no_grad()
@@ -469,53 +538,57 @@ def plan_forward_w8(model, stages: Sequence[Stage],
     for si, st in enumerate(stages):
         pp = plan_params[si]
         li = st.conv_li
-        if st.kind == "pool":
-            x, cur_fold = _defold(x, cur_fold)
-            lay = layers[li]
-            x = maxpool(x, lay.size, lay.stride, lay.padding)
-        elif st.kind == "route":
-            x = torch.cat([saved[j] for j in layers[li].layers], dim=-1)
-        elif st.kind == "upsample":
-            x, cur_fold = _defold(x, cur_fold)
-            x = _upsample_nearest(x, layers[li].stride)
-        elif st.kind == "shortcut":
-            x, cur_fold = _defold(x, cur_fold)
-            x = (x.to(torch.float32)
-                 + saved[layers[li].frm].to(torch.float32))
-            x = apply_activation(x, st.act).to(torch.bfloat16)
-        elif st.kind == "gap":
-            x, cur_fold = _defold(x, cur_fold)
-            x = torch.mean(x.to(torch.float32), dim=(1, 2))
-        elif st.kind == "dense":
-            x = apply_activation(
-                dense_f32(x.to(torch.float32), pp["w"]) + pp["b"], st.act)
-        elif st.kind in ("fold_xla_k2", "stem_rs", "stem_dg"):
-            f = st.fold
-            if cur_fold != 1:
-                raise ValueError(f"{st.kind} reads the plain tensor: {st}")
-            x = space_to_depth(_pad_hw(x, 1, 2 * f - 1, 1, 2 * f - 1), f)
-            if st.cin_pad:
-                x = _pad_channels(x, st.cin_pad)
-            ho, wo = x.shape[1] - 2, x.shape[2] - 2
-            y = conv(x, pp, st.act, padding="VALID")[:, :ho, :wo]
-            x, cur_fold = gmax_bf16(y), f // 2
-        elif st.kind in ("fold_xla", "fold_xla_s2"):
-            f = st.fold
-            if cur_fold != f:
+        with scope(f"w8stage{si}_{st.kind}_L{li}"):
+            if st.kind == "pool":
                 x, cur_fold = _defold(x, cur_fold)
-                x, cur_fold = space_to_depth(x, f), f
-            if st.cin_pad:
-                x = _pad_channels(x, st.cin_pad)
-            x, cur_fold = gmax_bf16(conv(x, pp, st.act)), f // 2
-        elif st.kind in ("xla", "gemm", "auto"):
-            x, cur_fold = _defold(x, cur_fold)
-            y = conv(x, pp, st.act, stride=st.stride,
-                           padding=st.padding)
-            x = y if st.s_out_is_final else y.to(torch.bfloat16)
-        else:
-            raise ValueError(
-                f"stage kind {st.kind!r} has no w8 implementation; use a "
-                "strategy without rs/s0 kinds for w8 plans")
+                lay = layers[li]
+                x = maxpool(x, lay.size, lay.stride, lay.padding)
+            elif st.kind == "route":
+                x = torch.cat([saved[j] for j in layers[li].layers], dim=-1)
+            elif st.kind == "upsample":
+                x, cur_fold = _defold(x, cur_fold)
+                x = _upsample_nearest(x, layers[li].stride)
+            elif st.kind == "shortcut":
+                x, cur_fold = _defold(x, cur_fold)
+                x = (x.to(torch.float32)
+                     + saved[layers[li].frm].to(torch.float32))
+                x = apply_activation(x, st.act).to(torch.bfloat16)
+            elif st.kind == "gap":
+                x, cur_fold = _defold(x, cur_fold)
+                x = torch.mean(x.to(torch.float32), dim=(1, 2))
+            elif st.kind == "dense":
+                x = apply_activation(
+                    dense_f32(x.to(torch.float32), pp["w"]) + pp["b"],
+                    st.act)
+            elif st.kind in ("fold_xla_k2", "stem_rs", "stem_dg"):
+                f = st.fold
+                if cur_fold != 1:
+                    raise ValueError(
+                        f"{st.kind} reads the plain tensor: {st}")
+                x = space_to_depth(
+                    _pad_hw(x, 1, 2 * f - 1, 1, 2 * f - 1), f)
+                if st.cin_pad:
+                    x = _pad_channels(x, st.cin_pad)
+                ho, wo = x.shape[1] - 2, x.shape[2] - 2
+                y = conv(x, pp, st.act, padding="VALID")[:, :ho, :wo]
+                x, cur_fold = gmax_bf16(y), f // 2
+            elif st.kind in ("fold_xla", "fold_xla_s2"):
+                f = st.fold
+                if cur_fold != f:
+                    x, cur_fold = _defold(x, cur_fold)
+                    x, cur_fold = space_to_depth(x, f), f
+                if st.cin_pad:
+                    x = _pad_channels(x, st.cin_pad)
+                x, cur_fold = gmax_bf16(conv(x, pp, st.act)), f // 2
+            elif st.kind in ("xla", "gemm", "auto"):
+                x, cur_fold = _defold(x, cur_fold)
+                y = conv(x, pp, st.act, stride=st.stride,
+                         padding=st.padding)
+                x = y if st.s_out_is_final else y.to(torch.bfloat16)
+            else:
+                raise ValueError(
+                    f"stage kind {st.kind!r} has no w8 implementation; use "
+                    "a strategy without rs/s0 kinds for w8 plans")
         out_li = st.pool_li if st.pool_li is not None else st.conv_li
         if out_li in refs:
             saved[out_li] = (depth_to_space(x, cur_fold) if cur_fold > 1

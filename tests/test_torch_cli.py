@@ -213,8 +213,8 @@ def test_serve_answers_a_npy_post(files, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["bench", "--mode", "w8a8"], "A8"),
-    (["layer-times"], "A13"),
-    (["trace", "--detect"], "A13"),
+    (["layer-times", "--mesh", "2,1"], "A14"),
+    (["trace", "--detect", "--sharding", "channel"], "A14"),
     (["detect", "--image", "x.png", "--mesh", "2,2"], "A14"),
     (["detect", "--image", "x.png", "--sharding", "channel"], "A14"),
     (["serve", "--num-processes", "2"], "A14")])

@@ -1376,3 +1376,64 @@ def test_yolov3_darknet_file_on_card(cuda, deadline, tmp_path):
     np.testing.assert_array_equal((sg > 0).sum(), (sc > 0).sum())
     np.testing.assert_array_equal(cg, cc)
     np.testing.assert_allclose(bg, bc, atol=1e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# profiling on the card (runtime/profiling.py, Engine.stage_times*)
+# ---------------------------------------------------------------------------
+
+def test_conv_w8a8_launch_is_attributed_to_its_scope(cuda, deadline):
+    """A conv_w8a8 launch (ctypes, no ATen op around it) inside a stage
+    scope is traced into that scope."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.runtime.profiling import (
+        scope, trace_attribution)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, w = _i8(g, cuda, 2, 52, 52, 128), _i8(g, cuda, 3, 3, 128, 256)
+    s_w = torch.rand(256, generator=g, device=cuda) * 1e-3
+    b = torch.randn(256, generator=g, device=cuda)
+
+    def fn(xx):
+        with scope("stage0_xla_L0"):
+            return cv.conv2d_w8a8(xx, 0.05, w, s_w, b, s_out=0.05)
+    art = trace_attribution(fn, x, runs=3)
+    conv = [r for r in art["top_ops"] if r["group"] == "conv_w8a8"]
+    assert conv and all(r["scope"] == "stage0_xla_L0" for r in conv)
+    assert not any(k.startswith("unattributed/conv_w8a8")
+                   for k in art["by_scope_us"])
+
+
+def _w8a8_pin_engine(batch):
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    with pytest.warns(UserWarning, match="uniform noise"):
+        return Engine(EngineConfig(mode="w8a8", batch=batch)).load_weights(
+            seed=0).prepare()
+
+
+def test_trace_attribution_rows_sum_to_the_module_time(cuda, deadline):
+    """The W8A8 pin's b2 forward: the scope rows sum to the device busy
+    time within 2%, every stage has device time, and every port kernel's
+    traced count equals its launch counter (checked inside)."""
+    from dnn_inference_engine_tpu_torch.runtime.profiling import (
+        trace_attribution)
+    eng = _w8a8_pin_engine(2)
+    art = trace_attribution(eng._fwd, eng._bench_input(2), runs=5)
+    module = art["module_device_us_per_run"]
+    assert abs(sum(art["by_scope_us"].values()) - module) < 0.02 * module
+    stages = [k for k in art["by_scope_us"] if k.startswith("stage")]
+    assert len(stages) == len(eng._plan)
+
+
+def test_stage_times_on_card_stay_under_the_roofline(cuda, deadline):
+    """No stage of the W8A8 pin's b2 plan reads more than 105% of its
+    binding floor: in context (the trace's device time) nor, where
+    resolved, looped alone."""
+    eng = _w8a8_pin_engine(2)
+    rows = [r for r in eng.stage_times_traced(batch=2, runs=5)["stages"]
+            if r["stage"] is not None]
+    assert len(rows) == len(eng._plan)
+    for r in rows:
+        assert r["trace_pct_of_binding"] is not None, r
+        for k in ("pct_of_binding", "trace_pct_of_binding"):
+            assert r[k] is None or r[k] <= 105.0, r
