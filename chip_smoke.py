@@ -6,6 +6,7 @@
     python3 chip_smoke.py --front-door    # phase 10 alone
     python3 chip_smoke.py --resnet18      # phase 11 alone
     python3 chip_smoke.py --profiling     # phase 12 alone
+    python3 chip_smoke.py --multi-device  # phase 13 alone
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -157,7 +158,25 @@ Phases (each raises on failure, and the script then exits non-zero):
    module time by 2%, a kernel's traced count is not its launch count
    after 3 traces, or a stage reads over BINDING_PCT_MAX of its floor in
    context (or, resolved, looped alone); then the CLI's ``trace --detect`` (its post_decode and nms_*
-   scopes) and ``layer-times`` (fp32) in processes of their own.
+   scopes) and ``layer-times`` (fp32) in processes of their own;
+13. multi-device: conv_w8a8's int32-accumulator form (the row-parallel
+   conv's) against its plain version, int32 for int32, at YOLOv2-tiny
+   L13's Cin shards (512 and 256, b32 and b16), YOLOv3-tiny L12's (256,
+   b16) and ResNet-18 L3's (32, b32), each timed beside the plain
+   version, ``torch._int_mm`` on the im2col'd A and its bound; then ranks
+   of this script that share the card over gloo with CUDA tensors: the
+   YOLOv2-tiny W8A8 b32 pin at 416 px on meshes (1, 2) channel, (2, 1)
+   replicated and (2, 2) channel, each rank's heads and detections equal
+   to the single-device card detect bit for bit, with its launch counts
+   set to 0 just before a detect and read just after (7 conv_w8a8, the
+   raw form one of them on a channel mesh, 1 gemm_fused, 1 k2 stem, 1
+   shift_s2d2); a one-rank NCCL group's int32 all_reduce on the card;
+   two NCCL ranks on the one card (NCCL refuses a device shared by two
+   ranks; the outcome is printed); and ``DistributedBatcher`` on (1, 2)
+   with a leader and a follower: 64 submits and one ``POST /detect``,
+   every row equal to the single-device detect, both ranks out with rc 0
+   after ``stop``. Wall times of ranks that share one card measure
+   contention, not scaling.
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -166,6 +185,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -236,6 +256,12 @@ KERNELS = {
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8.cu",
         replaces="dnn_inference_engine_tpu/ops/conv.py:110"),
+    # its int32-accumulator form (the raw store): XLA's int8 conv with
+    # preferred_element_type=int32 in the row-parallel conv
+    "conv_w8a8_acc": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8.cu",
+        replaces="dnn_inference_engine_tpu/parallel/shard_map_forward.py:96"),
 }
 
 # Strategy plans (YOLOv2-tiny, w8a8): S1 and S2 between them run every
@@ -3235,6 +3261,346 @@ def phase_front_door(card: str, dev=None, size: int = 416):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: multi-device (parallel/, runtime/serve_distributed.py)
+# ---------------------------------------------------------------------------
+
+# conv_w8a8's int32-accumulator form at the row-parallel convs: YOLOv2-tiny
+# L13's Cin shards (mp 2 and 4) at the local batches of the (1, 2) and
+# (2, 2) meshes, YOLOv3-tiny L12's (mp 2, b16) and ResNet-18 L3's (mp 2,
+# b32): (tag, x shape, Cout); the first is the (1, 2) mesh's launch
+ACC_SHAPES = [("v2 L13 Cin512 b32", (32, 13, 13, 512), 1024),
+              ("v2 L13 Cin512 b16", (16, 13, 13, 512), 1024),
+              ("v2 L13 Cin256 b32", (32, 13, 13, 256), 1024),
+              ("v2 L13 Cin256 b16", (16, 13, 13, 256), 1024),
+              ("v3 L12 Cin256 b16", (16, 13, 13, 256), 1024),
+              ("r18 L3 Cin32 b32", (32, 56, 56, 32), 64)]
+# the meshes of the sharded detect, and its global batch (416 px)
+MD_MESHES = (((1, 2), "channel"), ((2, 1), "replicated"),
+             ((2, 2), "channel"))
+MD_BATCH = 32
+MD_SCORE = 0.02                     # survivors to compare in every image
+MD_TIMEOUT = 300                    # seconds a group of ranks may take
+
+
+def acc_rows(g, dev, ops_peak, bw) -> dict:
+    """conv2d_w8a8_acc (the conv_w8a8 kernel's raw int32 store) against
+    conv_acc_plain at ACC_SHAPES, int32 for int32; each launch timed on
+    prepared operands beside the plain version, ``torch._int_mm`` on the
+    im2col'd A (the product only) and the bound (the int32 output is 4
+    bytes a sum). The row of the (1, 2) mesh's shape, with every shape
+    under ``shapes``."""
+    from dnn_inference_engine_tpu_torch.ops import _build
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+        extract_patches)
+    sms = _build.sm_count(dev)
+    shapes = []
+    for tag, xs, cout in ACC_SHAPES:
+        x = torch.randint(-127, 128, xs, generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (3, 3, xs[3], cout), generator=g,
+                          device=dev, dtype=torch.int8)
+        form = cv.conv_w8a8_form(*xs, cout, 3, 3, quantized=False, raw=True,
+                                 sms=sms)
+        before = cv.conv2d_w8a8.acc_launches
+        got = cv.conv2d_w8a8_acc(x, w)
+        if cv.conv2d_w8a8.acc_launches != before + 1 or got.dtype != \
+                torch.int32:
+            raise AssertionError(f"conv_w8a8_acc {tag}: not the kernel")
+        ref = cv.conv_acc_plain(x, w)
+        bt = gm.kmajor_weights(w)
+        n, h, wd, cin = xs
+        m, kk = n * h * wd, 9 * cin
+
+        def kernel(f=form):
+            return cv.conv_w8a8_launch(x, bt, None, None, None, 3, h, wd, 0,
+                                       "linear", f, raw=True)
+        err = max(max_abs_err(got, ref), max_abs_err(kernel(), ref))
+        ms = device_ms(kernel, 10)
+        plain_ms = device_ms(lambda: cv.conv_acc_plain(x, w), 2)
+        a = extract_patches(x, 3, 3, 1, "SAME").reshape(m, kk)
+        lib_ms = device_ms(lambda: torch._int_mm(a, bt.t()), 10)
+        bound, by = _bound(2.0 * m * kk * cout,
+                           x.numel() + w.numel() + 4 * m * cout, ops_peak, bw)
+        shapes.append(dict(tag=tag, x=list(xs), N=cout, M=m, K=kk,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                           route=form.route, kb=form.kb, steps=form.steps,
+                           grid=form.grid, sk_tiles=form.sk_tiles))
+        print(f"  conv_w8a8_acc {tag} x={xs} Cout={cout} (M={m} K={kk}): "
+              f"int32 err={err} ms={ms:.4f} int_mm_ms={lib_ms:.4f} "
+              f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}); "
+              f"{form.route} kb {form.kb}, {schedule_line(form)}")
+        if err != 0:
+            raise AssertionError(f"conv_w8a8_acc {tag}: kernel != plain")
+        del x, a, ref, got
+    row = {k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
+    row["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
+    row["shapes"] = shapes
+    return row
+
+
+def md_dir() -> Path:
+    return Path(__file__).resolve().parent / "build" / "multidev"
+
+
+def _md_inputs(d: Path, dev=None, size: int = 416) -> None:
+    """The weights (seed 0, calibrated on seeded images on ``dev``, the
+    card by default), the global batch and the single-device detect and
+    heads the ranks are held to."""
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    calib = np.random.default_rng(21).uniform(
+        0, 1, (8, size, size, 3)).astype(np.float32)
+    eng = Engine(EngineConfig(mode="w8a8", batch=MD_BATCH, input_size=size,
+                              score_thresh=MD_SCORE),
+                 device=dev).load_weights(seed=0).prepare(calib)
+    eng.save(str(d / "v2.npz"))
+    imgs = np.random.default_rng(22).integers(
+        0, 256, (MD_BATCH, size, size, 3)).astype(np.uint8)
+    np.save(d / "images.npy", imgs)
+    b, s, c = eng.detect(imgs)
+    np.savez(d / "ref.npz", boxes=b, scores=s, classes=c,
+             head=eng.classify(imgs))
+
+
+def _md_spawn(groups) -> dict:
+    """Start every rank of every group at once ([(role, world, extra)]),
+    each a process of this script (``--md-rank``), and wait for all of
+    them; (role, rank) -> (rc, the rank's ``MD`` JSON or None, output
+    tail). A rank past MD_TIMEOUT is killed."""
+    d = md_dir()
+    procs = {}
+    for gi, (role, world, extra) in enumerate(groups):
+        init = f"file://{d}/pg{gi}"
+        for r in range(world):
+            spec = dict(role=role, rank=r, world=world, init=init,
+                        dir=str(d), **extra)
+            env = dict(os.environ, OMP_NUM_THREADS="2")
+            if role == "nccl2":
+                env["NCCL_DEBUG"] = "WARN"
+            procs[(gi, role, r)] = subprocess.Popen(
+                [sys.executable, __file__, "--md-rank", json.dumps(spec)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=Path(__file__).resolve().parent)
+    deadline = time.time() + MD_TIMEOUT
+    out = {}
+    try:
+        for key, p in procs.items():
+            try:
+                text, _ = p.communicate(timeout=max(1, deadline - time.time()))
+                rc = p.returncode
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, rc = p.communicate()[0], None
+            md = [json.loads(ln[3:]) for ln in text.splitlines()
+                  if ln.startswith("MD ")]
+            out[key] = (rc, md[-1] if md else None, text[-3000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _md_counts(counts: dict, acc: int, want_acc: int, tag: str) -> None:
+    """One rank's launch counts of a b32 detect on the pin: 7 conv_w8a8
+    (the row-parallel conv's raw form among them, ``want_acc``), 1
+    gemm_fused, 1 k2 stem, 1 shift_s2d2, no other kernel."""
+    want = {**{k: 0 for k in counts}, "conv_w8a8": 7, "gemm_fused": 1,
+            "stem_fused_k2": 1, "shift_s2d2": 1}
+    if counts != want or acc != want_acc:
+        raise AssertionError(f"multi-device {tag}: launches {counts} acc "
+                             f"{acc}, want {want} acc {want_acc}")
+
+
+def phase_multi_device(card: str, ops_peak, bw):
+    """Phase 13: conv_w8a8's int32 form against its plain version
+    (``acc_rows``); then, in processes of this script that share the card
+    over gloo with CUDA tensors: the YOLOv2-tiny W8A8 b32 pin at 416 px on
+    the meshes MD_MESHES, every rank's detect and heads equal to the
+    single-device card detect bit for bit, with its launch counts; a
+    one-rank NCCL group's int32 all_reduce on the card; two NCCL ranks on
+    the one card (NCCL refuses a device shared by two ranks: the outcome
+    is printed); and ``DistributedBatcher`` with a leader and a follower
+    on (1, 2): 64 submits and one ``POST /detect``, every row equal to the
+    single-device detect, the follower out with rc 0 after ``stop``.
+    Returns (the kernel row, the (1, 2) rank 0's counts)."""
+    import shutil
+    from dnn_inference_engine_tpu_torch.ops import _build
+    _build.build_all()              # the ranks load what is built here
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    row = acc_rows(g, dev, ops_peak, bw)
+    torch.cuda.empty_cache()
+    d = md_dir()
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    _md_inputs(d)
+    torch.cuda.empty_cache()
+    groups = [("mesh", mesh[0] * mesh[1], dict(mesh=mesh, sharding=sh))
+              for mesh, sh in MD_MESHES]
+    groups += [("nccl1", 1, {}), ("nccl2", 2, {})]
+    t0 = time.time()
+    res = _md_spawn(groups)
+    print(f"  multi-device ranks ({sum(w for _, w, _ in groups)} processes "
+          f"on one card): {time.time() - t0:.1f} s")
+    main_counts = None
+    for (gi, role, r), (rc, md, tail) in sorted(res.items()):
+        if role == "nccl2":
+            print(f"  NCCL, two ranks on one card, rank {r}: rc {rc}, "
+                  f"{md and md['outcome']}")
+            continue
+        if rc != 0 or md is None or not md.get("ok"):
+            raise AssertionError(f"multi-device {role} group {gi} rank {r} "
+                                 f"failed (rc {rc}):\n{tail}")
+        if role == "nccl1":
+            print(f"  NCCL one-rank int32 all_reduce on the card: {md}")
+            continue
+        mesh, sh = tuple(md["mesh"]), md["sharding"]
+        tag = f"{mesh} {sh} rank {r}"
+        _md_counts(md["counts"], md["acc_launches"],
+                   int(sh == "channel" and mesh[1] > 1), tag)
+        print(f"  sharded detect {tag}: heads and detections equal to the "
+              f"single-device card detect; launches {md['counts']}, "
+              f"int32 form {md['acc_launches']}; detect "
+              f"{md['detect_ms']:.1f} ms wall (ranks share one card: "
+              "contention, not scaling)")
+        if mesh == (1, 2) and r == 0:
+            main_counts = dict(md["counts"],
+                               conv_w8a8_acc=md["acc_launches"])
+    t0 = time.time()
+    res = _md_spawn([("serve", 2, dict(mesh=(1, 2), sharding="channel"))])
+    for (_, _, r), (rc, md, tail) in sorted(res.items()):
+        if rc != 0 or md is None or not md.get("ok"):
+            raise AssertionError(f"multi-device serve rank {r} failed "
+                                 f"(rc {rc}):\n{tail}")
+        print(f"  DistributedBatcher (1, 2) rank {r}: {md}")
+    print(f"  multi-device serving: {time.time() - t0:.1f} s")
+    print(json.dumps({"multi_device": {
+        "conv_w8a8_acc": {k: v for k, v in row.items() if k != "shapes"},
+        "main_path_counts": main_counts, "card": card}}))
+    return row, main_counts
+
+
+def _md_rank(spec: dict) -> int:
+    """One rank of phase 13 (``--md-rank``): prints ``MD {...}``. The
+    spec's optional ``device`` and ``input_size`` rehearse it on the CPU
+    (``device="cpu"``, 64 px)."""
+    import torch.distributed as dist
+    role, rank, world = spec["role"], spec["rank"], spec["world"]
+    if role == "nccl2":
+        torch.cuda.set_device(0)
+        try:
+            dist.init_process_group("nccl", init_method=spec["init"],
+                                    world_size=world, rank=rank)
+            t = torch.ones(4, dtype=torch.int32, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            outcome = f"ran: sum {t.tolist()}"
+        except Exception as e:      # noqa: BLE001 — the outcome is the result
+            outcome = f"refused: {type(e).__name__}: {str(e)[:300]}"
+        print("MD " + json.dumps({"ok": True, "outcome": outcome}),
+              flush=True)
+        os._exit(0)                 # no teardown of a failed communicator
+    from dnn_inference_engine_tpu_torch.parallel.mesh import (
+        all_reduce_sum, init_distributed)
+    if role == "nccl1":
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=spec["init"],
+                                world_size=1, rank=0)
+        t = torch.arange(-5, 1000, dtype=torch.int32, device="cuda") * 7919
+        got = all_reduce_sum(t.clone(), dist.group.WORLD)
+        torch.cuda.synchronize()
+        print("MD " + json.dumps({"ok": bool(torch.equal(got, t)),
+                                  "backend": dist.get_backend(),
+                                  "numel": t.numel()}), flush=True)
+        dist.destroy_process_group()
+        return 0
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    d = Path(spec["dir"])
+    init_distributed(spec["init"], world, rank, backend="gloo",
+                     timeout_s=MD_TIMEOUT)
+    mesh = tuple(spec["mesh"])
+    eng = Engine(EngineConfig(
+        mode="w8a8", batch=MD_BATCH, serve_max_batch=MD_BATCH,
+        input_size=spec.get("input_size", 416), score_thresh=MD_SCORE,
+        mesh_shape=mesh,
+        sharding=spec["sharding"], weights=str(d / "v2.npz")),
+        device=spec.get("device")).load_weights().prepare()
+    imgs = np.load(d / "images.npy")
+    with np.load(d / "ref.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    if role == "mesh":
+        eng.detect(imgs)            # warm
+        _sync(eng.device)
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        det = eng.detect(imgs)
+        _sync(eng.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, acc = read_counts(), cv.conv2d_w8a8.acc_launches
+        head = eng.classify(imgs)
+        ok = np.array_equal(head, ref["head"]) and all(
+            np.array_equal(a, ref[k])
+            for a, k in zip(det, ("boxes", "scores", "classes")))
+        out = dict(ok=bool(ok), mesh=mesh, sharding=spec["sharding"],
+                   counts=counts, acc_launches=acc, detect_ms=ms,
+                   im2col=cv.conv2d_w8a8.im2col_launches)
+    else:
+        out = _md_serve(eng, rank, imgs, ref)
+    dist.barrier()
+    dist.destroy_process_group()
+    print("MD " + json.dumps(out), flush=True)
+    return 0
+
+
+def _md_serve(eng, rank, imgs, ref) -> dict:
+    """Phase 13's serving ranks: the leader submits the batch twice (64
+    images) and POSTs one image over HTTP, each row held to the
+    single-device detect; the follower mirrors until ``stop``."""
+    from dnn_inference_engine_tpu_torch.runtime.serve_distributed import (
+        DistributedBatcher, follower_loop)
+    if rank != 0:
+        served = follower_loop(eng, leader_timeout_s=120.0)
+        return dict(ok=served >= 2, served=served)
+    n = len(imgs)
+    b = DistributedBatcher(eng, timeout_ms=50).start()
+    try:
+        t0 = time.perf_counter()
+        futs = [b.submit(imgs[i % n]) for i in range(2 * n)]
+        rows = [f.result(timeout=300) for f in futs]
+        secs = time.perf_counter() - t0
+        srv = b.serve_http(port=0, host="127.0.0.1")
+        try:
+            status, http = _http(f"http://127.0.0.1:{srv.server_address[1]}",
+                                 "/detect", _npy_bytes(imgs[0]))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    finally:
+        b.stop()
+    ok = all(np.array_equal(a, ref[k][i % n])
+             for i, row in enumerate(rows)
+             for a, k in zip(row, ("boxes", "scores", "classes")))
+    # an image at the input size is its own network frame: the reply's
+    # boxes are the detect's
+    keep = ref["scores"][0] > 0
+    ok = ok and status == 200 \
+        and http["scores"] == ref["scores"][0][keep].tolist() \
+        and http["classes"] == ref["classes"][0][keep].tolist() \
+        and http["boxes"] == ref["boxes"][0][keep].tolist()
+    return dict(ok=bool(ok), images=len(rows), http_detections=len(
+        http["scores"]), images_per_s_contended=len(rows) / secs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3350,6 +3716,9 @@ def main() -> int:
     timed("profiling", phase_profiling, card)
     torch.cuda.empty_cache()
     timed("front door", phase_front_door, card)
+    torch.cuda.empty_cache()
+    rows["conv_w8a8_acc"], counts["multi-device"] = timed(
+        "multi-device", phase_multi_device, card, ops_peak, bw)
     print(f"total {time.time() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + ")")
 
@@ -3358,20 +3727,21 @@ def main() -> int:
     # detect for the strategy plans' kernels, the S3 b32 detect for
     # stage0_fused, the b32 tail pass for conv3x3_bt (on no detect path),
     # the copy-engine tools' mains for conv_dma and tma_probe, and the
-    # YOLOv2 b32 fp32 detect (EngineConfig()'s defaults) for gemm_f32
+    # YOLOv2 b32 fp32 detect (EngineConfig()'s defaults) for gemm_f32, and
+    # the (1, 2) mesh's rank 0 b32 detect for conv_w8a8's int32 form
     counts["tail"] = {"conv3x3_bt": tail_launches}
     counts["tools"] = tools_launches
     path_of = {"stem_fused_dg": "yolov3-tiny", "quant_space_to_depth4": "S1",
                "gmax_shift_s2d2": "S1", "conv3x3_rs": "S1",
                "stage0_fused": "S3", "conv3x3_bt": "tail",
                "conv_dma": "tools", "tma_probe": "tools",
-               "gemm_f32": "fp32"}
+               "gemm_f32": "fp32", "conv_w8a8_acc": "multi-device"}
     kernels = []
     for kname, meta in KERNELS.items():
         path = path_of.get(kname, "yolov2-tiny")
         row = dict(name=kname, **meta, launches=counts[path][kname])
         row.update(rows[kname])
-        if counts["resnet18"][kname]:
+        if counts["resnet18"].get(kname):
             # the ResNet-18 W8A8 b32 classify's launches beside the row's
             # own path's
             row["resnet18_launches"] = counts["resnet18"][kname]
@@ -3462,6 +3832,19 @@ def front_door_only() -> int:
     return 0
 
 
+def multi_device_only() -> int:
+    """Phase 13 alone (``--multi-device``): the kernels build first."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    t0 = time.time()
+    phase_multi_device(card, *peaks(torch.cuda.get_device_name(0)))
+    print(f"multi-device: {time.time() - t0:.1f} s")
+    return 0
+
+
 def resnet18_only() -> int:
     """Phase 11 alone (``--resnet18``): the kernels build at first use."""
     if not torch.cuda.is_available():
@@ -3484,4 +3867,8 @@ if __name__ == "__main__":
         sys.exit(resnet18_only())
     if sys.argv[1:] == ["--profiling"]:
         sys.exit(profiling_only())
+    if sys.argv[1:] == ["--multi-device"]:
+        sys.exit(multi_device_only())
+    if len(sys.argv) == 3 and sys.argv[1] == "--md-rank":
+        sys.exit(_md_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -16,8 +16,20 @@ the plain PyTorch versions):
 
 ``layer-times`` with ``--device cpu`` times the plain versions on the
 CPU (no percentages of the card); ``trace`` needs the card.
-``bench`` waits for the card's bench (ROADMAP item A8); a mesh, the
-channel sharding and several serving processes for multi-device (A14).
+``bench`` waits for the card's bench (ROADMAP item A8).
+
+A mesh runs one process a rank. Under torchrun every rank runs the same
+command and rank 0 prints:
+
+  torchrun --nproc-per-node 2 -m dnn_inference_engine_tpu_torch.cli detect
+      --mesh 1,2 --sharding channel --mode w8a8 --image img.jpg   (one line)
+
+(``--backend gloo`` where the ranks share a card, or on the CPU with
+``--device cpu``). ``serve --num-processes N --process-id P --coordinator
+host:port`` starts one rank of a serving mesh without torchrun: rank 0
+serves HTTP, the others mirror its steps (runtime/serve_distributed.py).
+``trace``, ``layer-times`` and ``plan-sweep`` run on one device (a mesh
+for them is ROADMAP item A15).
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ import numpy as np
 
 # subcommands of the JAX CLI that wait for a ROADMAP item
 _LATER = {"bench": "A8"}
+# subcommands that run on one device: a mesh for them waits for this item
+_SINGLE_DEVICE = {"trace": "A15", "layer-times": "A15", "plan-sweep": "A15"}
 
 
 def _add_common(p):
@@ -48,12 +62,18 @@ def _add_common(p):
                    help="NMS candidate pool (default 256 at serving "
                         "thresholds, uncapped at eval thresholds)")
     p.add_argument("--mesh", default=None, metavar="DP,MP",
-                   help="(data, model) mesh shape; one device only "
-                        "(ROADMAP item A14)")
+                   help="(data, model) mesh of DP*MP ranks, a process each "
+                        "(torchrun, or serve --num-processes): the batch "
+                        "split over data")
     p.add_argument("--sharding", default=None,
                    choices=["replicated", "channel"],
-                   help="weight sharding for --mesh (channel: ROADMAP "
-                        "item A14)")
+                   help="weight sharding for --mesh (channel, w8a8: the "
+                        "heaviest conv pair split over model, its int32 "
+                        "sums added across ranks)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend for a mesh (default: "
+                        "NCCL when every rank has a card of its own, gloo "
+                        "without a card; ranks that share a card need gloo)")
     p.add_argument("--calib-images", default=None, metavar="DIR",
                    help="calibration images (a directory, .npy or .npz) "
                         "for w8a8 with real weights")
@@ -153,12 +173,23 @@ def cmd_eval(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    from dnn_inference_engine_tpu_torch.runtime.serve import (
-        ContinuousBatcher)
+    """Serve HTTP on one device, or on a mesh: rank 0 serves HTTP through
+    ``DistributedBatcher``, every other rank mirrors its steps in
+    ``follower_loop`` and exits when the leader stops or is gone."""
+    from dnn_inference_engine_tpu_torch.runtime.serve_distributed import (
+        DistributedBatcher, follower_loop)
     eng = _build_engine(args)
-    batcher = ContinuousBatcher(eng).start()
+    if eng.mesh is not None and eng.mesh.rank != 0:
+        print(f"# follower rank {eng.mesh.rank}: serving lockstep steps "
+              "(no HTTP)", flush=True)
+        served = follower_loop(eng)
+        print(f"# follower exiting after {served} batches", flush=True)
+        return 0
+    batcher = DistributedBatcher(eng).start()
     srv = batcher.serve_http(args.port)
-    print(f"# serving {args.model} {args.mode} on "
+    mesh = (f" mesh={tuple(eng.config.mesh_shape)} {eng.config.sharding}"
+            if eng.mesh is not None else "")
+    print(f"# serving {args.model} {args.mode}{mesh} on "
           f":{srv.server_address[1]} (max_batch={batcher.max_batch}); "
           "POST /detect, GET /stats", flush=True)
     try:
@@ -346,9 +377,12 @@ def _parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--num-processes", type=int, default=None,
-                   help="several server processes (ROADMAP item A14)")
-    p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--coordinator", default=None)
+                   help="server processes, one a rank of --mesh (rank 0 "
+                        "serves HTTP); default: torchrun's WORLD_SIZE")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (default: torchrun's RANK)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address for the process group")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("dump-goldens",
@@ -408,15 +442,44 @@ def main(argv=None) -> int:
         ap.error(f"{argv[0]!r} is not ported yet (ROADMAP item "
                  f"{_LATER[argv[0]]})")
     args = ap.parse_args(argv)
-    if args.mesh and tuple(int(v) for v in args.mesh.split(",")) != (1, 1):
-        ap.error(f"--mesh {args.mesh}: the port runs on one device "
-                 "(multi-device is ROADMAP item A14)")
-    if args.sharding == "channel":
-        ap.error("--sharding channel: multi-device is ROADMAP item A14")
-    if getattr(args, "num_processes", None) and args.num_processes > 1:
-        ap.error(f"--num-processes {args.num_processes}: several serving "
-                 "processes are ROADMAP item A14")
-    return args.fn(args)
+    mesh = tuple(int(v) for v in args.mesh.split(",")) if args.mesh \
+        else (1, 1)
+    if len(mesh) != 2 or min(mesh) < 1:
+        ap.error(f"--mesh {args.mesh}: give DP,MP, both >= 1")
+    if mesh != (1, 1) and args.cmd in _SINGLE_DEVICE:
+        ap.error(f"{args.cmd} --mesh {args.mesh}: {args.cmd} runs on one "
+                 f"device (a mesh is ROADMAP item {_SINGLE_DEVICE[args.cmd]})")
+    n = getattr(args, "num_processes", None)
+    if n and n > 1 and mesh[0] * mesh[1] != n:
+        ap.error(f"--num-processes {n} needs a --mesh of {n} ranks")
+    return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
+    """The command; on a mesh of several ranks, the process group is
+    brought up first (from ``serve``'s process flags, else torchrun's
+    environment) and taken down at the end, and every rank but 0 runs the
+    command with its standard output silenced (but ``serve``, whose
+    followers say what they do)."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    if mesh != (1, 1):
+        from dnn_inference_engine_tpu_torch.parallel.mesh import (
+            init_distributed)
+        init_distributed(getattr(args, "coordinator", None),
+                         getattr(args, "num_processes", None),
+                         getattr(args, "process_id", None),
+                         backend=args.backend)
+    try:
+        quiet = (args.cmd != "serve" and dist.is_initialized()
+                 and dist.get_rank() != 0)
+        with contextlib.redirect_stdout(io.StringIO()) if quiet \
+                else contextlib.nullcontext():
+            return args.fn(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

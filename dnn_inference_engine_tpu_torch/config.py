@@ -54,8 +54,7 @@ LEAKY_SLOPE = 0.1
 class EngineConfig:
     """Engine configuration, field for field the JAX package's: a JSON
     file written by either package loads in the other to an equal
-    config. ``Engine`` refuses a mesh other than (1, 1) and the channel
-    sharding (multi-device is ROADMAP item A14)."""
+    config."""
 
     model: str = "yolov2-tiny"          # yolov2-tiny | yolov3-tiny | resnet18
     mode: str = "fp32"                  # fp32 | w8 | w8a8
@@ -67,7 +66,9 @@ class EngineConfig:
     input_size: int = INPUT_SIZE
     num_classes: int = NUM_CLASSES
 
-    # (data, model) device mesh and weight sharding: one device only here
+    # (data, model) mesh of ranks, one device each (parallel/): the batch
+    # split over data; channel (w8a8) splits the heaviest conv pair over
+    # model, replicated keeps the weights whole
     mesh_shape: Tuple[int, int] = (1, 1)
     sharding: str = "replicated"        # replicated | channel
 

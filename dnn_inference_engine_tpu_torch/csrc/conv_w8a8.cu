@@ -33,6 +33,14 @@
 // 56 px, TAP at 28, 14 and 7), stride 2 for its 3x3/s2 convs (PATCH) and,
 // k = 1, its 1x1/s2 projections (PATCH, f32out).
 //
+// The raw form (out_kind 2) stores acc itself, int32, with no epilogue:
+// XLA's int8 conv with preferred_element_type=int32, which the
+// row-parallel conv of the channel-sharded forward sums across ranks
+// before its epilogue (dnn_inference_engine_tpu/parallel/
+// shard_map_forward.py:96-97). Its shapes there: YOLOv2-tiny's L13 and
+// YOLOv3-tiny's L12 at 13 px with Cin split over the ranks (TAP), and
+// ResNet-18's L3 at 56 px, Cin 32 or 16 (PATCH).
+//
 // What bounds it on an H100 (SXM data sheet at 700 W: 1,979 int8 TOP/s,
 // 3.35 TB/s): the int8 tensor-core rate at every b32 main-path shape
 // (L2: 51.0 G operations on 33 MB; L13: 102.1 G on 12 MB); at batch 1 the
@@ -129,11 +137,12 @@ struct Conv {
   const float* bias;
   int8_t* out;                  // (N, Ho, Wo, go ? go : Cout)
   float* outf;                  // f32out: (N, Ho, Wo, Cout)
+  int* outi;                    // raw: (N, Ho, Wo, Cout) int32
   int* ws;                      // straddled tiles' partial sums
   int* counters;                // their arrival counters, zero
   int H, W, Cin, Ho, Wo, Cout;
   int go;                       // channels a pool group, 0: no group-max
-  int ks, pad_h, pad_w, act, mode, f32out;
+  int ks, pad_h, pad_w, act, mode, f32out, raw;
   rq::Requant q;
   int n_tiles;                  // column blocks
   // the schedule: tiles of `steps` K steps; the first sk_tiles stream-K
@@ -231,6 +240,7 @@ __device__ __forceinline__ long long out_pixel(const Conv& p, int t, int r) {
 // output).
 __device__ __forceinline__ void load_scb(float* sc_s, float* bi_s,
                                          const Conv& p, int nt, int cl) {
+  if (p.raw) return;            // no epilogue: scale and bias unused
   int col;
   bool ok;
   if (p.go) {
@@ -434,6 +444,41 @@ __device__ __forceinline__ void store_f32(const int (&acc)[NREG],
   wg::warpgroup_sync(c);
 }
 
+// The int32 accumulator (raw): each of the thread's accumulator pairs,
+// as store_f32 walks them, straight to its output pixel, 8 bytes a store.
+// A tile of sums is 64 KB, four times its int8 codes, more than the 16 KB
+// staging a consumer has: the store takes no staging, so the shared
+// memory of every form stays as it was.
+template <bool PATCH_ROUTE>
+__device__ __forceinline__ void store_i32(const int (&acc)[NREG],
+                                          const Conv& p, int t_pix, int nt) {
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  long long pix[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    pix[r] = out_pixel<PATCH_ROUTE>(p, t_pix, 64 * (r / 2) + 16 * w + g +
+                                                  8 * (r % 2));
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = nt * BN + 8 * j + 2 * t;
+    if (col >= p.Cout) continue;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (pix[r] < 0) continue;
+      const int i = 64 * (r / 2) + 4 * j + 2 * (r % 2);
+      int* dst = p.outi + pix[r] * p.Cout + col;
+      if ((p.Cout & 1) == 0) {
+        *reinterpret_cast<int2*>(dst) = make_int2(acc[i], acc[i + 1]);
+      } else {
+        dst[0] = acc[i];
+        if (col + 1 < p.Cout) dst[1] = acc[i + 1];
+      }
+    }
+  }
+}
+
 // The main paths' variant (conv order, leaky) in straight-line code; the
 // other activations and mode 4, which no pin reaches, read p.act; the f32
 // output of a linear conv (ResNet-18) its own store. GROUPS false leaves
@@ -444,6 +489,10 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NREG],
                                          uint8_t* staging, const float* sc_s,
                                          const float* bi_s, const Conv& p,
                                          int t_pix, int nt, int c) {
+  if (p.raw) {
+    store_i32<PATCH_ROUTE>(acc, p, t_pix, nt);
+    return;
+  }
   if (p.f32out) {
     store_f32<PATCH_ROUTE>(acc, sc_s, bi_s, p, t_pix, nt, c);
     return;
@@ -926,21 +975,24 @@ int same_lo(int n, int k, int s) {
 // sk_blocks blocks, ops/conv.py conv_schedule); ws holds sk_tiles * slots
 // * 128 * 128 int32 and counters sk_tiles zeroed int32 where a tile lies
 // on more than one block (slots, at least the most blocks on one tile, >
-// 1). out (N, Ho, Wo, go ? go : Cout) int8, or with f32out (no group-max)
-// (N, Ho, Wo, Cout) float32 and s_out unused. Returns a cudaError_t, or
-// minus the CUresult of a failed tensor-map encode.
+// 1). out by out_kind: 0 (N, Ho, Wo, go ? go : Cout) int8 codes; 1 (no
+// group-max) (N, Ho, Wo, Cout) float32 y, s_out unused; 2 (no group-max)
+// (N, Ho, Wo, Cout) int32 accumulators, scale, bias, s_out and act unused
+// (scale and bias may be null). Returns a cudaError_t, or minus the
+// CUresult of a failed tensor-map encode.
 extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
                          const void* bias, float s_out, void* out, int N,
                          int H, int W, int Cin, int Cout, int ks, int stride,
-                         int Ho, int Wo, int go, int act, int f32out,
+                         int Ho, int Wo, int go, int act, int out_kind,
                          int route, int kb, int steps, int grid,
                          int sk_tiles, int sk_blocks, int slots, void* ws,
                          void* counters, void* stream) {
   Conv p;
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
-  p.out = f32out ? nullptr : static_cast<int8_t*>(out);
-  p.outf = f32out ? static_cast<float*>(out) : nullptr;
+  p.out = out_kind == 0 ? static_cast<int8_t*>(out) : nullptr;
+  p.outf = out_kind == 1 ? static_cast<float*>(out) : nullptr;
+  p.outi = out_kind == 2 ? static_cast<int*>(out) : nullptr;
   p.ws = static_cast<int*>(ws);
   p.counters = static_cast<int*>(counters);
   p.H = H;
@@ -954,7 +1006,8 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
   p.pad_h = ks == 2 ? 0 : same_lo(H, ks, stride);
   p.pad_w = ks == 2 ? 0 : same_lo(W, ks, stride);
   p.act = act;
-  p.f32out = f32out != 0;
+  p.f32out = out_kind == 1;
+  p.raw = out_kind == 2;
   p.mode = 0;
   p.q = rq::requant(s_out, &p.mode);
   p.sk_tiles = sk_tiles;
@@ -968,8 +1021,9 @@ extern "C" int conv_w8a8(const void* x, const void* wt, const void* scale,
   const bool bad =
       N < 1 || H < 1 || W < 1 || Cin < 16 || Cin % 16 || Cout < 1 ||
       !(s1 || s2) || Ho < 1 || Wo < 1 ||
-      (go != 0 && (go < 1 || 4 * go != Cout || f32out)) || grid < 1 ||
-      route < 0 || route > 1;
+      out_kind < 0 || out_kind > 2 ||
+      (go != 0 && (go < 1 || 4 * go != Cout || out_kind != 0)) ||
+      grid < 1 || route < 0 || route > 1;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   p.n_tiles = go ? (go + GN - 1) / GN : (Cout + BN - 1) / BN;
   const uint64_t b_rows = go ? static_cast<uint64_t>(p.n_tiles) * BN

@@ -23,7 +23,7 @@ default), ``pallas`` (the port's gemm tier, forced on every conv) or
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -206,13 +206,17 @@ class Model:
 
     @torch.no_grad()
     def forward_w8a8(self, qparams, act_scales, x,
-                     capture_outputs: bool = False, kernel: str = "xla"):
+                     capture_outputs: bool = False, kernel: str = "xla",
+                     convs: Optional[Dict[int, Callable]] = None):
         """Layer-by-layer W8A8 forward: x enters f32, is quantized with
         the first conv's input scale and stays int8 across the chain;
         linear convs (the heads) emit f32. Returns the head, or the tuple
         of ``out_layers`` outputs; with ``capture_outputs`` also every
-        layer's output in f32."""
-        conv_fn = _get_conv_fn("w8a8", kernel)
+        layer's output in f32. ``convs``: {layer: conv} in place of the
+        tier's conv at those layers, with its arguments (the row-parallel
+        conv of a channel-sharded forward)."""
+        tier_conv = _get_conv_fn("w8a8", kernel)
+        convs = convs or {}
         cur_scale: Optional[float] = None      # None: x is f32
         outs: List[Tuple[torch.Tensor, Optional[float]]] = []
         for li, layer in enumerate(self.layers):
@@ -223,6 +227,7 @@ class Model:
                     cur_scale = act_scales[li]
                     x = quantize_act(x, cur_scale)
                 requant = layer.act != "linear"
+                conv_fn = convs.get(li, tier_conv)
                 with layer_scope(li, layer):
                     x = conv_fn(x, cur_scale, p["wq"], p["s_w"], p["b"],
                                 act=layer.act, stride=layer.stride,

@@ -15,7 +15,15 @@ group-max) f32 out, and ResNet-18's stride-2 3x3 and 1x1 SAME convs. A
 activation; the forms the kernel refuses (Cin % 16 != 0, any other
 kernel size, stride or padding: ResNet-18's 7x7/s2 stem, Cin 3) take an
 im2col and that GEMM. ``conv2d_w8a8_plain`` is the plain version of the
-whole function.
+whole function: ``conv_acc_plain``'s exact int32 product, then
+``conv_epilogue``.
+
+``conv2d_w8a8_acc`` is the int32-accumulator form of the same conv (XLA's
+int8 conv with ``preferred_element_type=int32``, no epilogue), which the
+row-parallel conv of the channel-sharded forward sums across ranks
+(parallel/shard_map_forward.py): the kernel's raw store on its forms,
+else ``conv_lowering.conv2d_int8_acc``; ``conv_acc_plain`` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -30,12 +38,12 @@ from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
-    _same_pads, extract_patches, gemm_weights)
+    _same_pads, conv2d_int8_acc, extract_patches, gemm_weights)
 from dnn_inference_engine_tpu_torch.ops.fused_conv import (
     group_max4, rs_tile_matrix)
 from dnn_inference_engine_tpu_torch.ops.gemm import (
-    H100_SMS, WG_BK, WG_BM, WG_BN, GemmForm, gemm_fused, gemm_fused_plain,
-    k_splits, kmajor_weights, ptr_or_none, split_buffers)
+    H100_SMS, WG_BK, WG_BM, WG_BN, GemmForm, epilogue_plain, gemm_fused,
+    int32_acc_plain, k_splits, kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
 
 
@@ -249,14 +257,15 @@ def sk_slots(f: ConvForm) -> int:
 def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
                    kw: int, stride: int = 1, padding="SAME", out_hw=None,
                    quantized: bool = True, gmax: bool = False,
-                   sms: int = H100_SMS) -> ConvForm:
+                   sms: int = H100_SMS, raw: bool = False) -> ConvForm:
     """The route ``conv2d_w8a8`` takes on the card for an (n, h, w, cin)
     int8 input and (kh, kw, cin, cout) weights, from the shape alone,
     before any launch:
 
     - kh = kw = 1, stride 1: "gemm" (the conv is the GEMM of a view);
     - the kernel's forms, Cin % 16 == 0, int8 output in the conv order
-      (``quantized``, an s_out) or f32 (no ``gmax``), and at stride 1 k =
+      (``quantized``, an s_out), f32 or (``raw``) the int32 accumulator
+      (neither with ``gmax``), and at stride 1 k =
       3 SAME or k = 2 VALID (with ``gmax`` also Cout % 4 == 0), at stride
       2 k = 3 or 1 SAME, no ``gmax``:
       - "tap" for stride 1, k = 3 SAME, Cin % 128 == 0, W <= 31,
@@ -271,7 +280,12 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
         ``gemm_fused`` on one strided copy took 0.0473, PERF.md);
       each with ``conv_schedule``'s schedule;
     - anything else: "im2col" (ROADMAP B13).
+
+    ``raw`` (``conv2d_w8a8_acc``) takes the routes of the f32 output.
     """
+    if raw and (gmax or quantized):
+        raise ValueError("conv_w8a8_form: the int32 accumulator has no "
+                         "codes and no group-max")
     if kh == kw == 1 and stride == 1 and not gmax:
         return ConvForm("gemm")
     if stride == 1:
@@ -298,26 +312,68 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
                     *conv_schedule(tiles, steps, step_bytes, sms))
 
 
-def _im2col_conv(gemm, xq, s_in, wq, s_w, b, act, stride, padding, s_out,
-                 wt, out_hw, gmax):
-    """im2col (none for a 1x1 conv: the GEMM reads the activation, at
+def _patches(xq, kh, kw, stride, padding, out_hw):
+    """im2col, none for a 1x1 conv: the GEMM reads the activation, at
     stride 2 its even rows and columns, which are what XLA's SAME and
-    VALID pads leave a 1x1 window), then ``gemm`` (``gemm_fused`` or its
-    plain version) in the conv order, then the group-max."""
-    kh, kw, _, cout = wq.shape
+    VALID pads leave a 1x1 window."""
     if (kh == kw == 1 and out_hw is None
             and padding in ("SAME", "VALID")):
-        patches = xq[:, ::stride, ::stride]
-    else:
-        patches = extract_patches(xq, kh, kw, stride, padding, out_hw)
+        return xq[:, ::stride, ::stride]
+    return extract_patches(xq, kh, kw, stride, padding, out_hw)
+
+
+def _im2col_conv(xq, s_in, wq, s_w, b, act, stride, padding, s_out, wt,
+                 out_hw, gmax):
+    """``_patches``, then ``gemm_fused`` in the conv order, then the
+    group-max."""
+    kh, kw, _, cout = wq.shape
+    patches = _patches(xq, kh, kw, stride, padding, out_hw)
     n, ho, wo, k = patches.shape
     if wt is None:
         wt = gemm_weights(wq)
     scale = f32_scalar(s_in, xq.device) * s_w
-    out = gemm(patches.reshape(n * ho * wo, k), wt, scale, b, act=act,
-               s_out=s_out)
+    out = gemm_fused(patches.reshape(n * ho * wo, k), wt, scale, b, act=act,
+                     s_out=s_out)
     out = out.reshape(n, ho, wo, cout)
     return group_max4(out) if gmax else out
+
+
+def conv_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
+                   padding="SAME", wt: Optional[torch.Tensor] = None,
+                   out_hw=None) -> torch.Tensor:
+    """The exact int32 accumulator of the int8 conv, (N, Ho, Wo, Cout):
+    im2col and the product summed in float64 (``int32_acc_plain``). The
+    plain version of ``conv2d_w8a8_acc``, and the first step of
+    ``conv2d_w8a8_plain``."""
+    kh, kw, _, cout = wq.shape
+    patches = _patches(xq, kh, kw, stride, padding, out_hw)
+    n, ho, wo, k = patches.shape
+    if wt is None:
+        wt = gemm_weights(wq)
+    acc = int32_acc_plain(patches.reshape(n * ho * wo, k), wt)
+    return acc.reshape(n, ho, wo, cout)
+
+
+def conv_epilogue(acc: torch.Tensor, s_in: Scale, s_w: torch.Tensor,
+                  b: torch.Tensor, act: str = "leaky",
+                  s_out: Optional[Scale] = None,
+                  folded: bool = False) -> torch.Tensor:
+    """A W8A8 conv's epilogue on its int32 accumulator, in PyTorch
+    passes: scale = s_in * s_w, y = act(acc*scale + b), then with
+    ``s_out`` the codes in the conv order, ``clip(rint(y / s_out))``
+    (``conv2d_w8a8``'s, requant.cuh MODE 0), or with ``folded`` in the
+    gemm tier's folded order (``conv_lowering.conv2d_w8a8_gemm``: scale
+    and b divided by s_out first); without ``s_out`` the f32 y.
+    ``conv2d_w8a8_plain`` and the row-parallel conv both end in it, so a
+    conv whose accumulator was summed across ranks rounds as the
+    unsharded conv does."""
+    dev = acc.device
+    scale = f32_scalar(s_in, dev) * s_w
+    if folded and s_out is not None:
+        inv = 1.0 / f32_scalar(s_out, dev)
+        return epilogue_plain(acc, scale * inv, b * inv, act,
+                              quantize_out=True)
+    return epilogue_plain(acc, scale, b, act, s_out=s_out)
 
 
 def conv2d_w8a8_plain(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
@@ -326,11 +382,12 @@ def conv2d_w8a8_plain(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
                       s_out: Optional[Scale] = None,
                       wt: Optional[torch.Tensor] = None, out_hw=None,
                       gmax: bool = False):
-    """Plain PyTorch version of ``conv2d_w8a8`` (same arguments): im2col,
-    the exact int32 product, the epilogue in the conv order and the
-    group-max."""
-    return _im2col_conv(gemm_fused_plain, xq, s_in, wq, s_w, b, act, stride,
-                        padding, s_out, wt, out_hw, gmax)
+    """Plain PyTorch version of ``conv2d_w8a8`` (same arguments): the
+    exact int32 product (``conv_acc_plain``), the epilogue in the conv
+    order (``conv_epilogue``) and the group-max."""
+    acc = conv_acc_plain(xq, wq, stride, padding, wt, out_hw)
+    out = conv_epilogue(acc, s_in, s_w, b, act, s_out)
+    return group_max4(out) if gmax else out
 
 
 def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
@@ -373,8 +430,8 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
     if f.route in ("gemm", "im2col"):
         if not cpu:
             conv2d_w8a8.im2col_launches += f.route == "im2col"
-        return _im2col_conv(gemm_fused, xq, s_in, wq, s_w, b, act, stride,
-                            padding, s_out, wt, out_hw, gmax)
+        return _im2col_conv(xq, s_in, wq, s_w, b, act, stride, padding,
+                            s_out, wt, out_hw, gmax)
     if cpu:
         return conv2d_w8a8_plain(xq, s_in, wq, s_w, b, act, stride, padding,
                                  s_out, wt, out_hw, gmax)
@@ -389,10 +446,52 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
                             stride)
 
 
-def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, s_out: Optional[Scale], k: int,
-                     ho: int, wo: int, go: int, act: str, f: ConvForm,
-                     stride: int = 1) -> torch.Tensor:
+def conv2d_w8a8_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
+                    padding="SAME",
+                    wt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int32-accumulator form of ``conv2d_w8a8``: int8 x int8 -> the
+    (N, Ho, Wo, Cout) int32 sums themselves, no epilogue (XLA's int8 conv
+    with ``preferred_element_type=int32``). The row-parallel conv of the
+    channel-sharded forward sums them across ranks before its epilogue.
+
+    It takes the route ``conv_w8a8_form(..., raw=True)`` gives: the
+    kernel's raw store (counted in ``conv2d_w8a8.launches`` and
+    ``conv2d_w8a8.acc_launches``), or ``conv_lowering.conv2d_int8_acc``
+    (``gemm_fused``'s int32 accumulator) on a 1x1 conv's view or, for the
+    forms the kernel refuses (Cin % 16 != 0), on an im2col (counted on the
+    card in ``conv2d_w8a8.im2col_launches``). On a CPU tensor the
+    kernel's route is the plain version, ``conv_acc_plain``; on a CUDA
+    tensor the kernel launches or the wrapper raises. ``wt``: the
+    precomputed ``gemm_weights(wq)``."""
+    kh, kw, cin, cout = (int(d) for d in wq.shape)
+    if xq.ndim != 4 or xq.shape[3] != cin:
+        raise ValueError(f"conv2d_w8a8_acc: x {tuple(xq.shape)} against w "
+                         f"{tuple(wq.shape)}")
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv2d_w8a8_acc: unsupported device {xq.device}")
+    cpu = xq.device.type == "cpu"
+    n, h, w, _ = (int(d) for d in xq.shape)
+    f = conv_w8a8_form(n, h, w, cin, cout, kh, kw, stride, padding,
+                       quantized=False, raw=True,
+                       sms=H100_SMS if cpu else _build.sm_count(xq.device))
+    if f.route in ("gemm", "im2col"):
+        if not cpu:
+            conv2d_w8a8.im2col_launches += f.route == "im2col"
+        return conv2d_int8_acc(xq, wq, stride, padding, wt)
+    if cpu:
+        return conv_acc_plain(xq, wq, stride, padding, wt)
+    bt = wt if wt is not None else kmajor_weights(wq)
+    ho, wo = conv_out_hw(h, w, kh, padding, None, stride)
+    return conv_w8a8_launch(xq, bt, None, None, None, kh, ho, wo, 0,
+                            "linear", f, stride, raw=True)
+
+
+def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor,
+                     scale: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], s_out: Optional[Scale],
+                     k: int, ho: int, wo: int, go: int, act: str,
+                     f: ConvForm, stride: int = 1,
+                     raw: bool = False) -> torch.Tensor:
     """One launch of ``csrc/conv_w8a8.cu`` on operands ``conv2d_w8a8``
     prepared: x (N, H, W, Cin) int8 on the card; bt the K-major weight
     matrix (``kmajor_weights(w)``, or with ``go`` > 0 channels a pool
@@ -401,7 +500,10 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     or 1 SAME) trimmed to (ho, wo), in the form ``f`` of
     ``conv_w8a8_form`` (route "patch" or "tap", with its schedule).
     Returns (N, ho, wo, go or Cout) int8, or with ``s_out`` None the
-    float32 act(acc*scale + bias); counts in ``conv2d_w8a8.launches``."""
+    float32 act(acc*scale + bias), or with ``raw`` (no group-max, no
+    ``s_out``; scale and bias unused, may be None) the (N, ho, wo, Cout)
+    int32 accumulator; counts in ``conv2d_w8a8.launches``, the raw form
+    also in ``conv2d_w8a8.acc_launches``."""
     routes = ("patch", "tap")
     if f.route not in routes:
         raise ValueError(f"conv_w8a8_launch: route {f.route!r} is not the "
@@ -409,24 +511,30 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     if x.dtype != torch.int8 or bt.dtype != torch.int8:
         raise TypeError(f"conv_w8a8_launch takes int8 x and weights, got "
                         f"{x.dtype} and {bt.dtype}")
-    if any(t.device.type != "cuda" or t.device != x.device
+    if raw and (go or s_out is not None):
+        raise ValueError("conv_w8a8_launch: the int32 accumulator has no "
+                         "codes and no group-max")
+    if any(t is not None and (t.device.type != "cuda" or t.device != x.device)
            for t in (x, bt, scale, bias)):
         raise ValueError("conv_w8a8_launch: all operands on one CUDA device")
     n, h, w, cin = (int(d) for d in x.shape)
-    cout = int(scale.shape[0])
     x = x.contiguous()
     if x.data_ptr() % 16:                 # the tensor maps' base address
         x = x.clone()
     bt = bt.contiguous()
-    scale = scale.contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    f32out = s_out is None
-    if f32out and go:
+    if raw:
+        cout = int(bt.shape[0])
+        out_kind, dtype = 2, torch.int32
+    else:
+        cout = int(scale.shape[0])
+        scale = scale.contiguous()
+        bias = bias.to(torch.float32).contiguous()
+        out_kind = int(s_out is None)
+        dtype = torch.float32 if out_kind else torch.int8
+    if out_kind == 1 and go:
         raise ValueError("conv_w8a8_launch: the group-max takes int8 codes "
                          "(an s_out)")
-    out = torch.empty((n, ho, wo, go or cout),
-                      dtype=torch.float32 if f32out else torch.int8,
-                      device=x.device)
+    out = torch.empty((n, ho, wo, go or cout), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
     # the straddled tiles' partial sums (slots a tile) and counters
@@ -436,18 +544,23 @@ def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
     fn = _build.function("conv_w8a8", "conv_w8a8",
                          [p, p, p, p, ctypes.c_float, p] + [i] * 19
                          + [p, p, p])
-    err = fn(x.data_ptr(), bt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             0.0 if f32out else float(s_out), out.data_ptr(), n, h, w, cin,
-             cout, k, stride, ho, wo, go, KERNEL_ACT_CODES[act], int(f32out),
+    err = fn(x.data_ptr(), bt.data_ptr(), ptr_or_none(scale),
+             ptr_or_none(bias), float(s_out) if out_kind == 0 else 0.0,
+             out.data_ptr(), n, h, w, cin,
+             cout, k, stride, ho, wo, go, KERNEL_ACT_CODES[act], out_kind,
              routes.index(f.route), f.kb,
              f.steps, f.grid, f.sk_tiles, f.sk_blocks, f.slots,
              ptr_or_none(ws), ptr_or_none(cnt), _build.stream_ptr(x.device))
     conv2d_w8a8.launches += 1
+    conv2d_w8a8.acc_launches += raw
     _build.check(err, "conv_w8a8")
     return out
 
 
 conv2d_w8a8.launches = 0
+# of those, the int32-accumulator form's (conv2d_w8a8_acc): the
+# row-parallel conv of a channel-sharded forward
+conv2d_w8a8.acc_launches = 0
 # convs in a form the kernel refuses (conv_w8a8_form's "im2col" route):
 # on the YOLO plans' paths none; Model.forward's entry conv (Cin 3) and
 # ResNet-18's 7x7/s2 stem (Cin 3)

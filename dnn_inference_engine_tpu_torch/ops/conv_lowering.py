@@ -9,7 +9,8 @@ The gemm tiers stay im2col + GEMM, as their JAX counterparts are (im2col +
 the Pallas GEMM): ``conv2d_w8a8_gemm`` is ``conv2d_w8a8_pallas``. The xla
 tier's W8A8 conv (``ops/conv.conv2d_w8a8``) takes ``extract_patches`` only
 for the forms its kernel refuses (``ops/conv.conv_w8a8_form``) and in its
-plain version.
+plain version. ``conv2d_int8_acc`` is the gemm tier's int32 accumulator,
+which the row-parallel conv of the channel-sharded forward reads.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dnn_inference_engine_tpu_torch.ops.fused_conv import _pad_hw
-from dnn_inference_engine_tpu_torch.ops.gemm import gemm_f32, int8_gemm_fused
+from dnn_inference_engine_tpu_torch.ops.gemm import (
+    gemm_f32, gemm_fused, int8_gemm_fused)
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
 
 
@@ -90,6 +92,26 @@ def conv2d_w8a8_gemm(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
                           f32_scalar(s_in, dev) * s_w, b, act=act,
                           s_out=s_out)
     return out.reshape(n, ho, wo, cout)
+
+
+def conv2d_int8_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
+                    padding="SAME",
+                    wt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 conv -> the raw (N, Ho, Wo, Cout) int32 accumulator, no
+    epilogue: im2col, then ``gemm_fused(raw_acc=True)``. Counterpart of
+    the JAX ``conv_lowering.conv2d_int8_acc``. The row-parallel conv of
+    the channel-sharded forward (parallel/shard_map_forward.py) sums it
+    across ranks, then runs the epilogue once on the sum. ``wt``: the
+    precomputed ``gemm_weights(wq)``."""
+    kh, kw, _, cout = wq.shape
+    patches = extract_patches(xq, kh, kw, stride, padding)
+    n, ho, wo, k = patches.shape
+    if wt is None:
+        wt = gemm_weights(wq)
+    unused = unit_scale(cout, xq.device)      # no epilogue reads them
+    acc = gemm_fused(patches.reshape(n * ho * wo, k), wt, unused, unused,
+                     act="linear", raw_acc=True)
+    return acc.reshape(n, ho, wo, cout)
 
 
 def conv2d_w8_pallas(x: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,

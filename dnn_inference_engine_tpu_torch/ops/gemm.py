@@ -18,10 +18,11 @@ form:
   B split once by ``tf32_split``, A in the kernel as ``tf32_split_a``
   gives it; K split where the tiles leave SMs idle) for K % 4 == 0 and
   16-byte aligned operands, every detect shape; the ``ragged`` form
-  (float32 FMA) for the rest. Its raw f32 accumulator (``raw_acc``) has no
-  ported caller yet: the tensor-parallel conv that reads it is ROADMAP
-  item A14. A bf16 A has no caller in the JAX package and is refused
-  (ROADMAP B13).
+  (float32 FMA) for the rest. The JAX kernel's raw f32 accumulator
+  (``raw_acc`` of a float product) has no caller in either package: the
+  row-parallel conv of the channel-sharded forward (parallel/) reads the
+  int8 product's int32 one. A bf16 A has no caller in the JAX package and
+  is refused (ROADMAP B13).
 
 Beside each kernel, ``gemm_fused_plain`` and ``gemm_f32_plain`` are the
 plain PyTorch versions of the same functions, which the CPU path and the
@@ -35,7 +36,8 @@ round-half boundaries, so each caller gets its own):
   ``clip(round(act(acc*scale + bias) / s_out))``;
 - ``quantize_out=True``: the folded order of ``gemm_fused``, where the
   caller already divided scale and bias by s_out: ``clip(round(act(...)))``;
-- ``raw_acc=True``: the int32 accumulator;
+- ``raw_acc=True``: the int32 accumulator (the gemm tier's row-parallel
+  conv, ``conv_lowering.conv2d_int8_acc``);
 - otherwise the f32 ``act(acc*scale + bias)``.
 """
 
@@ -204,6 +206,21 @@ def int32_acc_plain(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ bt.to(torch.float64).T).to(torch.int32)
 
 
+def epilogue_plain(acc: torch.Tensor, scale, bias, act="leaky",
+                   quantize_out=False, s_out: Optional[Scale] = None):
+    """``gemm_fused``'s epilogue on an int32 accumulator whose last axis
+    holds the columns, in PyTorch passes, each rounded as the kernels
+    round it: y = act(acc*scale + bias); with ``s_out`` the conv order's
+    codes ``clip(rint(y / s_out))``, with ``quantize_out`` the folded
+    order's ``clip(rint(y))``, else y."""
+    y = apply_activation(acc.to(torch.float32) * scale + bias, act)
+    if s_out is not None:
+        return quantize_act(y, s_out)
+    if quantize_out:
+        return torch.clamp(torch.round(y), -QMAX, QMAX).to(torch.int8)
+    return y
+
+
 def gemm_fused_plain(a, bt, scale, bias, act="leaky", quantize_out=False,
                      raw_acc=False, s_out: Optional[Scale] = None):
     """Plain PyTorch version of ``gemm_fused`` (same arguments)."""
@@ -211,12 +228,7 @@ def gemm_fused_plain(a, bt, scale, bias, act="leaky", quantize_out=False,
     acc = int32_acc_plain(a, bt)
     if mode == 3:
         return acc
-    y = apply_activation(acc.to(torch.float32) * scale + bias, act)
-    if mode == 0:
-        return quantize_act(y, s_out)
-    if mode == 1:
-        return torch.clamp(torch.round(y), -QMAX, QMAX).to(torch.int8)
-    return y
+    return epilogue_plain(acc, scale, bias, act, quantize_out, s_out)
 
 
 def _check(a, bt, scale, bias):

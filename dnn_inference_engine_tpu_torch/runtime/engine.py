@@ -10,7 +10,20 @@ The engine runs on the card unless ``device="cpu"`` is passed; without a
 card and without that, it raises rather than run on the CPU. Weights come
 from a file (``load_weights(path)`` or ``config.weights``: an ``.npz``
 checkpoint, a darknet ``.weights`` file or a pickle) or from a seed;
-``save`` writes the checkpoint. One device only: a mesh is ROADMAP A14.
+``save`` writes the checkpoint.
+
+On a mesh (``config.mesh_shape`` of more than one rank, parallel/): every
+rank builds the same engine in a process of its own, on
+``cuda:{local rank % cards}`` unless ``device`` is given, with the
+process group up first (``parallel.mesh.init_distributed`` or torchrun),
+and calls ``detect``/``classify`` with the same global batch. Each rank
+computes its data index's rows (with ``sharding="channel"``, W8A8 only,
+the channel pair split over the model group, its row-parallel conv
+summing int32 accumulators), and the rows are gathered over the data
+group, so every rank returns the whole batch, equal bit for bit to a
+single-device engine's. ``detect_fn``/``forward_fn`` take this rank's
+rows (``_device_batch``) and return theirs. Profiling and the sweep are
+single-device (ROADMAP A15).
 
 Timing (the JAX engine's, on the engine's device): ``stage_times``
 times each stage of the W8A8 plan on its own input state with its
@@ -21,6 +34,7 @@ the generic forward.
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,6 +49,12 @@ from dnn_inference_engine_tpu_torch.models.weights import (
     load_checkpoint, load_darknet_weights, load_params, params_from_numpy,
     save_checkpoint,
 )
+from dnn_inference_engine_tpu_torch.parallel.mesh import (
+    Mesh, broadcast_floats, gather_rows, make_mesh)
+from dnn_inference_engine_tpu_torch.parallel.sharded_engine import (
+    _validated_pair, make_sharded_detect_fn, make_sharded_forward_fn,
+    shard_engine_params)
+from dnn_inference_engine_tpu_torch.parallel.sharding import input_sharding
 from dnn_inference_engine_tpu_torch.postprocess import (
     decode_yolov2_cols, decode_yolov3_cols, device_nms_cols,
 )
@@ -68,22 +88,27 @@ class Engine:
         if config.kernel not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown kernel tier {config.kernel!r}; have "
                              "auto, xla, pallas")
-        if tuple(config.mesh_shape) != (1, 1) or config.sharding != \
-                "replicated":
-            raise NotImplementedError(
-                f"mesh_shape={tuple(config.mesh_shape)}, sharding="
-                f"{config.sharding!r}: the port runs on one device; "
-                "multi-device is ROADMAP item A14")
         self.config = config
+        # the mesh first: its groups are made in every rank, in one order
+        self.mesh: Optional[Mesh] = None
+        if tuple(config.mesh_shape) != (1, 1):
+            self.mesh = make_mesh(tuple(config.mesh_shape))
+            if device is None and torch.cuda.is_available():
+                local = int(os.environ.get("LOCAL_RANK", self.mesh.rank))
+                device = f"cuda:{local % torch.cuda.device_count()}"
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         self.model = build_model(config.model, num_classes=config.num_classes)
         self.params: Optional[List[Dict]] = None       # quantized params
         self.fp32_params: Optional[List[Dict]] = None  # kept for calibration
         self.act_scales: Optional[List[float]] = None
+        self._local_params = None     # this rank's params (parallel/)
         self._plan = None
         self._plan_params = None
         self._prepared = False
         self._weights_from_file = False
+        self._detect_fn = self._forward_fn = None
 
     # ------------------------------------------------------------------
     # Weights
@@ -143,22 +168,34 @@ class Engine:
         ``config.strategy`` when one is set, else from the pinned table.
         Where that plan is illegal (or, in w8, holds an int8-only kind)
         the engine warns, naming the file and the layer, and falls back
-        to the generic forward, as the JAX engine does."""
+        to the generic forward, as the JAX engine does.
+
+        On a mesh the rank's params are its shard of these
+        (``parallel.sharded_engine.shard_engine_params``), and scales
+        calibrated here are rank 0's on every rank."""
         mode = self.config.mode
         self._plan = self._plan_params = None
+        self._detect_fn = self._forward_fn = None
+        if self.mesh is not None:
+            _validated_pair(self)        # the policy's errors, up front
         if mode == "fp32":
             if self.fp32_params is None:
                 raise RuntimeError("load_weights first (fp32 params)")
             self.params = self.fp32_params
+        else:
+            if self.params is None:
+                if self.fp32_params is None:
+                    raise RuntimeError("load_weights first")
+                self.params = quantize_model_params(self.fp32_params,
+                                                    self.model.layers)
+            if self.config.kernel == "auto":
+                self._build_plan()
+        self._local_params = self.params
+        if self.mesh is not None:
+            shard_engine_params(self, self.mesh)
+        if mode == "fp32":
             self._prepared = True
             return self
-        if self.params is None:
-            if self.fp32_params is None:
-                raise RuntimeError("load_weights first")
-            self.params = quantize_model_params(self.fp32_params,
-                                                self.model.layers)
-        if self.config.kernel == "auto":
-            self._build_plan()
         if mode == "w8a8" and self.act_scales is None:
             if calib_images is None and self.config.calib:
                 from dnn_inference_engine_tpu_torch.preprocess import (
@@ -186,6 +223,9 @@ class Engine:
                 raise RuntimeError("w8a8 calibration needs fp32 params")
             self.act_scales = calibrate(self.model, self.fp32_params,
                                         calib_images, device=self.device)
+            if self.mesh is not None:
+                self.act_scales = broadcast_floats(self.act_scales,
+                                                   self.device)
         self._prepared = True
         return self
 
@@ -209,6 +249,8 @@ class Engine:
                 stacklevel=3)
             return
         self._plan = plan
+        if self.mesh is not None:
+            return                # built from the shard: prepare() does it
         self._plan_params = prepare_plan_params(self.model, self.params,
                                                 plan)
 
@@ -216,17 +258,23 @@ class Engine:
     # Forward, decode, NMS
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
-    def _fwd(self, x: torch.Tensor):
-        """The f32 head, or the tuple of heads (YOLOv3-tiny). A uint8
-        batch is divided by 255 here, on the device, unless a w8a8 plan's
-        entry stage ingests it (ResNet-18's entry is an ``xla`` stage,
-        which does not)."""
-        mode = self.config.mode
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        """A uint8 batch divided by 255, on the device, unless a w8a8
+        plan's entry stage ingests it (ResNet-18's entry is an ``xla``
+        stage, which does not)."""
         if x.dtype == torch.uint8 and not (
-                self._plan is not None and mode == "w8a8"
+                self._plan is not None and self.config.mode == "w8a8"
                 and plan_input_uint8_ok(self._plan)):
             x = x.to(torch.float32) / f32_scalar(255.0, x.device)
+        return x
+
+    @torch.no_grad()
+    def _fwd(self, x: torch.Tensor):
+        """The f32 head, or the tuple of heads (YOLOv3-tiny), of a batch
+        on one device."""
+        self._single_device("the single-device forward")
+        mode = self.config.mode
+        x = self._input(x)
         if self._plan is None:
             return self.model.forward(self.params, x, mode=mode,
                                       act_scales=self.act_scales,
@@ -264,25 +312,56 @@ class Engine:
                                topk=c.resolved_nms_topk(),
                                max_det=c.max_detections)
 
-    def detect_fn(self):
-        """The device detect function: image batch tensor -> (boxes,
-        scores, classes) tensors on the engine's device."""
+    def _single_device(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} runs on one device; on a mesh "
+                f"{tuple(self.config.mesh_shape)} use detect, classify, "
+                "detect_fn or forward_fn (profiling and the sweep on a mesh "
+                "are ROADMAP item A15)")
+
+    def forward_fn(self):
+        """The device forward: image batch tensor -> the f32 head(s) on
+        the engine's device. On a mesh: this rank's rows -> theirs."""
         if not self._prepared:
             raise RuntimeError("prepare first")
+        if self._forward_fn is None:
+            self._forward_fn = (self._fwd if self.mesh is None else
+                                make_sharded_forward_fn(self, self.mesh))
+        return self._forward_fn
 
-        def run(x):
-            return self.postprocess(self._fwd(x))
-        return run
+    def detect_fn(self):
+        """The device detect function: image batch tensor -> (boxes,
+        scores, classes) tensors on the engine's device. On a mesh: this
+        rank's rows (``_device_batch``) -> theirs, the whole pipeline
+        sharded (parallel/sharded_engine.py)."""
+        if not self._prepared:
+            raise RuntimeError("prepare first")
+        if self._detect_fn is None:
+            if self.mesh is None:
+                def run(x):
+                    return self.postprocess(self._fwd(x))
+                self._detect_fn = run
+            else:
+                self._detect_fn = make_sharded_detect_fn(self, self.mesh)
+        return self._detect_fn
 
     def _device_batch(self, images) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(images)).to(self.device)
+        """The batch on the engine's device; on a mesh only this rank's
+        rows of it (a batch the data axis does not divide raises)."""
+        x = np.asarray(images)
+        if self.mesh is not None:
+            x = x[input_sharding(self.mesh, x.shape[0])]
+        return torch.as_tensor(x).to(self.device)
 
     def detect_device(self, images):
         """Dispatch detection without waiting for the device: returns
-        device tensors (boxes, scores, classes). The NMS fixpoint syncs
+        device tensors (boxes, scores, classes), on a mesh the whole
+        batch's (gathered over the data group). The NMS fixpoint syncs
         with the host once a group of ``SWEEPS_PER_SYNC`` sweeps
         (postprocess.py)."""
-        return self.detect_fn()(self._device_batch(images))
+        out = self.detect_fn()(self._device_batch(images))
+        return gather_rows(out, self.mesh)
 
     def detect(self, images):
         """Image batch (N,S,S,3), uint8 or f32 in [0,1] -> numpy results."""
@@ -292,9 +371,8 @@ class Engine:
     def classify(self, images):
         """Image batch -> the f32 head as numpy (ResNet-18: the (N,
         num_classes) logits), or a tuple of them (YOLOv3-tiny)."""
-        if not self._prepared:
-            raise RuntimeError("prepare first")
-        heads = self._fwd(self._device_batch(images))
+        heads = gather_rows(self.forward_fn()(self._device_batch(images)),
+                            self.mesh)
         if isinstance(heads, tuple):
             return tuple(h.cpu().numpy() for h in heads)
         return heads.cpu().numpy()
@@ -342,6 +420,7 @@ class Engine:
             roofline_pct)
         from dnn_inference_engine_tpu_torch.runtime.plan import (
             _run_stage, stage_flops)
+        self._single_device("stage_times")
         if self._plan is None or self.config.mode != "w8a8":
             raise ValueError("stage_times needs the fused w8a8 plan "
                              "(mode=w8a8, kernel=auto); use layer_times "
@@ -466,6 +545,7 @@ class Engine:
             quantize_act)
         from dnn_inference_engine_tpu_torch.runtime.benchlib import (
             per_iter_time)
+        self._single_device("layer_times")
         if self.fp32_params is None:
             raise RuntimeError("layer_times needs the fp32 params (load "
                                "weights that are not quantized)")

@@ -404,10 +404,18 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
 @torch.no_grad()
 def plan_forward_w8a8(model, stages: Sequence[Stage],
                       plan_params: Sequence[Dict], act_scales, x,
+                      pair: Optional[Tuple[int, int]] = None, group=None,
                       record_states: Optional[list] = None):
     """Run the fused stage pipeline. x: (N,H,W,3) f32, or uint8 when the
     entry stage ingests the wire format (plan_input_uint8_ok); returns
     the f32 head, or the tuple of heads of a multi-head model.
+
+    ``pair``: on one rank of a channel-sharded mesh
+    (parallel/sharded_engine.py), the (Cout-shard, Cin-shard) layers. The
+    first needs nothing of its own (its params are the rank's Cout
+    slice); the second sums its int32 accumulator over ``group`` before
+    the epilogue (``row_parallel_conv_w8a8``), so the sharded plan equals
+    the single-device one bit for bit.
 
     ``record_states``: when a list, each stage's entry state
     ``(x, cur_scale, cur_fold, saved)`` is appended to it.
@@ -425,7 +433,7 @@ def plan_forward_w8a8(model, stages: Sequence[Stage],
                    + (f"_fold{st.fold}" if st.fold > 1 else "")):
             x, cur_scale, cur_fold = _run_stage(
                 model.layers, st, plan_params[si], x, cur_scale, cur_fold,
-                act_scales, saved)
+                act_scales, saved, pair, group)
         out_li = st.pool_li if st.pool_li is not None else st.conv_li
         if out_li in refs:
             t = depth_to_space(x, cur_fold) if cur_fold > 1 else x
@@ -665,11 +673,12 @@ def _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales):
 
 
 def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
-               saved=None):
+               saved=None, pair=None, group=None):
     """One plan stage; returns (x, cur_scale, cur_fold). Scales are
     Python floats (f32-rounded where used), as the JAX plan's
     ``jnp.float32(act_scales[i])``. ``saved``: the de-folded outputs a
-    route or shortcut stage reads (plan_forward_w8a8)."""
+    route or shortcut stage reads; ``pair`` and ``group``: the channel
+    pair's row-parallel conv (plan_forward_w8a8)."""
     li = st.conv_li
     s_next = act_scales[li + 1]
     dev = x.device
@@ -767,6 +776,16 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
         x = _pad_channels(x, st.cin_pad)
     s_out = None if st.s_out_is_final else s_next
 
+    if st.kind in ("xla", "gemm", "auto") and pair and li == pair[1]:
+        if st.fold != 1 or cur_fold != 1:
+            raise ValueError(f"the row-parallel conv is unfolded: {st}")
+        from dnn_inference_engine_tpu_torch.parallel.shard_map_forward \
+            import row_parallel_conv_w8a8
+        x = row_parallel_conv_w8a8(
+            x, pp, st, cur_scale, s_out, group,
+            use_pallas_tier=st.kind in ("gemm", "auto"),
+            force_pallas=st.kind == "gemm", wt=pp["wt"])
+        return x, s_out, cur_fold
     if st.kind in ("xla", "gemm", "auto"):
         conv = {"xla": conv2d_w8a8, "gemm": conv2d_w8a8_gemm,
                 "auto": conv2d_w8a8_dispatch}[st.kind]

@@ -153,6 +153,7 @@ def reset_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
     cv.conv2d_w8a8.im2col_launches = 0
+    cv.conv2d_w8a8.acc_launches = 0
     gm.gemm_fused.folded_launches = 0
     gm.gemm_fused.ragged_launches = 0
     gm.gemm_f32.ragged_launches = 0

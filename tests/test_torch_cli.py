@@ -8,7 +8,11 @@ lines (fp32 from the pickle, W8A8 from either package's checkpoint);
 ``eval`` its mAP within 1e-6; ``dump-goldens`` its layers within 1e-4
 and ``check-goldens`` its report; ``serve`` answers a ``.npy`` POST with
 the detections of a direct detect. The subcommands that wait for a
-ROADMAP item, and multi-device flags, are refused naming it.
+ROADMAP item are refused naming it; the mesh flags reach the config of
+every subcommand that builds an engine, ``detect`` under torchrun on a
+(1, 2) channel mesh prints the single-device lines, and ``serve
+--num-processes 2`` answers HTTP from the leader and stops its
+follower.
 
 In W8A8 the JAX CLI runs with ``jax.jit`` taken out of its engine's
 detect (``op_by_op``): jitted, XLA contracts an epilogue's
@@ -213,15 +217,145 @@ def test_serve_answers_a_npy_post(files, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["bench", "--mode", "w8a8"], "A8"),
-    (["layer-times", "--mesh", "2,1"], "A14"),
-    (["trace", "--detect", "--sharding", "channel"], "A14"),
-    (["detect", "--image", "x.png", "--mesh", "2,2"], "A14"),
-    (["detect", "--image", "x.png", "--sharding", "channel"], "A14"),
-    (["serve", "--num-processes", "2"], "A14")])
+    (["layer-times", "--mesh", "2,1"], "A15"),
+    (["trace", "--detect", "--mesh", "1,2", "--sharding", "channel"],
+     "A15"),
+    (["plan-sweep", "--mesh", "2,2"], "A15")])
 def test_refusals_name_the_roadmap_item(capsys, argv, item):
     with pytest.raises(SystemExit):
         cli.main(argv)
     assert f"ROADMAP item {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["detect", "--image", "x.png"], ["eval", "--voc-dir", "v"],
+    ["serve"], ["calibrate", "--images", "d", "--out", "c.npz"],
+    ["dump-goldens", "--out", "g.npz"], ["check-goldens", "--goldens", "g"]])
+@pytest.mark.parametrize("mesh,sharding", [("2,2", "channel"),
+                                           ("2,1", "replicated")])
+def test_mesh_flags_reach_the_config(argv, mesh, sharding):
+    """--mesh and --sharding on every subcommand that builds an engine,
+    as the JAX CLI's ``_build_engine`` applies them."""
+    args = cli._parser().parse_args(argv + ["--mesh", mesh, "--sharding",
+                                            sharding])
+    cfg = cli._config(args)
+    assert cfg.mesh_shape == tuple(int(v) for v in mesh.split(","))
+    assert cfg.sharding == sharding
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["serve", "--num-processes", "2"], "needs a --mesh of 2 ranks"),
+    (["serve", "--num-processes", "4", "--mesh", "1,2"],
+     "needs a --mesh of 4 ranks"),
+    (["detect", "--image", "x.png", "--mesh", "2"], "give DP,MP")])
+def test_process_flags_must_match_the_mesh(capsys, argv, msg):
+    with pytest.raises(SystemExit):
+        cli.main(argv)
+    assert msg in capsys.readouterr().err
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _cli_env():
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+@pytest.mark.subproc
+def test_torchrun_detect_on_a_mesh_prints_the_single_device_lines(
+        files, capsys):
+    """``torchrun --nproc-per-node 2 -m ...cli detect --mesh 1,2
+    --sharding channel`` over gloo on the CPU: rank 0 prints the
+    single-device CLI's detection lines, rank 1 nothing."""
+    import subprocess
+    import sys
+    common = ["detect", "--device", "cpu", "--mode", "w8a8", "--weights",
+              files["t_ckpt"], "--config", files["cfg"], "--image",
+              files["img"], "--score-thresh", "0.02"]
+    assert cli.main(common) == 0
+    want = [ln for ln in _lines(capsys) if not ln.startswith("#")]
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(_free_port()), "-m",
+         "dnn_inference_engine_tpu_torch.cli", *common, "--mesh", "1,2",
+         "--sharding", "channel", "--backend", "gloo"],
+        capture_output=True, text=True, timeout=180, env=_cli_env())
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = [ln for ln in out.stdout.strip().splitlines()
+           if not ln.startswith("#")]
+    assert want and got == want
+
+
+@pytest.mark.subproc
+def test_serve_num_processes_answers_http_and_stops_the_follower(files):
+    """``serve --num-processes 2 --process-id P --coordinator ...``: rank
+    0 serves HTTP, rank 1 mirrors its steps; a ``.npy`` POST answers the
+    single-device engine's detections, and on SIGINT the leader stops and
+    the follower exits 0 after the shutdown header."""
+    import signal
+    import subprocess
+    import sys
+    import time
+    from dnn_inference_engine_tpu_torch.preprocess import (
+        boxes_to_original, preprocess_image)
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    port, coord = _free_port(), f"127.0.0.1:{_free_port()}"
+    args = ["serve", "--device", "cpu", "--mode", "w8a8", "--weights",
+            files["t_ckpt"], "--config", files["cfg"], "--score-thresh",
+            "0.02", "--mesh", "1,2", "--sharding", "channel", "--port",
+            str(port), "--num-processes", "2", "--coordinator", coord,
+            "--backend", "gloo"]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dnn_inference_engine_tpu_torch.cli", *args,
+         "--process-id", str(r)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_cli_env())
+        for r in range(2)]
+    try:
+        img = np.random.default_rng(5).integers(0, 256, (64, 64, 3)).astype(
+            np.uint8)
+        buf = io.BytesIO()
+        np.save(buf, img)
+        deadline, out = time.time() + 120, None
+        while out is None:
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/detect", data=buf.getvalue(),
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    out = json.loads(r.read())
+            except OSError:
+                assert time.time() < deadline and all(
+                    p.poll() is None for p in procs)
+                time.sleep(0.5)
+        procs[0].send_signal(signal.SIGINT)
+        res = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], res
+    assert "follower exiting after 1 batches" in res[1][0], res[1]
+    cfg = EngineConfig.from_json(files["cfg"])
+    cfg.mode, cfg.weights, cfg.score_thresh = "w8a8", files["t_ckpt"], 0.02
+    eng = Engine(cfg, device="cpu").load_weights().prepare()
+    x, meta = preprocess_image(img, 64)
+    pad = np.zeros((cfg.serve_max_batch, 64, 64, 3), np.uint8)
+    pad[0] = np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)
+    b, s, c = (t[0] for t in eng.detect(pad))
+    keep = s > 0
+    assert out["boxes"] == boxes_to_original(b[keep], meta).tolist()
+    assert out["scores"] == s[keep].tolist()
+    assert out["classes"] == c[keep].tolist()
 
 
 @pytest.mark.parametrize("argv", [["frobnicate"], ["detect"],

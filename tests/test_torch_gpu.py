@@ -1234,6 +1234,85 @@ def test_conv_w8a8_refused_forms_take_the_im2col_route(cuda):
         assert torch.equal(got, ref), (xs, k, stride, s_out)
 
 
+# conv_w8a8's int32-accumulator form at the row-parallel convs' shards
+# (416 px: YOLOv2-tiny L13, YOLOv3-tiny L12; ResNet-18 L3 at 224 px), at
+# b2 and b1 and a straddled stream-K tile (b1), and the refused Cin 8:
+# (tag, x shape, Cout, route, stride)
+ACC_CASES = [("v2 L13 Cin512 b2", (2, 13, 13, 512), 1024, "tap", 1),
+             ("v2 L13 Cin256 b1", (1, 13, 13, 256), 1024, "tap", 1),
+             ("v2 L13 Cin128 b2", (2, 13, 13, 128), 1024, "tap", 1),
+             ("v3 L12 Cin256 b2", (2, 13, 13, 256), 1024, "tap", 1),
+             ("r18 L3 Cin32 b2", (2, 56, 56, 32), 64, "patch", 1),
+             ("r18 L3 Cin16 b1", (1, 56, 56, 16), 64, "patch", 1),
+             ("odd Cout", (2, 9, 11, 64), 42, "patch", 1),
+             ("stride 2", (2, 14, 14, 32), 48, "patch", 2),
+             ("Cin 8", (2, 13, 13, 8), 64, "im2col", 1)]
+
+
+@pytest.mark.parametrize("case", ACC_CASES, ids=[c[0] for c in ACC_CASES])
+def test_conv_w8a8_int32_form_matches_plain(cuda, deadline, case):
+    """conv2d_w8a8_acc: the kernel's raw int32 store (or, Cin % 16 != 0,
+    im2col + gemm_fused's raw accumulator) equal to conv_acc_plain, int32
+    for int32, counted as its route is."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    tag, xs, cout, route, stride = case
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x, w = _i8(g, cuda, *xs), _i8(g, cuda, 3, 3, xs[3], cout)
+    f = cv.conv_w8a8_form(*xs, cout, 3, 3, stride, quantized=False,
+                          raw=True)
+    assert f.route == route, tag
+    before = (cv.conv2d_w8a8.acc_launches, cv.conv2d_w8a8.im2col_launches)
+    got = cv.conv2d_w8a8_acc(x, w, stride)
+    kern = int(route != "im2col")
+    assert (cv.conv2d_w8a8.acc_launches, cv.conv2d_w8a8.im2col_launches) \
+        == (before[0] + kern, before[1] + 1 - kern), tag
+    ref = cv.conv_acc_plain(x, w, stride)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, ref), (
+        tag, int((got != ref).sum()))
+
+
+@pytest.mark.parametrize("schedule", ["rr", "all"])
+def test_conv_w8a8_int32_form_schedules(cuda, deadline, schedule):
+    """The raw store after a straddled tile's fixup (stream-K over every
+    tile) and round robin: one int32 sum."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops import gemm as gmm
+    g = torch.Generator(device=cuda).manual_seed(19)
+    xs, cout = (1, 13, 13, 512), 1024
+    x, w = _i8(g, cuda, *xs), _i8(g, cuda, 3, 3, 512, cout)
+    f = _forced(cv.conv_w8a8_form(*xs, cout, 3, 3, quantized=False,
+                                  raw=True), 132, schedule)
+    got = cv.conv_w8a8_launch(x, gmm.kmajor_weights(w), None, None, None, 3,
+                              13, 13, 0, "linear", f, raw=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cv.conv_acc_plain(x, w)), f
+
+
+@pytest.mark.parametrize("tier", ["xla", "pallas"])
+def test_row_parallel_epilogue_equals_the_unsharded_conv(cuda, deadline,
+                                                         tier):
+    """The Cin shards' int32 sums on the card, added, then the row-parallel
+    conv's epilogue (PyTorch passes): the unsharded conv's codes bit for
+    bit, conv_w8a8's conv order on the xla tier, gemm_fused's folded order
+    on the gemm tier."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
+        conv2d_w8a8_gemm)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x, w, s_in, s_w, b = _conv_inputs(g, cuda, (8, 13, 13, 1024), 3, 1024,
+                                      0.05)
+    acc = sum(cv.conv2d_w8a8_acc(x[..., i:i + 512],
+                                 w[:, :, i:i + 512].contiguous())
+              for i in (0, 512))
+    folded = tier == "pallas"
+    got = cv.conv_epilogue(acc, s_in, s_w, b, "leaky", 0.05, folded=folded)
+    want = (conv2d_w8a8_gemm(x, s_in, w, s_w, b, s_out=0.05) if folded
+            else cv.conv2d_w8a8(x, s_in, w, s_w, b, s_out=0.05))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
 # ResNet-18's conv_w8a8 forms at 224 px (b2 and b1): (tag, x shape, k,
 # stride, Cout, requantizes)
 RESNET_CONV_CASES = [

@@ -592,6 +592,10 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "new = ['parallel.mesh', 'parallel.sharding',\n"
+        "       'parallel.shard_map_forward', 'parallel.sharded_engine',\n"
+        "       'runtime.serve_distributed']\n"
+        "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k.startswith('dnn_inference_engine_tpu.')\n"
         "       or k == 'dnn_inference_engine_tpu'\n"

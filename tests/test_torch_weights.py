@@ -259,9 +259,12 @@ def test_config_json_across_packages(tmp_path, writer):
 
 @pytest.mark.parametrize("kw", [dict(mesh_shape=(2, 1)),
                                 dict(mesh_shape=(1, 4)),
-                                dict(sharding="channel")])
+                                dict(mesh_shape=(1, 2), sharding="channel")])
 def test_engine_refuses_a_mesh(kw):
-    with pytest.raises(NotImplementedError, match="A14"):
+    """A config's mesh reaches the engine, which builds its groups on the
+    process group: with none up, it refuses the mesh and says how to
+    bring one up."""
+    with pytest.raises(RuntimeError, match="init_distributed.*torchrun"):
         Engine(EngineConfig(**kw), device="cpu")
 
 
