@@ -115,13 +115,19 @@ Phases (each raises on failure, and the script then exits non-zero):
    the card's detect on the batch shipped, the launch counters set to 0
    just before the served run and read just after (each batch: 7
    conv_w8a8, 1 gemm_fused, 1 k2 stem, at b32 1 shift_s2d2; no im2col, no
-   ragged GEMM), with the NMS's host reads per detect; then each pin's
-   batcher timed with nothing of this script in its path (a warm-up
+   ragged GEMM, 1 nms_fixpoint and no host read in the NMS); then each
+   pin's batcher timed with nothing of this script in its path (a warm-up
    batch, then 3 windows of 200 b32 or 400 b1 batches, 2 batches' worth
    of requests in flight: images/s, p50/p99 ms, batch fill per window);
-   the NMS fixpoint's sweeps to convergence and its host ms for groups
-   of 1-16 sweeps a read on the pins' and the eval grade's inputs, and
-   one sweep's device ms at serving and eval-grade K;
+   on the pins' and the eval grade's inputs the NMS's host ms through the
+   kernel (one detect's NMS under PyTorch's sync debug mode "error": no
+   call may synchronize the host) and through the plain loop for groups
+   of 1-16 sweeps a read, its sweeps to convergence, and one plain
+   sweep's device ms at serving and eval-grade K; nms_fixpoint against
+   its plain version (masks and sweeps bit for bit) on the dominance
+   words of real detects (the pins' b32 and b1 at K 256, the eval grade's
+   b2 at K 845, YOLOv3-tiny's eval grade b2 at K 2535), timed beside its
+   bound;
    ``serve_http`` on port 0 (4 ``.npy`` POSTs equal to the direct
    detect's boxes in image coordinates, 20 more timed one after another,
    /stats, /healthz, a bad body 400); the eval-grade detect (score
@@ -175,8 +181,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    ranks; the outcome is printed); and ``DistributedBatcher`` on (1, 2)
    with a leader and a follower: 64 submits and one ``POST /detect``,
    every row equal to the single-device detect, both ranks out with rc 0
-   after ``stop``. Wall times of ranks that share one card measure
-   contention, not scaling.
+   after ``stop``; then profiling on (1, 2) channel and (2, 1) ranks:
+   each rank's ``stage_times_traced`` (auto-scaled loop counts, rank 0's
+   on every rank) and ``layer_times``, row names equal to the
+   single-device engine's, and ``cli trace --detect --mesh`` (its
+   post_decode and nms_* scopes on rank 0). Wall times of ranks that
+   share one card measure contention, not scaling.
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -262,6 +272,12 @@ KERNELS = {
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8.cu",
         replaces="dnn_inference_engine_tpu/parallel/shard_map_forward.py:96"),
+    # the NMS fixpoint's lax.while_loop (not a Pallas kernel: XLA runs the
+    # loop on the device inside the jitted detect)
+    "nms_fixpoint": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/nms_fixpoint.cu",
+        replaces="dnn_inference_engine_tpu/postprocess.py:246"),
 }
 
 # Strategy plans (YOLOv2-tiny, w8a8): S1 and S2 between them run every
@@ -1802,7 +1818,8 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
-    want = {**dict.fromkeys(kernel_counters(), 0), **want}
+    # every detect ends in one NMS fixpoint launch
+    want = {**dict.fromkeys(kernel_counters(), 0), "nms_fixpoint": 1, **want}
     cfg = EngineConfig(model=model, batch=batch,
                        strategy=strategy and strategy_file(strategy))
     if mode != cfg.mode:
@@ -2733,8 +2750,8 @@ def _served_on_kernels(tag, eng, images, threads, want, dev):
     """``_serve`` with the launch counters (and the NMS's host reads) set
     to 0 just before the served run and read just after; on the card each
     kernel of the path must count its launches a batch times the batches,
-    every other counter 0, with no im2col and no ragged GEMM. Then each
-    result is held to its row of detect."""
+    every other counter 0, with no im2col, no ragged GEMM and no host read
+    in the NMS. Then each result is held to its row of detect."""
     from dnn_inference_engine_tpu_torch import postprocess as pp
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
@@ -2754,6 +2771,8 @@ def _served_on_kernels(tag, eng, images, threads, want, dev):
             raise AssertionError(f"{tag}: {im2col.calls} im2col copies, "
                                  f"{gm.gemm_fused.ragged_launches} ragged "
                                  "GEMMs")
+        if syncs:
+            raise AssertionError(f"{tag}: {syncs} host reads in the NMS")
     _rows_equal_detect(eng, images, shipped, results)
     print(f"{tag}: {len(images)} requests from {threads} threads in "
           f"{batches} batches, each result equal to its row of detect; "
@@ -2835,13 +2854,9 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
-    """The NMS fixpoint's group size (``SWEEPS_PER_SYNC``) against what
-    it trades: the engine's ``device_nms_cols`` inputs of one detect of
-    ``x`` are kept; the sweeps to the fixpoint (group 1: one read a
-    sweep), then the NMS's host ms per detect (each call synced, median
-    of ``reps``) for each group, on the same inputs."""
-    from dnn_inference_engine_tpu_torch import postprocess as pp
+def _nms_args(eng, x):
+    """The ``device_nms_cols`` arguments of one detect of ``x``:
+    ((boxes, scores), keywords)."""
     from dnn_inference_engine_tpu_torch.runtime import engine as em
     kept = []
     real = em.device_nms_cols
@@ -2854,35 +2869,150 @@ def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
         eng.detect(x)
     finally:
         em.device_nms_cols = real
-    (boxes, scores), kw = kept[0]
-    saved, ms, out = pp.SWEEPS_PER_SYNC, {}, None
+    return kept[0]
+
+
+def _host_ms(fn, dev, reps):
+    """Median host ms of ``reps`` calls of ``fn``, each synced."""
+    ts = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _nms_reads_no_host(tag, boxes, scores, kw):
+    """One NMS on the card under PyTorch's sync debug mode "error" (a
+    call that synchronizes the host raises): one ``nms_fixpoint`` launch,
+    no host read of the plain loop."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    torch.cuda.synchronize()
+    before, pp._greedy_fixpoint.host_syncs = pp.nms_fixpoint.launches, 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pp.device_nms_cols(boxes, scores, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if (pp.nms_fixpoint.launches != before + 1
+            or pp._greedy_fixpoint.host_syncs):
+        raise AssertionError(f"NMS {tag}: {pp.nms_fixpoint.launches - before}"
+                             f" launches, {pp._greedy_fixpoint.host_syncs} "
+                             "host reads")
+
+
+def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
+    """The NMS's host ms per detect (each call synced, median of
+    ``reps``) on the engine's ``device_nms_cols`` inputs of one detect of
+    ``x``: through the kernel (on the card, where it must read no host:
+    ``_nms_reads_no_host``), then through the plain loop for each group
+    of sweeps between host reads (``SWEEPS_PER_SYNC``), every output
+    equal; through the kernel also its device span (``device_ms``: the
+    host's launch work hidden); the sweeps to the fixpoint (the plain loop
+    with group 1: one read a sweep)."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    (boxes, scores), kw = _nms_args(eng, x)
+    nms = pp.device_nms_cols
+    out = [t.cpu().numpy() for t in nms(boxes, scores, **kw)]
+    kernel_ms = device_span = None
+    if dev.type == "cuda":
+        _nms_reads_no_host(tag, boxes, scores, kw)
+        kernel_ms = _host_ms(lambda: nms(boxes, scores, **kw), dev, reps)
+        device_span = device_ms(lambda: nms(boxes, scores, **kw), reps)
+    saved, ms = (pp.SWEEPS_PER_SYNC, pp.nms_fixpoint), {}
+    pp.nms_fixpoint = pp.nms_fixpoint_plain
     try:
         for g in groups:
             pp.SWEEPS_PER_SYNC = g
             pp._greedy_fixpoint.host_syncs = 0
-            got = [t.cpu().numpy() for t in real(boxes, scores, **kw)]
+            got = [t.cpu().numpy() for t in nms(boxes, scores, **kw)]
             if g == 1:
                 sweeps = 1 + pp._greedy_fixpoint.host_syncs
-            if out is not None and not all(
-                    np.array_equal(a, b) for a, b in zip(got, out)):
+            if not all(np.array_equal(a, b) for a, b in zip(got, out)):
                 raise AssertionError(f"{tag}: group {g} changed the NMS")
-            out = got
-            ts = []
-            for _ in range(reps):
-                _sync(dev)
-                t0 = time.perf_counter()
-                real(boxes, scores, **kw)
-                _sync(dev)
-                ts.append((time.perf_counter() - t0) * 1e3)
-            ms[g] = float(np.median(ts))
+            ms[g] = _host_ms(lambda: nms(boxes, scores, **kw), dev, reps)
     finally:
-        pp.SWEEPS_PER_SYNC = saved
+        pp.SWEEPS_PER_SYNC, pp.nms_fixpoint = saved
     k = min(kw["topk"], scores.shape[-1])
     print(f"NMS {tag}: (B, C, K) {(scores.shape[0], scores.shape[1], k)}, "
-          f"{sweeps} sweeps to the fixpoint; host ms per NMS by sweeps a "
-          f"read {ms}")
+          f"{sweeps} sweeps to the fixpoint; host ms per NMS: the kernel "
+          f"{kernel_ms} (its device span {device_span}), the plain loop by "
+          f"sweeps a read {ms}")
     return {"bck": [scores.shape[0], scores.shape[1], k], "sweeps": sweeps,
+            "nms_ms_kernel": kernel_ms, "nms_device_ms_kernel": device_span,
             "nms_ms_by_group": ms}
+
+
+def _nms_needed_bytes(valid) -> int:
+    """The bytes the NMS fixpoint must move for this ``valid`` (B, C, K):
+    ``valid`` read and ``keep`` written once (a byte each), and of
+    ``dom_p`` only the words that can change a mask: the rows of valid
+    candidates (an invalid row's keep is false whatever it holds), and in
+    each the words that hold a valid candidate (the others meet zero keep
+    bits)."""
+    b, c, k = valid.shape
+    w = -(-k // 64)
+    padded = torch.zeros((b, c, 64 * w), dtype=torch.bool,
+                         device=valid.device)
+    padded[..., :k] = valid
+    words = padded.view(b, c, w, 64).any(-1).sum(-1)
+    rows = valid.sum(-1)
+    return 8 * int((rows * words).sum()) + 2 * valid.numel()
+
+
+def nms_kernel_rows(cases, bw) -> dict:
+    """``nms_fixpoint`` against its plain version at each of ``cases``
+    ((tag, engine, images): the dominance words and valid masks of the
+    engine's detect of the images, built from the fixpoint's arguments
+    as it builds them): keep masks and each (image, class)'s sweeps equal
+    bit for bit; the kernel's and the plain version's ms (``device_ms``;
+    the plain loop's span includes its host reads' gaps) beside the bound
+    (``_nms_needed_bytes`` at the card's bandwidth). The first case's
+    numbers, with every case under ``sizes``."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    sizes = []
+    for tag, eng, images in cases:
+        seen = []
+        real = pp._greedy_fixpoint
+
+        def spy(s, oidx, iou_hit, valid):
+            seen.append((pp._dominance(s, oidx, iou_hit), valid))
+            return real(s, oidx, iou_hit, valid)
+        spy.host_syncs = 0          # the plain loop's reads (the CPU's)
+        pp._greedy_fixpoint = spy
+        try:
+            eng.detect(images)
+        finally:
+            pp._greedy_fixpoint = real
+        dom_p, valid = seen[0]
+        keep, sweeps = pp.nms_fixpoint(dom_p, valid, return_sweeps=True)
+        ref, ref_sweeps = pp.nms_fixpoint_plain(dom_p, valid,
+                                                return_sweeps=True)
+        err = max(max_abs_err(keep, ref), max_abs_err(sweeps, ref_sweeps))
+        if err:
+            raise AssertionError(f"nms_fixpoint {tag}: kernel != plain")
+        ms = device_ms(lambda: pp.nms_fixpoint(dom_p, valid), 20)
+        plain_ms = device_ms(lambda: pp.nms_fixpoint_plain(dom_p, valid), 5)
+        bound, by = _nms_needed_bytes(valid) / bw * 1e3, "bytes"
+        b, c, k = valid.shape
+        row = dict(tag=tag, bck=[b, c, k], max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None, sweeps_max=int(sweeps.max()),
+                   sweeps_mean=float(sweeps.float().mean()),
+                   valid=int(valid.sum()), kept=int(keep.sum()))
+        sizes.append(row)
+        print(f"  nms_fixpoint {tag} (B, C, K) {(b, c, k)}: masks and sweeps "
+              f"equal to the plain version; ms={ms:.4f} plain_ms="
+              f"{plain_ms:.3f} bound_ms={bound:.3g} ({by}); sweeps max "
+              f"{row['sweeps_max']} mean {row['sweeps_mean']:.2f}; valid "
+              f"{row['valid']}, kept {row['kept']}")
+    out = {k: sizes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in sizes)
+    out["sizes"] = sizes
+    return out
 
 
 def _sweep_device_ms(shapes, reps=20):
@@ -3104,10 +3234,12 @@ def phase_front_door(card: str, dev=None, size: int = 416):
     b32 pin and (``max_batch`` 1) the b1 pin, each equal to its row of the
     card's detect, through the path's kernels by the launch counters,
     then the batcher timed in windows with nothing of this script in its
-    path; the NMS's sweeps to the fixpoint and its time for each group
-    size on the pins' and the eval grade's inputs, and one sweep's device
-    time at serving and eval-grade K; ``serve_http``; the eval-grade
-    detect card against CPU; the goldens (device dump against a CPU dump,
+    path; the NMS's host time through the kernel (reading no host) and
+    through the plain loop for each group size on the pins' and the eval
+    grade's inputs, its sweeps to the fixpoint, one plain sweep's device
+    time at serving and eval-grade K, and the kernel against its plain
+    version at K 256, 845 and 2535 (``nms_kernel_rows``); ``serve_http``;
+    the eval-grade detect card against CPU; the goldens (device dump against a CPU dump,
     ``check-goldens`` in w8a8 at its own limit and against a wrong
     forward); with PIL, evaluate_voc and ``cli detect``; the native host
     library. Prints the phase's numbers as one JSON line."""
@@ -3177,7 +3309,7 @@ def phase_front_door(card: str, dev=None, size: int = 416):
           f"{surv} {at()}")
     # 4-5. served on the b32 and the b1 pins: correct rows and launches,
     # then timed windows; the NMS's sweeps and group size on their inputs
-    v2 = dict(conv_w8a8=7, gemm_fused=1, stem_fused_k2=1)
+    v2 = dict(conv_w8a8=7, gemm_fused=1, stem_fused_k2=1, nms_fixpoint=1)
     n32, n1 = (200, 400) if dev.type == "cuda" else (3, 6)
     rng = np.random.default_rng(10)
     reqs = rng.integers(0, 256, (96, size, size, 3)).astype(np.uint8)
@@ -3240,6 +3372,20 @@ def phase_front_door(card: str, dev=None, size: int = 416):
         nms["sweep_device_ms"] = _sweep_device_ms(
             [(32, 20, 256), (1, 20, 256), (2, 20, 845), (32, 20, 845),
              (2, 20, 2535), (16, 20, 2535)])
+        # the kernel at the four sizes: the pins' K 256, the eval grade's
+        # uncapped K 845 and YOLOv3-tiny's 2535
+        v3_ev = Engine(EngineConfig(
+            model="yolov3-tiny", mode="w8a8", batch=2, input_size=size,
+            score_thresh=SCORE_THRESH_EVAL),
+            device=dev).load_weights(seed=0).prepare()
+        if v3_ev.config.resolved_nms_topk() < 2535:
+            raise AssertionError("the YOLOv3 eval-grade pool is capped")
+        numbers["nms_fixpoint"] = nms_kernel_rows(
+            [("b32 K 256", eng, reqs[:32]), ("b1 K 256", b1, reqs[:1]),
+             ("eval b2 K 845", gpu_ev, imgs2),
+             ("v3 eval b2 K 2535", v3_ev, imgs2)],
+            peaks(torch.cuda.get_device_name(0))[1])
+        del v3_ev
     numbers["nms"] = nms
     cfg = d / "config.json"
     EngineConfig(input_size=size).to_json(str(cfg))
@@ -3349,8 +3495,9 @@ def md_dir() -> Path:
 
 def _md_inputs(d: Path, dev=None, size: int = 416) -> None:
     """The weights (seed 0, calibrated on seeded images on ``dev``, the
-    card by default), the global batch and the single-device detect and
-    heads the ranks are held to."""
+    card by default), the global batch and the single-device detect,
+    heads and ``stage_times``/``layer_times`` row names the ranks are
+    held to."""
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
     calib = np.random.default_rng(21).uniform(
@@ -3365,6 +3512,10 @@ def _md_inputs(d: Path, dev=None, size: int = 416) -> None:
     b, s, c = eng.detect(imgs)
     np.savez(d / "ref.npz", boxes=b, scores=s, classes=c,
              head=eng.classify(imgs))
+    # the single-device rows the profiling ranks' names are held to
+    names = {"stages": [r["name"] for r in eng.stage_times(iters=(3, 1))],
+             "layers": [n for n, _ in eng.layer_times(iters=(3, 1))]}
+    (d / "names.json").write_text(json.dumps(names))
 
 
 def _md_spawn(groups) -> dict:
@@ -3410,9 +3561,10 @@ def _md_spawn(groups) -> dict:
 def _md_counts(counts: dict, acc: int, want_acc: int, tag: str) -> None:
     """One rank's launch counts of a b32 detect on the pin: 7 conv_w8a8
     (the row-parallel conv's raw form among them, ``want_acc``), 1
-    gemm_fused, 1 k2 stem, 1 shift_s2d2, no other kernel."""
+    gemm_fused, 1 k2 stem, 1 shift_s2d2, 1 nms_fixpoint, no other
+    kernel."""
     want = {**{k: 0 for k in counts}, "conv_w8a8": 7, "gemm_fused": 1,
-            "stem_fused_k2": 1, "shift_s2d2": 1}
+            "stem_fused_k2": 1, "shift_s2d2": 1, "nms_fixpoint": 1}
     if counts != want or acc != want_acc:
         raise AssertionError(f"multi-device {tag}: launches {counts} acc "
                              f"{acc}, want {want} acc {want_acc}")
@@ -3428,7 +3580,8 @@ def phase_multi_device(card: str, ops_peak, bw):
     the one card (NCCL refuses a device shared by two ranks: the outcome
     is printed); and ``DistributedBatcher`` with a leader and a follower
     on (1, 2): 64 submits and one ``POST /detect``, every row equal to the
-    single-device detect, the follower out with rc 0 after ``stop``.
+    single-device detect, the follower out with rc 0 after ``stop``; and
+    the profiling ranks on (1, 2) channel and (2, 1) (``_md_profiles``).
     Returns (the kernel row, the (1, 2) rank 0's counts)."""
     import shutil
     from dnn_inference_engine_tpu_torch.ops import _build
@@ -3481,10 +3634,47 @@ def phase_multi_device(card: str, ops_peak, bw):
                                  f"(rc {rc}):\n{tail}")
         print(f"  DistributedBatcher (1, 2) rank {r}: {md}")
     print(f"  multi-device serving: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    profiled = _md_profiles([("profile", 2, dict(mesh=mesh, sharding=sh))
+                             for mesh, sh in MD_MESHES[:2]], card)
+    print(f"  multi-device profiling: {time.time() - t0:.1f} s")
     print(json.dumps({"multi_device": {
         "conv_w8a8_acc": {k: v for k, v in row.items() if k != "shapes"},
-        "main_path_counts": main_counts, "card": card}}))
+        "main_path_counts": main_counts, "profiled": profiled,
+        "card": card}}))
     return row, main_counts
+
+
+def _md_profiles(groups, card: str) -> dict:
+    """The profiling ranks (``_md_profile``) of ``groups``: every rank ok,
+    each group's ranks with one set of loop counts; a line a rank, and
+    rank 0's ``cli trace --detect`` lines. Returns each rank's module ms
+    and stage sum by mesh."""
+    res = _md_spawn(groups)
+    out = {}
+    for (gi, _, r), (rc, md, tail) in sorted(res.items()):
+        if rc != 0 or md is None or not md.get("ok"):
+            raise AssertionError(f"multi-device profile group {gi} rank {r} "
+                                 f"failed (rc {rc}):\n{tail}")
+        tag = f"{tuple(md['mesh'])} {md['sharding']}"
+        first = out.setdefault(tag, {"iters": md["iters"]})
+        if md["iters"] != first["iters"]:
+            raise AssertionError(f"profile {tag}: rank {r}'s loop counts "
+                                 f"{md['iters']} != rank 0's {first['iters']}")
+        stage_ms = sum(ms for _, ms, _ in md["stages"])
+        first[f"rank{r}"] = {"module_ms": md["module_ms"],
+                             "stage_ms": stage_ms,
+                             "conv_us": sum(md["layers_us"])}
+        print(f"  profile {tag} rank {r}: stage_times_traced module "
+              f"{md['module_ms']} ms device, isolated stages {stage_ms:.4f}"
+              f" ms, layer_times convs {sum(md['layers_us']):.1f} us, row "
+              f"names the single-device engine's, loop counts rank 0's; "
+              f"{md['seconds']:.1f} s (ranks share one card) [{card}]")
+        if r == 0 and "trace" in md:
+            print("    cli trace --detect on the mesh, rank 0:\n"
+                  + "\n".join("      " + ln
+                              for ln in md["trace"].splitlines()))
+    return out
 
 
 def _md_rank(spec: dict) -> int:
@@ -3528,6 +3718,12 @@ def _md_rank(spec: dict) -> int:
     init_distributed(spec["init"], world, rank, backend="gloo",
                      timeout_s=MD_TIMEOUT)
     mesh = tuple(spec["mesh"])
+    if role == "profile":
+        print("MD " + json.dumps(_md_profile(spec, d, mesh, rank)),
+              flush=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return 0
     eng = Engine(EngineConfig(
         mode="w8a8", batch=MD_BATCH, serve_max_batch=MD_BATCH,
         input_size=spec.get("input_size", 416), score_thresh=MD_SCORE,
@@ -3560,6 +3756,57 @@ def _md_rank(spec: dict) -> int:
     dist.destroy_process_group()
     print("MD " + json.dumps(out), flush=True)
     return 0
+
+
+def _md_profile(spec: dict, d: Path, mesh, rank: int) -> dict:
+    """Phase 13's profiling ranks (A15): this rank's
+    ``stage_times_traced`` (auto-scaled loop counts: rank 0's on every
+    rank) and ``layer_times`` on its shard, their row names held to the
+    single-device engine's; then ``cli trace --detect --mesh`` in this
+    process (rank 0's output kept), which takes the group down. On the
+    CPU rehearsal ``stage_times`` at fixed counts and no trace."""
+    import contextlib
+    import io
+    from dnn_inference_engine_tpu_torch import cli
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    size = spec.get("input_size", 416)
+    calib = np.random.default_rng(21).uniform(
+        0, 1, (8, size, size, 3)).astype(np.float32)
+    eng = Engine(EngineConfig(
+        mode="w8a8", batch=MD_BATCH, input_size=size, score_thresh=MD_SCORE,
+        mesh_shape=mesh, sharding=spec["sharding"]),
+        device=spec.get("device")).load_weights(seed=0).prepare(calib)
+    on_card = eng.device.type == "cuda"
+    t0 = time.perf_counter()
+    traced = eng.stage_times_traced(runs=5) if on_card else None
+    rows = ([r for r in traced["stages"] if r["stage"] is not None]
+            if on_card else eng.stage_times(iters=(4, 2)))
+    layers = eng.layer_times(iters=(20, 5))
+    secs = time.perf_counter() - t0
+    names = json.loads((d / "names.json").read_text())
+    same = ([r["name"] for r in rows] == names["stages"]
+            and [n for n, _ in layers] == names["layers"])
+    out = dict(ok=same, mesh=mesh, sharding=spec["sharding"],
+               iters=[r["iters"] for r in rows],
+               stages=[(r["name"], r["ms"], r.get("trace_ms")) for r in rows],
+               module_ms=traced and traced["module_ms"],
+               layers_us=[round(t * 1e6, 1) for _, t in layers],
+               seconds=secs)
+    if on_card:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([
+                "trace", "--detect", "--mesh", f"{mesh[0]},{mesh[1]}",
+                "--sharding", spec["sharding"], "--backend", "gloo",
+                "--mode", "w8a8", "--batch", str(MD_BATCH), "--runs", "5",
+                "--score-thresh", str(MD_SCORE),
+                "--weights", str(d / "v2.npz")])
+        text = buf.getvalue()
+        out["trace"] = text
+        out["ok"] = same and rc == 0 and (rank != 0 or all(
+            sc in text for sc in POST_SCOPES))
+    return out
 
 
 def _md_serve(eng, rank, imgs, ref) -> dict:
@@ -3715,7 +3962,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("profiling", phase_profiling, card)
     torch.cuda.empty_cache()
-    timed("front door", phase_front_door, card)
+    rows["nms_fixpoint"] = timed("front door", phase_front_door,
+                                 card)["nms_fixpoint"]
     torch.cuda.empty_cache()
     rows["conv_w8a8_acc"], counts["multi-device"] = timed(
         "multi-device", phase_multi_device, card, ops_peak, bw)

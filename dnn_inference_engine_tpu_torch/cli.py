@@ -28,8 +28,10 @@ command and rank 0 prints:
 ``--device cpu``). ``serve --num-processes N --process-id P --coordinator
 host:port`` starts one rank of a serving mesh without torchrun: rank 0
 serves HTTP, the others mirror its steps (runtime/serve_distributed.py).
-``trace``, ``layer-times`` and ``plan-sweep`` run on one device (a mesh
-for them is ROADMAP item A15).
+``trace --mesh`` and ``layer-times --mesh`` run on every rank, each
+timing its own shard; rank 0 prints its table and one line per rank.
+``plan-sweep --mesh`` sweeps one device, as the JAX CLI's does: rank 0
+sweeps its card while the other ranks wait.
 """
 
 from __future__ import annotations
@@ -43,8 +45,6 @@ import numpy as np
 
 # subcommands of the JAX CLI that wait for a ROADMAP item
 _LATER = {"bench": "A8"}
-# subcommands that run on one device: a mesh for them waits for this item
-_SINGLE_DEVICE = {"trace": "A15", "layer-times": "A15", "plan-sweep": "A15"}
 
 
 def _add_common(p):
@@ -261,10 +261,21 @@ def _iters(text):
     return tuple(int(v) for v in text.split(",")) if text else None
 
 
+def _per_rank(eng, value: float, what: str) -> None:
+    """On a mesh, one line a rank: its ``value`` (gathered over the world
+    group; every rank calls this, rank 0 prints)."""
+    if eng.mesh is None:
+        return
+    from dnn_inference_engine_tpu_torch.parallel.mesh import gather_floats
+    for r, v in enumerate(gather_floats(value)):
+        print(f"# rank {r}: {what} {v:.4f}")
+
+
 def cmd_layer_times(args) -> int:
     """The W8A8 plan's stages (``Engine.stage_times``, with their
     roofline) where the engine runs one, else each conv of the generic
-    forward (``Engine.layer_times``)."""
+    forward (``Engine.layer_times``). On a mesh every rank times its
+    shard; rank 0 prints its own rows and each rank's total."""
     eng = _build_engine(args)
     iters = _iters(args.iters)
     if eng._plan is not None and eng.config.mode == "w8a8":
@@ -291,6 +302,7 @@ def cmd_layer_times(args) -> int:
                   f"{r['noise_pct']:7.1f}{sus}")
             total += r["ms"]
         print(f"# TOTAL stages {total:.4f} ms")
+        _per_rank(eng, total, "TOTAL stages ms")
         return 0
     print(f"# per-layer steady-state times, batch={args.batch}, "
           f"mode={args.mode}, kernel={args.kernel}")
@@ -300,25 +312,30 @@ def cmd_layer_times(args) -> int:
         print(f"{name:32s} {t * 1e6:10.1f} us")
         total += t
     print(f"{'TOTAL conv':32s} {total * 1e6:10.1f} us")
+    _per_rank(eng, total * 1e6, "TOTAL conv us")
     return 0
 
 
 def cmd_trace(args) -> int:
     """Trace the engine's forward (or, with ``--detect``, the detect:
     forward, decode and NMS) on the card and print the device time of
-    each stage and postprocess scope (``trace_attribution``)."""
+    each stage and postprocess scope (``trace_attribution``). On a mesh
+    every rank traces its shard over as many runs; rank 0 prints its own
+    scopes and each rank's module time, and writes ``--out``."""
     from dnn_inference_engine_tpu_torch.runtime.profiling import (
         trace_attribution)
     eng = _build_engine(args)
-    x = eng._bench_input(args.batch)
+    x = eng._bench_rows(args.batch)
     fn = eng.detect_fn() if args.detect else eng._fwd
-    art = trace_attribution(fn, x, runs=args.runs)
+    art = trace_attribution(fn, x, runs=args.runs,
+                            agree_ranks=eng.mesh is not None)
     print(f"# module device time {art['module_device_us_per_run']:.1f} us"
           f" over {art['runs_traced']} runs; ops sum "
           f"{art['sum_of_ops_us_per_run']:.1f} us")
     for k, v in art["by_scope_us"].items():
         print(f"{v:10.2f} us  {k}")
-    if args.out:
+    _per_rank(eng, art["module_device_us_per_run"], "module device us")
+    if args.out and (eng.mesh is None or eng.mesh.rank == 0):
         with open(args.out, "w") as f:
             json.dump(art, f, indent=1)
         print(f"# wrote {args.out}")
@@ -327,22 +344,31 @@ def cmd_trace(args) -> int:
 
 def cmd_plan_sweep(args) -> int:
     """Measure each conv layer's legal plan kinds and emit the fastest
-    strategy as JSON."""
+    strategy as JSON. The sweep is single-device: with ``--mesh``, as
+    the JAX CLI's, rank 0 sweeps its card and writes ``--out``, and the
+    other ranks wait for it at a barrier."""
+    import torch.distributed as dist
     from dnn_inference_engine_tpu_torch.runtime.plan_sweep import sweep
-    iters = tuple(int(v) for v in args.iters.split(","))
-    art = sweep(model_name=args.model, mode=args.mode, batch=args.batch,
-                input_size=args.input_size, quick=args.quick, iters=iters,
-                reps=args.reps, weights=args.weights,
-                calib=args.calib_images, device=args.device)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(art, f, indent=2)
-        print(f"# wrote {args.out}")
-    print(json.dumps({k: art[k] for k in
-                      ("model", "mode", "batch", "input_size", "backend",
-                       "device", "whole_net_ms", "images_per_s",
-                       "strategy")}))
-    return 0
+    try:
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return 0
+        iters = tuple(int(v) for v in args.iters.split(","))
+        art = sweep(model_name=args.model, mode=args.mode, batch=args.batch,
+                    input_size=args.input_size, quick=args.quick,
+                    iters=iters, reps=args.reps, weights=args.weights,
+                    calib=args.calib_images, device=args.device)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(art, f, indent=2)
+            print(f"# wrote {args.out}")
+        print(json.dumps({k: art[k] for k in
+                          ("model", "mode", "batch", "input_size",
+                           "backend", "device", "whole_net_ms",
+                           "images_per_s", "strategy")}))
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.barrier()
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -359,7 +385,8 @@ def _parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_detect)
 
     p = sub.add_parser("layer-times", help="per-stage (W8A8 plan) or "
-                       "per-layer timing report")
+                       "per-layer timing report; with --mesh, every rank "
+                       "times its shard with rank 0's loop counts")
     _add_common(p)
     p.add_argument("--iters", default=None, metavar="HI,LO",
                    help="fixed loop-difference counts (quick but noisy); "
@@ -403,7 +430,9 @@ def _parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("plan-sweep",
                        help="measure per-layer kernel strategies, emit "
-                            "the fastest as JSON")
+                            "the fastest as JSON; single-device: with "
+                            "--mesh rank 0 sweeps its card, the other "
+                            "ranks wait")
     _add_common(p)
     p.add_argument("--input-size", type=int, default=None)
     p.add_argument("--out", default=None, help="write the artifact here")
@@ -417,7 +446,8 @@ def _parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("trace",
                        help="per-scope device time of the forward on the "
-                            "card (torch.profiler)")
+                            "card (torch.profiler); with --mesh, every rank "
+                            "traces its shard")
     _add_common(p)
     p.add_argument("--runs", type=int, default=30)
     p.add_argument("--detect", action="store_true",
@@ -446,9 +476,6 @@ def main(argv=None) -> int:
         else (1, 1)
     if len(mesh) != 2 or min(mesh) < 1:
         ap.error(f"--mesh {args.mesh}: give DP,MP, both >= 1")
-    if mesh != (1, 1) and args.cmd in _SINGLE_DEVICE:
-        ap.error(f"{args.cmd} --mesh {args.mesh}: {args.cmd} runs on one "
-                 f"device (a mesh is ROADMAP item {_SINGLE_DEVICE[args.cmd]})")
     n = getattr(args, "num_processes", None)
     if n and n > 1 and mesh[0] * mesh[1] != n:
         ap.error(f"--num-processes {n} needs a --mesh of {n} ranks")

@@ -148,15 +148,50 @@ def gather_rows(out, mesh: Optional[Mesh]):
     return _gather(out, mesh.data_group)
 
 
-def broadcast_floats(values: Sequence[float], device) -> list:
+def _host_or_card() -> torch.device:
+    """Where the default group's backend reads a small tensor: host
+    memory for gloo, the current card for NCCL."""
+    if dist.get_backend() == "gloo":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def broadcast_floats(values: Sequence[float]) -> list:
     """Rank 0's ``values`` on every rank of the default group, bit for
     bit (float64 carries a float32 or a Python float exactly)."""
-    dev = torch.device(device)
-    on_host = dist.get_backend() == "gloo"
     t = torch.tensor(list(values), dtype=torch.float64,
-                     device="cpu" if on_host else dev)
+                     device=_host_or_card())
     dist.broadcast(t, src=0)
     return t.cpu().tolist()
+
+
+def broadcast_ints(values: Sequence[int]) -> list:
+    """Rank 0's ``values`` on every rank of the default group: loop counts
+    that every rank then runs alike (``runtime/benchlib.py``)."""
+    t = torch.tensor(list(values), dtype=torch.int64,
+                     device=_host_or_card())
+    dist.broadcast(t, src=0)
+    return [int(v) for v in t.cpu().tolist()]
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank of the default group where ``flag`` is True on
+    any of them (an ``all_reduce`` MAX): a decision all ranks take
+    together."""
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                     device=_host_or_card())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def gather_floats(value: float) -> list:
+    """Every rank's ``value``, in rank order, on every rank of the default
+    group."""
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=_host_or_card())
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return [float(p.item()) for p in parts]
 
 
 def _env_int(name: str) -> Optional[int]:

@@ -12,6 +12,9 @@ Counterpart of ``dnn_inference_engine_tpu/postprocess.py``:
   anchor), ``cxcywh_to_xyxy``, ``device_nms`` (the same fixpoint) and
   ``device_nms_seq`` (per-class top-K and a K-step greedy loop, a second
   oracle);
+- ``nms_fixpoint`` (``csrc/nms_fixpoint.cu``), the fixpoint's loop as one
+  kernel on the card, for JAX's on-device ``lax.while_loop``, and its
+  plain version ``nms_fixpoint_plain``;
 - ``host_nms``: per-class greedy NMS of one image in numpy, through the
   native library's ``nms_greedy`` where it builds.
 
@@ -20,7 +23,9 @@ The profiler scopes of the JAX package (``post_decode``,
 profiler runs) let ``runtime/profiling.trace_attribution`` split a
 detect's device time.
 
-Plain PyTorch: no Pallas kernel computes these. Tie-breaks follow the
+Plain PyTorch but for the fixpoint's loop: no Pallas kernel computes
+these, and the dominance words and the IoU stay PyTorch ops, as they are
+XLA ops in the JAX package. Tie-breaks follow the
 JAX package: ``jax.lax.top_k`` puts the lower index first among equal
 values, so every top-K here is a stable descending sort, and candidates
 keep the input's M order.
@@ -29,6 +34,8 @@ keep the input's M order.
 from __future__ import annotations
 
 from typing import Optional
+
+import ctypes
 
 import numpy as np
 import torch
@@ -39,19 +46,15 @@ from dnn_inference_engine_tpu_torch.config import (
 )
 from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
-# Jacobi sweeps of the NMS fixpoint between two host reads of its
-# convergence test. Measured on an H100 (700 W) by chip_smoke.py phase
-# 10 in two runs, seeded weights: the fixpoint holds after 12 sweeps at
-# b32, 7 at b1 (K = 256) and 20 at the eval grade's b2 (K = 845). The
-# card runs a sweep in 0.03-0.04 ms at K = 256 and 0.04-0.15 ms at
-# K = 845, less than the host takes to launch it, so a wasted sweep and
-# a read cost the host alike (~0.05-0.1 ms). The NMS took 3.36-3.73 ms
-# at b32 in groups of 4 (one read a sweep 3.60-5.05), 1.90-2.30 at b1
-# (1.85-2.55), 4.18-4.76 at eval b2 (4.84-4.92); 4 was the best or
-# within 16% of it in every case, 16 up to 2x slower at b1. At K = 2535
-# a sweep costs the card 0.10-0.55 ms (b2-b16), where smaller groups
-# would waste less. How many sweeps real detections take is not known:
-# no real weights are in the repository.
+# Jacobi sweeps of the NMS fixpoint's plain version (``nms_fixpoint_plain``,
+# the CPU's path) between two host reads of its convergence test; the
+# kernel (``nms_fixpoint``) runs the whole loop on the card and reads
+# nothing. Measured on an H100 (700 W) by chip_smoke.py phase 10 when the
+# plain loop ran on the card: seeded weights need 12 sweeps at b32, 7 at
+# b1 (K = 256) and 20 at the eval grade's b2 (K = 845); the NMS then took
+# 3.36-3.73 ms of host time at b32 in groups of 4 (3.60-5.05 with one read
+# a sweep), 1.90-2.30 at b1, and 4 was the best group or within 16% of it
+# in every case.
 SWEEPS_PER_SYNC = 4
 
 
@@ -182,6 +185,94 @@ def _sweep(dom_p: torch.Tensor, valid: torch.Tensor,
     return valid & ~(hits != 0).any(dim=-1)
 
 
+def _check_fixpoint_args(dom_p: torch.Tensor, valid: torch.Tensor) -> None:
+    k = valid.shape[-1] if valid.ndim else 0
+    if (valid.ndim != 3 or valid.dtype != torch.bool
+            or dom_p.dtype != torch.int64
+            or tuple(dom_p.shape) != (*valid.shape, -(-k // 64))
+            or dom_p.device != valid.device):
+        raise ValueError(
+            "nms_fixpoint: need dom_p (B,C,K,ceil(K/64)) int64 and valid "
+            f"(B,C,K) bool on one device, got {dom_p.dtype} "
+            f"{tuple(dom_p.shape)} on {dom_p.device} and {valid.dtype} "
+            f"{tuple(valid.shape)} on {valid.device}")
+
+
+def nms_fixpoint_plain(dom_p: torch.Tensor, valid: torch.Tensor,
+                       group: Optional[int] = None,
+                       return_sweeps: bool = False):
+    """Plain PyTorch version of ``nms_fixpoint``: the Jacobi loop, batched
+    over (image, class), in groups of ``group`` sweeps (default
+    ``SWEEPS_PER_SYNC``) between host reads of its convergence test
+    (``_greedy_fixpoint.host_syncs`` counts the reads). A sweep after the
+    fixpoint changes nothing, so the masks equal those of a read after
+    every sweep, and the K bound holds. With ``return_sweeps``, also the
+    sweeps each (image, class) takes when JAX's loop runs it alone, as
+    the kernel does: (B, C) int32."""
+    group = group or SWEEPS_PER_SYNC
+    k = valid.shape[-1]
+    keep = _sweep(dom_p, valid, valid)
+    # the last sweep that changed each (image, class)'s mask
+    last = (keep != valid).any(dim=-1).to(torch.int32) if return_sweeps \
+        else None
+    it = 1
+    while it < k:
+        for _ in range(min(group, k - it)):
+            prev, keep = keep, _sweep(dom_p, valid, keep)
+            it += 1
+            if return_sweeps:
+                last = torch.where((prev != keep).any(dim=-1),
+                                   torch.full_like(last, it), last)
+        _greedy_fixpoint.host_syncs += 1
+        if not bool((prev != keep).any()):
+            break
+    if return_sweeps:
+        return keep, torch.clamp(last + 1, max=max(k, 1))
+    return keep
+
+
+def nms_fixpoint(dom_p: torch.Tensor, valid: torch.Tensor,
+                 return_sweeps: bool = False):
+    """Greedy NMS keep masks (B,C,K) bool as the Jacobi fixpoint of
+    ``keep[i] = valid[i] and not any_j(dom[i,j] and keep[j])`` from
+    ``keep = valid``, stopping where a sweep changes nothing or after K
+    sweeps, as JAX's ``lax.while_loop`` does. ``dom_p`` (B,C,K,W) int64:
+    bit j of word w is candidate 64w + j (``_dominance``); ``valid``
+    (B,C,K) bool. With ``return_sweeps``, also each (image, class)'s
+    sweeps, (B, C) int32.
+
+    On a CUDA tensor one launch of ``csrc/nms_fixpoint.cu`` runs the whole
+    loop, a block each (image, class), and the host reads nothing; on a
+    CPU tensor the plain version runs."""
+    _check_fixpoint_args(dom_p, valid)
+    if valid.device.type == "cpu":
+        return nms_fixpoint_plain(dom_p, valid, return_sweeps=return_sweeps)
+    if valid.device.type != "cuda":
+        raise ValueError(f"nms_fixpoint: unsupported device {valid.device}")
+    from dnn_inference_engine_tpu_torch.ops import _build
+    b, c, k = valid.shape
+    w = dom_p.shape[-1]
+    if 3 * w * 8 > 48 * 1024:
+        raise ValueError(f"nms_fixpoint: K = {k} needs {3 * w * 8} bytes "
+                         "of shared memory a block, over 48 KB")
+    dom_p, valid = dom_p.contiguous(), valid.contiguous()
+    keep = torch.empty_like(valid)
+    sweeps = (torch.empty((b, c), dtype=torch.int32, device=valid.device)
+              if return_sweeps else None)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("nms_fixpoint", "nms_fixpoint",
+                         [p, p, p, p, i, i, i, p])
+    err = fn(dom_p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+             sweeps.data_ptr() if return_sweeps else None, b * c, k, w,
+             _build.stream_ptr(valid.device))
+    nms_fixpoint.launches += 1
+    _build.check(err, "nms_fixpoint")
+    return (keep, sweeps) if return_sweeps else keep
+
+
+nms_fixpoint.launches = 0
+
+
 def _greedy_fixpoint(s: torch.Tensor, oidx: torch.Tensor,
                      iou_hit: torch.Tensor, valid: torch.Tensor,
                      group: Optional[int] = None) -> torch.Tensor:
@@ -192,25 +283,14 @@ def _greedy_fixpoint(s: torch.Tensor, oidx: torch.Tensor,
     indices (tie-break order); iou_hit (B,K,K); valid (B,C,K). Greedy's
     keep is the unique solution of keep[i] = valid[i] and not
     any_j(dom[i,j] and keep[j]); Jacobi iteration from keep = valid
-    reaches it in (longest suppression chain + 2) sweeps, at most K. The
-    sweeps run in groups of ``group`` (default ``SWEEPS_PER_SYNC``)
-    between host reads of the convergence test (``host_syncs`` counts
-    the reads): a sweep after the fixpoint changes nothing, so the masks
-    equal those of a read after every sweep, and the K bound holds.
+    reaches it in (longest suppression chain + 2) sweeps, at most K
+    (``nms_fixpoint``). ``group``: run the plain version with that many
+    sweeps between host reads instead.
     """
-    group = group or SWEEPS_PER_SYNC
-    k = valid.shape[-1]
     dom_p = _dominance(s, oidx, iou_hit)
-    prev, keep, it = valid, _sweep(dom_p, valid, valid), 1
-    while it < k:
-        n = min(group, k - it)
-        for _ in range(n):
-            prev, keep = keep, _sweep(dom_p, valid, keep)
-        it += n
-        _greedy_fixpoint.host_syncs += 1
-        if not bool((prev != keep).any()):
-            break
-    return keep
+    if group is not None:
+        return nms_fixpoint_plain(dom_p, valid, group)
+    return nms_fixpoint(dom_p, valid)
 
 
 _greedy_fixpoint.host_syncs = 0
@@ -231,9 +311,10 @@ def device_nms_cols(boxes: torch.Tensor, scores: torch.Tensor,
                     max_det: int = MAX_DETECTIONS):
     """boxes (B,4,M) cxcywh, scores (B,C,M) -> (boxes (B,D,4) xyxy,
     scores (B,D), classes (B,D) int32), zero-padded, score-descending,
-    D = max_det. Candidate order follows the input's M order. The host
-    reads the device once a group of fixpoint sweeps
-    (``_greedy_fixpoint.host_syncs``)."""
+    D = max_det. Candidate order follows the input's M order. On the card
+    the fixpoint is one ``nms_fixpoint`` launch and the host reads
+    nothing; on the CPU its plain version reads the convergence test once
+    a group of ``SWEEPS_PER_SYNC`` sweeps (``_greedy_fixpoint.host_syncs``)."""
     b, c, m = scores.shape
     topk = min(topk, m)
     with scope("nms_candidates"):

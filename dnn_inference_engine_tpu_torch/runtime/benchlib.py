@@ -15,6 +15,14 @@ so that XLA can neither hoist the body out of its loop nor overlap
 iterations. PyTorch runs eagerly and hoists nothing, so the calls here
 are plain repeated calls.
 
+On a mesh every rank times its own shard, and a rank-local call may hold
+a collective (the row-parallel conv's ``all_reduce``): each collective
+must then run as many times on every rank, or the ranks wait on each
+other forever. So with ``agree_ranks`` the auto-scaled loop counts are
+rank 0's on every rank (``parallel.mesh.broadcast_ints``), broadcast
+before any timed loop; the probes before them run the same counts (5
+and 105) on every rank.
+
 The roofline (``roofline_pct``, ``binding_bound_s``) takes the peaks of
 NVIDIA's data sheets for the H100 variant the card's name gives
 (``peaks``, ``tf32_peak``, ``f32_peak``), not the JAX package's TPU v5e
@@ -59,12 +67,15 @@ def _loop_s(fn: Callable, args: Sequence, n: int, dev: torch.device) -> float:
 def per_iter_time_stats(fn: Callable, args: Sequence, iters_hi: int = 0,
                         iters_lo: int = 0, reps: int = 3,
                         target_delta_s: float = 0.12,
-                        max_iters: int = 2000) -> dict:
+                        max_iters: int = 2000,
+                        agree_ranks: bool = False) -> dict:
     """Steady-state seconds per call of ``fn(*args)``, with spread.
 
     Without iteration counts, they are scaled so that the timed loop
     difference is about ``target_delta_s`` of work (a 5- and a 105-call
-    probe first). Returns::
+    probe first); with ``agree_ranks`` (every rank of the default process
+    group calls this, as on a mesh), rank 0's counts on every rank.
+    Returns::
 
         {"min": s, "median": s, "spread_pct": 100*(max-min)/min,
          "iters": (hi, lo), "delta_work_s": min * (hi - lo)}
@@ -78,6 +89,10 @@ def per_iter_time_stats(fn: Callable, args: Sequence, iters_hi: int = 0,
         delta_iters = int(min(max(100, target_delta_s / est), max_iters))
         iters_lo = max(delta_iters // 10, 2)
         iters_hi = iters_lo + delta_iters
+        if agree_ranks:
+            from dnn_inference_engine_tpu_torch.parallel.mesh import (
+                broadcast_ints)
+            iters_hi, iters_lo = broadcast_ints((iters_hi, iters_lo))
     deltas = []
     for _ in range(reps):
         t_lo = _loop_s(fn, args, iters_lo, dev)
@@ -96,12 +111,12 @@ def per_iter_time_stats(fn: Callable, args: Sequence, iters_hi: int = 0,
 def per_iter_time(fn: Callable, args: Sequence, iters_hi: int = 0,
                   iters_lo: int = 0, reps: int = 3,
                   target_delta_s: float = 0.12, max_iters: int = 2000,
-                  stat: str = "median") -> float:
+                  stat: str = "median", agree_ranks: bool = False) -> float:
     """Median (or min) steady-state seconds per call of ``fn``; 'min'
     approximates the uncontended speed on a shared host."""
     s = per_iter_time_stats(fn, args, iters_hi=iters_hi, iters_lo=iters_lo,
                             reps=reps, target_delta_s=target_delta_s,
-                            max_iters=max_iters)
+                            max_iters=max_iters, agree_ranks=agree_ranks)
     return s["min"] if stat == "min" else s["median"]
 
 

@@ -22,14 +22,17 @@ the channel pair split over the model group, its row-parallel conv
 summing int32 accumulators), and the rows are gathered over the data
 group, so every rank returns the whole batch, equal bit for bit to a
 single-device engine's. ``detect_fn``/``forward_fn`` take this rank's
-rows (``_device_batch``) and return theirs. Profiling and the sweep are
-single-device (ROADMAP A15).
+rows (``_device_batch``) and return theirs.
 
 Timing (the JAX engine's, on the engine's device): ``stage_times``
 times each stage of the W8A8 plan on its own input state with its
 roofline, ``stage_times_traced`` adds each stage's in-context device time
 from a trace (runtime/profiling.py), ``layer_times`` times each conv of
-the generic forward.
+the generic forward. On a mesh each rank times and traces its own shard
+(its rows of the batch, its channel slice of the pair, the row-parallel
+conv with its ``all_reduce``) against one card's peaks, with rank 0's
+loop counts and retakes decided by all ranks together, so every
+collective runs as many times on every rank.
 """
 
 from __future__ import annotations
@@ -224,8 +227,7 @@ class Engine:
             self.act_scales = calibrate(self.model, self.fp32_params,
                                         calib_images, device=self.device)
             if self.mesh is not None:
-                self.act_scales = broadcast_floats(self.act_scales,
-                                                   self.device)
+                self.act_scales = broadcast_floats(self.act_scales)
         self._prepared = True
         return self
 
@@ -271,8 +273,11 @@ class Engine:
     @torch.no_grad()
     def _fwd(self, x: torch.Tensor):
         """The f32 head, or the tuple of heads (YOLOv3-tiny), of a batch
-        on one device."""
-        self._single_device("the single-device forward")
+        on one device; on a mesh, of this rank's rows (its sharded
+        forward, ``forward_fn``), as the JAX engine's ``_fwd`` runs over
+        the sharded params."""
+        if self.mesh is not None:
+            return self.forward_fn()(x)
         mode = self.config.mode
         x = self._input(x)
         if self._plan is None:
@@ -312,14 +317,6 @@ class Engine:
                                topk=c.resolved_nms_topk(),
                                max_det=c.max_detections)
 
-    def _single_device(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} runs on one device; on a mesh "
-                f"{tuple(self.config.mesh_shape)} use detect, classify, "
-                "detect_fn or forward_fn (profiling and the sweep on a mesh "
-                "are ROADMAP item A15)")
-
     def forward_fn(self):
         """The device forward: image batch tensor -> the f32 head(s) on
         the engine's device. On a mesh: this rank's rows -> theirs."""
@@ -357,9 +354,9 @@ class Engine:
     def detect_device(self, images):
         """Dispatch detection without waiting for the device: returns
         device tensors (boxes, scores, classes), on a mesh the whole
-        batch's (gathered over the data group). The NMS fixpoint syncs
-        with the host once a group of ``SWEEPS_PER_SYNC`` sweeps
-        (postprocess.py)."""
+        batch's (gathered over the data group). On the card nothing in it
+        reads the device but the forward's scale uploads (the NMS
+        fixpoint is one kernel, postprocess.py)."""
         out = self.detect_fn()(self._device_batch(images))
         return gather_rows(out, self.mesh)
 
@@ -393,6 +390,14 @@ class Engine:
             x = np.clip(np.round(x * 255), 0, 255).astype(np.uint8)
         return torch.as_tensor(x, device=self.device)
 
+    def _bench_rows(self, batch: int) -> torch.Tensor:
+        """``_bench_input(batch)``'s rows that this rank computes: all of
+        them on one device."""
+        x = self._bench_input(batch)
+        if self.mesh is None:
+            return x
+        return x[input_sharding(self.mesh, batch)]
+
     def stage_times(self, batch: Optional[int] = None,
                     iters: Optional[Tuple[int, int]] = None) -> List[Dict]:
         """Per-stage times and roofline of the W8A8 plan as it executes:
@@ -420,16 +425,20 @@ class Engine:
             roofline_pct)
         from dnn_inference_engine_tpu_torch.runtime.plan import (
             _run_stage, stage_flops)
-        self._single_device("stage_times")
         if self._plan is None or self.config.mode != "w8a8":
             raise ValueError("stage_times needs the fused w8a8 plan "
                              "(mode=w8a8, kernel=auto); use layer_times "
                              "for other configs")
         batch = batch or self.config.batch
-        x = self._bench_input(batch)
+        x = self._bench_rows(batch)
+        rows = x.shape[0]
+        on_mesh = self.mesh is not None
+        pair = _validated_pair(self) if on_mesh else None
+        group = self.mesh.model_group if on_mesh else None
         states: List = []
         plan_forward_w8a8(self.model, self._plan, self._plan_params,
-                          self.act_scales, x, record_states=states)
+                          self.act_scales, x, pair=pair, group=group,
+                          record_states=states)
         flops = stage_flops(self.model, self._plan,
                             input_size=self.config.input_size)
         peak_ops, hbm_bps = device_peaks(self.device)
@@ -443,16 +452,20 @@ class Engine:
             @torch.no_grad()
             def f(xx, _st=st, _pp=pp, _cs=cs0, _cf=cf0, _sv=saved0):
                 return _run_stage(layers, _st, _pp, xx, _cs, _cf,
-                                  self.act_scales, _sv)[0]
+                                  self.act_scales, _sv, pair, group)[0]
             x_out = states[si + 1][0] if si + 1 < len(states) else f(x0)
             hbm_bytes = (_nbytes(x0) + _nbytes(x_out)
                          + sum(_nbytes(pp[k]) for k in _CONTRACT_PARAMS
                                if k in pp))
-            s = per_iter_time_stats(f, (x0,), *(iters or ()))
+            s = per_iter_time_stats(f, (x0,), *(iters or ()),
+                                    agree_ranks=on_mesh)
             t = max(s["min"], 1e-9)
             useful, executed = flops[si]
-            gop = 2 * useful * batch / 1e9
-            gop_exec = 2 * executed * batch / 1e9
+            # a stage of the channel pair does this rank's slice of it
+            share = rows / (self.mesh.mp if pair and st.conv_li in pair
+                            else 1)
+            gop = 2 * useful * share / 1e9
+            gop_exec = 2 * executed * share / 1e9
             sub_res = s["delta_work_s"] < 0.02
             mfu = roofline_pct(gop * 1e9, t, peak_ops)
             hw = roofline_pct(gop_exec * 1e9, t, peak_ops)
@@ -495,13 +508,14 @@ class Engine:
         ``trace_ms``, how close it runs to the roofline in context (the
         isolated loop of a short stage times the host's launches).
         ``in_context_overhead_ms``: ``module_ms`` less the isolated
-        stages' sum. Needs the card."""
+        stages' sum. On a mesh, this rank's sharded forward on its rows,
+        every rank tracing as many runs. Needs the card."""
         from dnn_inference_engine_tpu_torch.runtime.profiling import (
             trace_attribution)
         batch = batch or self.config.batch
         rep = self.stage_times(batch=batch)
-        art = trace_attribution(self._fwd, self._bench_input(batch),
-                                runs=runs)
+        art = trace_attribution(self._fwd, self._bench_rows(batch),
+                                runs=runs, agree_ranks=self.mesh is not None)
         scopes = dict(art["by_scope_us"])
         used = set()
         for row in rep:
@@ -538,47 +552,71 @@ class Engine:
         mode's conv on ``config.kernel``'s tier), each on its input from
         an fp32 forward of a seeded batch: [("layer{li}
         conv{k}x{k}->{Cout}", s), ...]. In w8a8 the input is quantized
-        with the layer's scale and the conv emits f32."""
+        with the layer's scale and the conv emits f32.
+
+        On a mesh: this rank's rows and params; the channel pair's
+        row-parallel conv takes its Cin slice of the input and runs as the
+        sharded forward runs it (the int32 accumulator, its ``all_reduce``
+        over the model group, then the epilogue); rank 0's loop counts."""
         from dnn_inference_engine_tpu_torch.models.layers import Conv
         from dnn_inference_engine_tpu_torch.models.model import _get_conv_fn
         from dnn_inference_engine_tpu_torch.quant.quantize import (
             quantize_act)
+        from dnn_inference_engine_tpu_torch.parallel.shard_map_forward import (
+            row_parallel_conv_w8a8)
         from dnn_inference_engine_tpu_torch.runtime.benchlib import (
             per_iter_time)
-        self._single_device("layer_times")
         if self.fp32_params is None:
             raise RuntimeError("layer_times needs the fp32 params (load "
                                "weights that are not quantized)")
         batch = batch or self.config.batch
         mode = self.config.mode
         size = self.config.input_size
-        x = torch.as_tensor(np.random.default_rng(0).uniform(
-            0, 1, (batch, size, size, 3)).astype(np.float32),
-            device=self.device)
-        _, inputs = self.model.forward_fp32(self.fp32_params, x,
-                                            capture_inputs=True)
-        conv_fn = _get_conv_fn(mode, self.config.kernel)
+        x = np.random.default_rng(0).uniform(
+            0, 1, (batch, size, size, 3)).astype(np.float32)
+        on_mesh = self.mesh is not None
+        if on_mesh:
+            x = x[input_sharding(self.mesh, batch)]
+        _, inputs = self.model.forward_fp32(
+            self.fp32_params, torch.as_tensor(x, device=self.device),
+            capture_inputs=True)
+        kernel = self.config.kernel
+        conv_fn = _get_conv_fn(mode, kernel)
+        pair = _validated_pair(self) if on_mesh else None
         report = []
         for li, layer in enumerate(self.model.layers):
             if not isinstance(layer, Conv):
                 continue
-            p, xin = self.params[li], inputs[li]
+            p, xin = self._local_params[li], inputs[li]
             kw = dict(act=layer.act, stride=layer.stride,
                       padding=layer.padding)
-            if mode == "fp32":
-                args = (p["w"], p["b"])
-            elif mode == "w8":
-                args = (p["wq"], p["s_w"], p["b"])
-            else:
+            if pair and li == pair[1]:
+                # this rank's Cin slice, its int32 sum over the model group
+                cin = p["wq"].shape[2]
+                lo = self.mesh.model_index * cin
                 s_in = self.act_scales[li]
-                xin = quantize_act(xin, s_in)
-                args = (s_in, p["wq"], p["s_w"], p["b"])
+                xin = quantize_act(xin[..., lo:lo + cin].contiguous(), s_in)
 
-            @torch.no_grad()
-            def f(xx, _args=args, _kw=kw):
-                return conv_fn(xx, *_args, **_kw)
-            t = per_iter_time(f, (xin,), iters_hi=iters[0],
-                              iters_lo=iters[1])
+                def conv(xx, _p=p, _layer=layer, _s=s_in):
+                    return row_parallel_conv_w8a8(
+                        xx, _p, _layer, _s, None, self.mesh.model_group,
+                        use_pallas_tier=kernel in ("auto", "pallas"),
+                        force_pallas=kernel == "pallas")
+            else:
+                if mode == "fp32":
+                    args = (p["w"], p["b"])
+                elif mode == "w8":
+                    args = (p["wq"], p["s_w"], p["b"])
+                else:
+                    s_in = self.act_scales[li]
+                    xin = quantize_act(xin, s_in)
+                    args = (s_in, p["wq"], p["s_w"], p["b"])
+
+                def conv(xx, _args=args, _kw=kw):
+                    return conv_fn(xx, *_args, **_kw)
+            t = per_iter_time(torch.no_grad()(conv), (xin,),
+                              iters_hi=iters[0], iters_lo=iters[1],
+                              agree_ranks=on_mesh)
             report.append((f"layer{li} conv{layer.ksize}x{layer.ksize}"
                            f"->{layer.out_ch}", t))
         return report

@@ -128,6 +128,7 @@ def debug_checks(nans: bool = True, infs: bool = False):
 def kernel_counters() -> Dict[str, Callable]:
     """Each port kernel's name -> its wrapper, whose ``launches`` counts
     the kernel's launches."""
+    from dnn_inference_engine_tpu_torch import postprocess as post
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import fused_conv as fc
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
@@ -143,7 +144,7 @@ def kernel_counters() -> Dict[str, Callable]:
             "stage0_fused": stage0.stage0_fused,
             "conv3x3_bt": tail.conv3x3_bt,
             "conv_dma": pc.conv_dma, "tma_probe": pr.probe,
-            "conv_w8a8": cv.conv2d_w8a8}
+            "conv_w8a8": cv.conv2d_w8a8, "nms_fixpoint": post.nms_fixpoint}
 
 
 def reset_counts() -> None:
@@ -182,6 +183,7 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("conv_w8a8", "conv_window_kernel"),
                  ("conv_w8a8", "conv_tap_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
+                 ("nms_fixpoint", "nms_fixpoint_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),
                  ("host-to-device copies", "Memcpy HtoD"),
                  # PyTorch's strided copies: im2col is one, of a window view
@@ -209,18 +211,31 @@ def _lost_events(traced: Dict[str, int], launched: Dict[str, int]):
             if traced.get(k, 0) != n}
 
 
-def _retaking(take: Callable, what: str, tries: int = 3):
+def _retaking(take: Callable, what: str, tries: int = 3,
+              agree_ranks: bool = False):
     """``take()`` -> (result, traced counts by group, launched counts),
     taken again while the trace lost kernel events (C4 in ROADMAP.md),
-    at most ``tries`` times; then raises."""
+    at most ``tries`` times; then raises. With ``agree_ranks`` (every rank
+    of the default process group calls this, as on a mesh) a trace lost on
+    any rank is taken again on all of them (``parallel.mesh.any_rank``),
+    so that the collectives inside ``take`` run as often on every rank."""
     for attempt in range(1, tries + 1):
         result, traced, launched = take()
         lost = _lost_events(traced, launched)
-        if not lost:
+        retake = bool(lost)
+        if agree_ranks:
+            from dnn_inference_engine_tpu_torch.parallel.mesh import (
+                any_rank)
+            retake = any_rank(retake)
+        if not retake:
             return result
-        print(f"  trace {attempt} of {tries} lost kernel events over "
-              f"{what} (traced, launched): {lost}; all ops traced "
-              f"{sum(traced.values())}")
+        if lost:
+            print(f"  trace {attempt} of {tries} lost kernel events over "
+                  f"{what} (traced, launched): {lost}; all ops traced "
+                  f"{sum(traced.values())}")
+        else:
+            print(f"  trace {attempt} of {tries} over {what} taken again: "
+                  "another rank's trace lost kernel events")
     raise AssertionError(f"{tries} traces of {what} lost kernel events")
 
 
@@ -348,7 +363,8 @@ def _busy_us(spans: Iterable[Tuple[float, float]]) -> float:
     return busy
 
 
-def trace_attribution(fn: Callable, x: torch.Tensor, runs: int = 30) -> dict:
+def trace_attribution(fn: Callable, x: torch.Tensor, runs: int = 30,
+                      agree_ranks: bool = False) -> dict:
     """Device time of ``fn(x)`` per stage scope, from ``torch.profiler``
     over ``runs`` calls after a warm-up: the keys of the JAX package's
     ``trace_attribution``. ``module_device_us_per_run``: the device busy
@@ -356,8 +372,10 @@ def trace_attribution(fn: Callable, x: torch.Tensor, runs: int = 30) -> dict:
     ``by_scope_us`` (``attribute``) sums to it where no two device events
     overlap. Each traced kernel count is held to its launch counter: a
     trace that lost kernel events is reported and taken again, at most 3
-    times, then the function raises. Needs the card (the CPU has no
-    device timeline)."""
+    times, then the function raises; with ``agree_ranks`` (on a mesh,
+    where ``fn`` is this rank's shard and may hold collectives) every rank
+    traces the same ``runs`` and retakes when any rank lost events. Needs
+    the card (the CPU has no device timeline)."""
     if x.device.type != "cuda":
         raise RuntimeError(
             "trace_attribution needs the CUDA card: the profiler times "
@@ -381,4 +399,4 @@ def trace_attribution(fn: Callable, x: torch.Tensor, runs: int = 30) -> dict:
         art["runs_traced"] = runs
         art["module_device_us_per_run"] = round(_busy_us(spans) / runs, 2)
         return art, traced, launched
-    return _retaking(take, f"{runs} runs")
+    return _retaking(take, f"{runs} runs", agree_ranks=agree_ranks)

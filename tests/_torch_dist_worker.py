@@ -23,6 +23,15 @@ Modes:
   fdead   a follower times out (no keepalives) and marks itself dead;
           the leader's next submit must fail fast, and later submits
           raise
+  timing  profiling on ``mesh`` (ROADMAP A15): ``stage_times`` and
+          ``layer_times`` at fixed counts (4, 2) beside a single-device
+          engine's rows; on a mesh with MP > 1 also the auto-scaled
+          ``stage_times`` with rank 1's clock made slower, a trace lost on
+          rank 1 alone (``_retaking``), and ``cli layer-times --mesh``
+          last (the CLI takes the process group down); the rank's results
+          in ``{dir}/timing_{DP}x{MP}_r{rank}.json``
+  sweep   ``cli plan-sweep --mesh 1,2``, each rank with its own ``--out``
+          (``{dir}/sweep_r{rank}.json``): only rank 0 may write
 Prints ``RANK_OK <mode> <rank>`` on success.
 """
 
@@ -214,6 +223,86 @@ def run_serve(mode, rank, world, d):
     assert b.stats()["images"] == len(imgs) + (mode == "serve")
 
 
+def run_timing(rank, d, mesh):
+    """Returns True where the CLI took the process group down."""
+    import contextlib
+    import io
+    import json
+    from dnn_inference_engine_tpu_torch import cli
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.runtime import benchlib, profiling
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    calib = np.random.default_rng(11).uniform(
+        0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)
+    sharding = "channel" if mesh[1] > 1 else "replicated"
+    engines = {
+        tag: Engine(config("yolov2-tiny", "auto", **kw),
+                    device="cpu").load_weights(seed=0).prepare(calib)
+        for tag, kw in (("mesh", dict(mesh_shape=mesh, sharding=sharding)),
+                        ("single", {}))}
+    out = {}
+    for tag, eng in engines.items():
+        rows = eng.stage_times(iters=(4, 2))
+        out[tag] = {"stage_names": [r["name"] for r in rows],
+                    "stage_iters": [r["iters"] for r in rows],
+                    "gop": [r["gop"] for r in rows],
+                    "layer_names": [n for n, _ in
+                                    eng.layer_times(iters=(4, 2))]}
+    done = False
+    if mesh[1] > 1:
+        eng = engines["mesh"]
+        real_loop = benchlib._loop_s
+        if rank == 1:                 # a slower clock: its own counts differ
+            benchlib._loop_s = lambda *a: 1000.0 * real_loop(*a)
+        try:
+            out["auto_iters"] = [r["iters"] for r in eng.stage_times()]
+        finally:
+            benchlib._loop_s = real_loop
+        real_lost = profiling._lost_events
+        for agree in (True, False):
+            calls = []
+
+            def lost(traced, launched):
+                return ({"conv_w8a8": (0, 1)} if rank == 1 and len(calls) == 1
+                        else {})
+
+            def take():
+                calls.append(1)
+                return "art", {}, {}
+            profiling._lost_events = lost
+            try:
+                profiling._retaking(take, "one run", agree_ranks=agree)
+            finally:
+                profiling._lost_events = real_lost
+            out[f"takes_agree_{agree}"] = len(calls)
+        cfg = os.path.join(d, f"config_r{rank}.json")
+        EngineConfig(input_size=SIZE).to_json(cfg)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out["cli_rc"] = cli.main([
+                "layer-times", "--mesh", "1,2", "--sharding", "channel",
+                "--backend", "gloo", "--device", "cpu", "--mode", "w8a8",
+                "--batch", "2", "--iters", "4,2", "--config", cfg,
+                "--weights", os.path.join(d, "yolov2-tiny.npz")])
+        out["cli_stdout"] = buf.getvalue()
+        done = True
+    with open(os.path.join(d, f"timing_{mesh[0]}x{mesh[1]}_r{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+    return done
+
+
+def run_sweep(rank, d):
+    from dnn_inference_engine_tpu_torch import cli
+    rc = cli.main(["plan-sweep", "--mesh", "1,2", "--backend", "gloo",
+                   "--device", "cpu", "--mode", "w8a8", "--batch", "2",
+                   "--input-size", str(SIZE), "--quick", "--iters", "2,1",
+                   "--reps", "1", "--out",
+                   os.path.join(d, f"sweep_r{rank}.json")])
+    assert rc == 0, rc
+    return True                  # the CLI took the process group down
+
+
 def main():
     mode, rank, world, init, d = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -225,15 +314,21 @@ def main():
     from dnn_inference_engine_tpu_torch.parallel.mesh import (
         init_distributed)
     init_distributed(init, world, rank, backend="gloo", timeout_s=300)
+    group_down = False
     if mode == "engine":
         run_engine(rank, d, mesh)
     elif mode == "forward":
         run_forward(rank, d, mesh)
+    elif mode == "timing":
+        group_down = run_timing(rank, d, mesh)
+    elif mode == "sweep":
+        group_down = run_sweep(rank, d)
     else:
         run_serve(mode, rank, world, d)
     import torch.distributed as dist
-    dist.barrier()
-    dist.destroy_process_group()
+    if not group_down:
+        dist.barrier()
+        dist.destroy_process_group()
     print(f"RANK_OK {mode} {rank}", flush=True)
 
 

@@ -1516,3 +1516,64 @@ def test_stage_times_on_card_stay_under_the_roofline(cuda, deadline):
         assert r["trace_pct_of_binding"] is not None, r
         for k in ("pct_of_binding", "trace_pct_of_binding"):
             assert r[k] is None or r[k] <= 105.0, r
+
+
+# the NMS fixpoint: the CPU tests' seeded cases, and the card's main-path
+# sizes (b32 at the default topk 256, YOLOv3-tiny's uncapped 2535)
+NMS_CARD_CASES = ["k256", "k100", "k100_ties", "k256_ties", "k256_empty",
+                  "k100_chain", "k65_chain", "b32_k256", "b2_k2535",
+                  "k256_chain"]
+
+
+def _nms_card_case(name):
+    import _torch_nms_cases as nc
+    if name == "b32_k256":
+        return nc.random_case(32, 20, 256, seed=6)
+    if name == "b2_k2535":
+        return nc.random_case(2, 20, 2535, seed=7)
+    if name == "k256_chain":
+        return nc.chain_case(256)
+    return nc.CASES[name]()
+
+
+@pytest.mark.parametrize("name", NMS_CARD_CASES)
+def test_nms_fixpoint_kernel_matches_plain(cuda, deadline, name):
+    """One launch, masks and per-(image, class) sweeps equal to the plain
+    version's bit for bit."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    s, oidx, hit, valid = (torch.from_numpy(a).to(cuda)
+                           for a in _nms_card_case(name))
+    dom_p = pp._dominance(s, oidx, hit)
+    before = pp.nms_fixpoint.launches
+    keep, sweeps = pp.nms_fixpoint(dom_p, valid, return_sweeps=True)
+    assert pp.nms_fixpoint.launches == before + 1
+    ref, ref_sweeps = pp.nms_fixpoint_plain(dom_p, valid,
+                                            return_sweeps=True)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, ref)
+    assert torch.equal(sweeps, ref_sweeps)
+    assert torch.equal(pp.nms_fixpoint(dom_p, valid), ref)
+
+
+def test_nms_on_card_reads_no_host(cuda, deadline):
+    """device_nms_cols on the card: one nms_fixpoint launch, no host read
+    of the plain loop, and nothing that synchronizes the host (PyTorch's
+    sync debug mode raises on a synchronizing call)."""
+    from dnn_inference_engine_tpu_torch import postprocess as pp
+    g = torch.Generator(device=cuda).manual_seed(8)
+    head = torch.randn((32, 13, 13, 125), generator=g, device=cuda) * 2
+    boxes, scores = pp.decode_yolov2_cols(head)
+    pp.device_nms_cols(boxes, scores, score_thresh=0.05)     # build, warm
+    torch.cuda.synchronize()
+    pp._greedy_fixpoint.host_syncs = 0
+    before = pp.nms_fixpoint.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pp.device_nms_cols(boxes, scores, score_thresh=0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pp.nms_fixpoint.launches == before + 1
+    assert pp._greedy_fixpoint.host_syncs == 0
+    ref = pp.device_nms_cols(boxes.cpu(), scores.cpu(), score_thresh=0.05)
+    for a, b in zip(out, ref):
+        assert torch.equal(a.cpu(), b)
