@@ -115,7 +115,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    the card's detect on the batch shipped, the launch counters set to 0
    just before the served run and read just after (each batch: 7
    conv_w8a8, 1 gemm_fused, 1 k2 stem, at b32 1 shift_s2d2; no im2col, no
-   ragged GEMM, 1 nms_fixpoint and no host read in the NMS); then each
+   ragged GEMM, 1 nms_suppress and no host read in the NMS); then each
    pin's batcher timed with nothing of this script in its path (a warm-up
    batch, then 3 windows of 200 b32 or 400 b1 batches, 2 batches' worth
    of requests in flight: images/s, p50/p99 ms, batch fill per window);
@@ -123,11 +123,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    kernel (one detect's NMS under PyTorch's sync debug mode "error": no
    call may synchronize the host) and through the plain loop for groups
    of 1-16 sweeps a read, its sweeps to convergence, and one plain
-   sweep's device ms at serving and eval-grade K; nms_fixpoint against
-   its plain version (masks and sweeps bit for bit) on the dominance
-   words of real detects (the pins' b32 and b1 at K 256, the eval grade's
-   b2 at K 845, YOLOv3-tiny's eval grade b2 at K 2535), timed beside its
-   bound;
+   sweep's device ms at serving and eval-grade K; nms_suppress against
+   its plain version (keep masks bit for bit) on the candidates of real
+   detects (the pins' b32 and b1 at K 256, the eval grade's b2 at K 845,
+   YOLOv3-tiny's eval grade b2 at K 2535, and at 608 px K 5415), timed
+   beside its bound, with the plain loop's sweeps on the same candidates;
    ``serve_http`` on port 0 (4 ``.npy`` POSTs equal to the direct
    detect's boxes in image coordinates, 20 more timed one after another,
    /stats, /healthz, a bad body 400); the eval-grade detect (score
@@ -272,11 +272,12 @@ KERNELS = {
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8.cu",
         replaces="dnn_inference_engine_tpu/parallel/shard_map_forward.py:96"),
-    # the NMS fixpoint's lax.while_loop (not a Pallas kernel: XLA runs the
-    # loop on the device inside the jitted detect)
-    "nms_fixpoint": dict(
+    # the NMS's suppress stage: the IoU lines of device_nms_cols and
+    # _greedy_fixpoint's dominance build and lax.while_loop (not a Pallas
+    # kernel: XLA runs them on the device inside the jitted detect)
+    "nms_suppress": dict(
         route="cuda",
-        source="dnn_inference_engine_tpu_torch/csrc/nms_fixpoint.cu",
+        source="dnn_inference_engine_tpu_torch/csrc/nms_suppress.cu",
         replaces="dnn_inference_engine_tpu/postprocess.py:246"),
 }
 
@@ -1818,8 +1819,8 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
 
-    # every detect ends in one NMS fixpoint launch
-    want = {**dict.fromkeys(kernel_counters(), 0), "nms_fixpoint": 1, **want}
+    # every detect ends in one NMS suppress launch
+    want = {**dict.fromkeys(kernel_counters(), 0), "nms_suppress": 1, **want}
     cfg = EngineConfig(model=model, batch=batch,
                        strategy=strategy and strategy_file(strategy))
     if mode != cfg.mode:
@@ -2886,19 +2887,19 @@ def _host_ms(fn, dev, reps):
 
 def _nms_reads_no_host(tag, boxes, scores, kw):
     """One NMS on the card under PyTorch's sync debug mode "error" (a
-    call that synchronizes the host raises): one ``nms_fixpoint`` launch,
+    call that synchronizes the host raises): one ``nms_suppress`` launch,
     no host read of the plain loop."""
     from dnn_inference_engine_tpu_torch import postprocess as pp
     torch.cuda.synchronize()
-    before, pp._greedy_fixpoint.host_syncs = pp.nms_fixpoint.launches, 0
+    before, pp._greedy_fixpoint.host_syncs = pp.nms_suppress.launches, 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         pp.device_nms_cols(boxes, scores, **kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    if (pp.nms_fixpoint.launches != before + 1
+    if (pp.nms_suppress.launches != before + 1
             or pp._greedy_fixpoint.host_syncs):
-        raise AssertionError(f"NMS {tag}: {pp.nms_fixpoint.launches - before}"
+        raise AssertionError(f"NMS {tag}: {pp.nms_suppress.launches - before}"
                              f" launches, {pp._greedy_fixpoint.host_syncs} "
                              "host reads")
 
@@ -2907,11 +2908,12 @@ def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
     """The NMS's host ms per detect (each call synced, median of
     ``reps``) on the engine's ``device_nms_cols`` inputs of one detect of
     ``x``: through the kernel (on the card, where it must read no host:
-    ``_nms_reads_no_host``), then through the plain loop for each group
-    of sweeps between host reads (``SWEEPS_PER_SYNC``), every output
-    equal; through the kernel also its device span (``device_ms``: the
-    host's launch work hidden); the sweeps to the fixpoint (the plain loop
-    with group 1: one read a sweep)."""
+    ``_nms_reads_no_host``), then through the plain version (the IoU,
+    dominance and loop as PyTorch ops) for each group of sweeps between
+    host reads (``SWEEPS_PER_SYNC``), every output equal; through the
+    kernel also its device span (``device_ms``: the host's launch work
+    hidden); the sweeps to the fixpoint (the plain loop with group 1: one
+    read a sweep)."""
     from dnn_inference_engine_tpu_torch import postprocess as pp
     (boxes, scores), kw = _nms_args(eng, x)
     nms = pp.device_nms_cols
@@ -2921,8 +2923,8 @@ def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
         _nms_reads_no_host(tag, boxes, scores, kw)
         kernel_ms = _host_ms(lambda: nms(boxes, scores, **kw), dev, reps)
         device_span = device_ms(lambda: nms(boxes, scores, **kw), reps)
-    saved, ms = (pp.SWEEPS_PER_SYNC, pp.nms_fixpoint), {}
-    pp.nms_fixpoint = pp.nms_fixpoint_plain
+    saved, ms = (pp.SWEEPS_PER_SYNC, pp.nms_suppress), {}
+    pp.nms_suppress = pp.nms_suppress_plain
     try:
         for g in groups:
             pp.SWEEPS_PER_SYNC = g
@@ -2934,80 +2936,96 @@ def _nms_groups(tag, eng, x, dev, groups=(1, 2, 4, 8, 16), reps=20):
                 raise AssertionError(f"{tag}: group {g} changed the NMS")
             ms[g] = _host_ms(lambda: nms(boxes, scores, **kw), dev, reps)
     finally:
-        pp.SWEEPS_PER_SYNC, pp.nms_fixpoint = saved
+        pp.SWEEPS_PER_SYNC, pp.nms_suppress = saved
     k = min(kw["topk"], scores.shape[-1])
     print(f"NMS {tag}: (B, C, K) {(scores.shape[0], scores.shape[1], k)}, "
           f"{sweeps} sweeps to the fixpoint; host ms per NMS: the kernel "
-          f"{kernel_ms} (its device span {device_span}), the plain loop by "
-          f"sweeps a read {ms}")
+          f"{kernel_ms} (its device span {device_span}), the plain version "
+          f"by sweeps a read {ms}")
     return {"bck": [scores.shape[0], scores.shape[1], k], "sweeps": sweeps,
             "nms_ms_kernel": kernel_ms, "nms_device_ms_kernel": device_span,
             "nms_ms_by_group": ms}
 
 
-def _nms_needed_bytes(valid) -> int:
-    """The bytes the NMS fixpoint must move for this ``valid`` (B, C, K):
-    ``valid`` read and ``keep`` written once (a byte each), and of
-    ``dom_p`` only the words that can change a mask: the rows of valid
-    candidates (an invalid row's keep is false whatever it holds), and in
-    each the words that hold a valid candidate (the others meet zero keep
-    bits)."""
-    b, c, k = valid.shape
-    w = -(-k // 64)
-    padded = torch.zeros((b, c, 64 * w), dtype=torch.bool,
-                         device=valid.device)
-    padded[..., :k] = valid
-    words = padded.view(b, c, w, 64).any(-1).sum(-1)
-    rows = valid.sum(-1)
-    return 8 * int((rows * words).sum()) + 2 * valid.numel()
+# float32 operations of one IoU test in nms_suppress: 2 max, 2 min, 2
+# subtractions and 2 clamps for the overlap, its product, the union's
+# add, subtract and clamp, the division and the comparison
+NMS_IOU_OPS = 14
 
 
-def nms_kernel_rows(cases, bw) -> dict:
-    """``nms_fixpoint`` against its plain version at each of ``cases``
-    ((tag, engine, images): the dominance words and valid masks of the
-    engine's detect of the images, built from the fixpoint's arguments
-    as it builds them): keep masks and each (image, class)'s sweeps equal
-    bit for bit; the kernel's and the plain version's ms (``device_ms``;
-    the plain loop's span includes its host reads' gaps) beside the bound
-    (``_nms_needed_bytes`` at the card's bandwidth). The first case's
-    numbers, with every case under ``sizes``."""
+def _nms_bound(xyxy, sk, oidx, score_thresh, bw, f32_ops):
+    """(bound ms, by) of ``nms_suppress`` on these inputs: the bytes it
+    must move (xyxy, sk and oidx read once, keep written once) at the
+    card's bandwidth, against the IoU tests the valid candidates need at
+    the float32 peak outside the tensor cores: a pair's IoU does not
+    depend on the class, so each image tests once each pair of candidates
+    valid together in at least one class (at most K (K - 1) / 2),
+    ``NMS_IOU_OPS`` float32 operations each. The scan's n dependent steps
+    a block are the floor neither counts."""
+    b, c, k = sk.shape
+    nbytes = 4 * xyxy.numel() + 4 * sk.numel() + 8 * oidx.numel() + b * c * k
+    v = (sk > score_thresh).to(torch.float32)
+    # together[b, i, j]: the classes in which i and j are both valid
+    together = torch.bmm(v.transpose(1, 2), v) > 0
+    pairs = (int(together.sum()) - int(together.diagonal(0, 1, 2).sum())) // 2
+    ops = NMS_IOU_OPS * float(pairs)
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_ops * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def nms_kernel_rows(cases, bw, f32_ops) -> dict:
+    """``nms_suppress`` against its plain version at each of ``cases``
+    ((tag, engine, images): the suppress stage's arguments of the engine's
+    detect of the images, built as ``device_nms_cols`` builds them from
+    its arguments, ``_nms_args``): keep masks equal bit for bit; the
+    kernel's and the plain version's ms (``device_ms``; the plain loop's
+    span includes its host reads' gaps) beside the bound
+    (``_nms_bound``); the plain loop's sweeps to its fixpoint on the same
+    candidates. The first case's numbers, with every case under
+    ``sizes``."""
     from dnn_inference_engine_tpu_torch import postprocess as pp
     sizes = []
     for tag, eng, images in cases:
-        seen = []
-        real = pp._greedy_fixpoint
-
-        def spy(s, oidx, iou_hit, valid):
-            seen.append((pp._dominance(s, oidx, iou_hit), valid))
-            return real(s, oidx, iou_hit, valid)
-        spy.host_syncs = 0          # the plain loop's reads (the CPU's)
-        pp._greedy_fixpoint = spy
-        try:
-            eng.detect(images)
-        finally:
-            pp._greedy_fixpoint = real
-        dom_p, valid = seen[0]
-        keep, sweeps = pp.nms_fixpoint(dom_p, valid, return_sweeps=True)
-        ref, ref_sweeps = pp.nms_fixpoint_plain(dom_p, valid,
-                                                return_sweeps=True)
-        err = max(max_abs_err(keep, ref), max_abs_err(sweeps, ref_sweeps))
-        if err:
-            raise AssertionError(f"nms_fixpoint {tag}: kernel != plain")
-        ms = device_ms(lambda: pp.nms_fixpoint(dom_p, valid), 20)
-        plain_ms = device_ms(lambda: pp.nms_fixpoint_plain(dom_p, valid), 5)
-        bound, by = _nms_needed_bytes(valid) / bw * 1e3, "bytes"
-        b, c, k = valid.shape
+        (boxes, scores), kw = _nms_args(eng, images)
+        oidx, bk, sk = pp._nms_candidates(
+            boxes, scores, min(kw["topk"], scores.shape[-1]))
+        xyxy = pp._xyxy_cols(bk)
+        iou_thresh, score_thresh = kw["iou_thresh"], kw["score_thresh"]
+        args = (xyxy, sk, oidx, iou_thresh, score_thresh)
+        keep = pp.nms_suppress(*args)
+        ref, sweeps = pp.nms_fixpoint_plain(
+            pp._dominance(sk, oidx, pp._iou_hit(xyxy, iou_thresh)),
+            sk > score_thresh, return_sweeps=True)
+        err = max_abs_err(keep, ref)
+        if err or not torch.equal(ref, pp.nms_suppress_plain(*args)):
+            raise AssertionError(f"nms_suppress {tag}: kernel != plain")
+        ms = device_ms(lambda: pp.nms_suppress(*args), 20)
+        plain_ms = device_ms(lambda: pp.nms_suppress_plain(*args), 5)
+        bound, by = _nms_bound(xyxy, sk, oidx, score_thresh, bw, f32_ops)
+        b, c, k = sk.shape
+        valid = sk > score_thresh
+        form = pp.nms_suppress_form(b, c, k, torch.cuda.get_device_properties(
+            0).multi_processor_count)
         row = dict(tag=tag, bck=[b, c, k], max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   library_ms=None, sweeps_max=int(sweeps.max()),
-                   sweeps_mean=float(sweeps.float().mean()),
-                   valid=int(valid.sum()), kept=int(keep.sum()))
+                   library_ms=None, cluster=form["cluster"],
+                   rows_in_smem=form["rows_in_smem"],
+                   lists_in_smem=form["lists_in_smem"],
+                   valid=int(valid.sum()),
+                   valid_max=int(valid.sum(-1).max()), kept=int(keep.sum()),
+                   sweeps_max=int(sweeps.max()),
+                   sweeps_mean=float(sweeps.float().mean()))
         sizes.append(row)
-        print(f"  nms_fixpoint {tag} (B, C, K) {(b, c, k)}: masks and sweeps "
-              f"equal to the plain version; ms={ms:.4f} plain_ms="
-              f"{plain_ms:.3f} bound_ms={bound:.3g} ({by}); sweeps max "
-              f"{row['sweeps_max']} mean {row['sweeps_mean']:.2f}; valid "
-              f"{row['valid']}, kept {row['kept']}")
+        where = ("shared memory" if form["rows_in_smem"] else
+                 "global" if form["lists_in_smem"] else
+                 "global, the lists too")
+        print(f"  nms_suppress {tag} (B, C, K) {(b, c, k)}, cluster "
+              f"{form['cluster']}, rows in {where}: "
+              f"masks equal to the plain version; ms={ms:.4f} plain_ms="
+              f"{plain_ms:.3f} bound_ms={bound:.3g} ({by}); valid "
+              f"{row['valid']} (at most {row['valid_max']} a class), kept "
+              f"{row['kept']}; the plain loop's sweeps max "
+              f"{row['sweeps_max']} mean {row['sweeps_mean']:.2f}")
     out = {k: sizes[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
     out["max_abs_err"] = max(r["max_abs_err"] for r in sizes)
@@ -3238,8 +3256,8 @@ def phase_front_door(card: str, dev=None, size: int = 416):
     through the plain loop for each group size on the pins' and the eval
     grade's inputs, its sweeps to the fixpoint, one plain sweep's device
     time at serving and eval-grade K, and the kernel against its plain
-    version at K 256, 845 and 2535 (``nms_kernel_rows``); ``serve_http``;
-    the eval-grade detect card against CPU; the goldens (device dump against a CPU dump,
+    version at K 256, 845, 2535 and 5415 (``nms_kernel_rows``);
+    ``serve_http``; the eval-grade detect card against CPU; the goldens (device dump against a CPU dump,
     ``check-goldens`` in w8a8 at its own limit and against a wrong
     forward); with PIL, evaluate_voc and ``cli detect``; the native host
     library. Prints the phase's numbers as one JSON line."""
@@ -3309,7 +3327,7 @@ def phase_front_door(card: str, dev=None, size: int = 416):
           f"{surv} {at()}")
     # 4-5. served on the b32 and the b1 pins: correct rows and launches,
     # then timed windows; the NMS's sweeps and group size on their inputs
-    v2 = dict(conv_w8a8=7, gemm_fused=1, stem_fused_k2=1, nms_fixpoint=1)
+    v2 = dict(conv_w8a8=7, gemm_fused=1, stem_fused_k2=1, nms_suppress=1)
     n32, n1 = (200, 400) if dev.type == "cuda" else (3, 6)
     rng = np.random.default_rng(10)
     reqs = rng.integers(0, 256, (96, size, size, 3)).astype(np.uint8)
@@ -3372,20 +3390,25 @@ def phase_front_door(card: str, dev=None, size: int = 416):
         nms["sweep_device_ms"] = _sweep_device_ms(
             [(32, 20, 256), (1, 20, 256), (2, 20, 845), (32, 20, 845),
              (2, 20, 2535), (16, 20, 2535)])
-        # the kernel at the four sizes: the pins' K 256, the eval grade's
-        # uncapped K 845 and YOLOv3-tiny's 2535
-        v3_ev = Engine(EngineConfig(
-            model="yolov3-tiny", mode="w8a8", batch=2, input_size=size,
+        # the kernel at five sizes: the pins' K 256, the eval grade's
+        # uncapped K 845, YOLOv3-tiny's 2535 and, at 608 px, its 5415 (the
+        # candidates' lists in global memory too)
+        v3_ev, v3_608 = (Engine(EngineConfig(
+            model="yolov3-tiny", mode="w8a8", batch=2, input_size=px,
             score_thresh=SCORE_THRESH_EVAL),
-            device=dev).load_weights(seed=0).prepare()
+            device=dev).load_weights(seed=0).prepare() for px in (size, 608))
         if v3_ev.config.resolved_nms_topk() < 2535:
             raise AssertionError("the YOLOv3 eval-grade pool is capped")
-        numbers["nms_fixpoint"] = nms_kernel_rows(
+        imgs608 = np.random.default_rng(19).integers(
+            0, 256, (2, 608, 608, 3)).astype(np.uint8)
+        numbers["nms_suppress"] = nms_kernel_rows(
             [("b32 K 256", eng, reqs[:32]), ("b1 K 256", b1, reqs[:1]),
              ("eval b2 K 845", gpu_ev, imgs2),
-             ("v3 eval b2 K 2535", v3_ev, imgs2)],
-            peaks(torch.cuda.get_device_name(0))[1])
-        del v3_ev
+             ("v3 eval b2 K 2535", v3_ev, imgs2),
+             ("v3 eval 608 px b2 K 5415", v3_608, imgs608)],
+            peaks(torch.cuda.get_device_name(0))[1],
+            f32_peak(torch.cuda.get_device_name(0)))
+        del v3_ev, v3_608
     numbers["nms"] = nms
     cfg = d / "config.json"
     EngineConfig(input_size=size).to_json(str(cfg))
@@ -3561,10 +3584,10 @@ def _md_spawn(groups) -> dict:
 def _md_counts(counts: dict, acc: int, want_acc: int, tag: str) -> None:
     """One rank's launch counts of a b32 detect on the pin: 7 conv_w8a8
     (the row-parallel conv's raw form among them, ``want_acc``), 1
-    gemm_fused, 1 k2 stem, 1 shift_s2d2, 1 nms_fixpoint, no other
+    gemm_fused, 1 k2 stem, 1 shift_s2d2, 1 nms_suppress, no other
     kernel."""
     want = {**{k: 0 for k in counts}, "conv_w8a8": 7, "gemm_fused": 1,
-            "stem_fused_k2": 1, "shift_s2d2": 1, "nms_fixpoint": 1}
+            "stem_fused_k2": 1, "shift_s2d2": 1, "nms_suppress": 1}
     if counts != want or acc != want_acc:
         raise AssertionError(f"multi-device {tag}: launches {counts} acc "
                              f"{acc}, want {want} acc {want_acc}")
@@ -3764,7 +3787,8 @@ def _md_profile(spec: dict, d: Path, mesh, rank: int) -> dict:
     rank) and ``layer_times`` on its shard, their row names held to the
     single-device engine's; then ``cli trace --detect --mesh`` in this
     process (rank 0's output kept), which takes the group down. On the
-    CPU rehearsal ``stage_times`` at fixed counts and no trace."""
+    CPU rehearsal ``stage_times`` at fixed counts and no trace. A line a
+    step, flushed, so that a rank killed at MD_TIMEOUT shows its step."""
     import contextlib
     import io
     from dnn_inference_engine_tpu_torch import cli
@@ -3779,10 +3803,17 @@ def _md_profile(spec: dict, d: Path, mesh, rank: int) -> dict:
         device=spec.get("device")).load_weights(seed=0).prepare(calib)
     on_card = eng.device.type == "cuda"
     t0 = time.perf_counter()
+
+    def step(what):
+        print(f"md profile rank {rank}: {what} at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    step("prepared")
     traced = eng.stage_times_traced(runs=5) if on_card else None
     rows = ([r for r in traced["stages"] if r["stage"] is not None]
             if on_card else eng.stage_times(iters=(4, 2)))
+    step("stage times")
     layers = eng.layer_times(iters=(20, 5))
+    step("layer times")
     secs = time.perf_counter() - t0
     names = json.loads((d / "names.json").read_text())
     same = ([r["name"] for r in rows] == names["stages"]
@@ -3803,6 +3834,7 @@ def _md_profile(spec: dict, d: Path, mesh, rank: int) -> dict:
                 "--score-thresh", str(MD_SCORE),
                 "--weights", str(d / "v2.npz")])
         text = buf.getvalue()
+        step("trace")
         out["trace"] = text
         out["ok"] = same and rc == 0 and (rank != 0 or all(
             sc in text for sc in POST_SCOPES))
@@ -3962,8 +3994,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("profiling", phase_profiling, card)
     torch.cuda.empty_cache()
-    rows["nms_fixpoint"] = timed("front door", phase_front_door,
-                                 card)["nms_fixpoint"]
+    rows["nms_suppress"] = timed("front door", phase_front_door,
+                                 card)["nms_suppress"]
     torch.cuda.empty_cache()
     rows["conv_w8a8_acc"], counts["multi-device"] = timed(
         "multi-device", phase_multi_device, card, ops_peak, bw)

@@ -4,10 +4,13 @@
 // Replaces: dnn_inference_engine_tpu/ops/pallas_conv.py,
 // quant_space_to_depth4 (kernel body _qs2d_kernel). Same contract:
 //   out[n, i, j, 12p + 3q + c] = clip(rint(v / s), +-127),
-//   v = xpad[n, 4i+p, 4j+q, c]  (uint8: v = u / 255 first)
-// lanes 48 .. c_out-1 zero, c_out = max(pad_to, 48), any width. Both
-// divisions are correctly rounded (__fdiv_rn), never a multiply by a
-// reciprocal, as the JAX kernel and quantize_act divide. xpad is x seen
+//   v = xpad[n, 4i+p, 4j+q, c]  (uint8: v = u * f32(1/255) first)
+// lanes 48 .. c_out-1 zero, c_out = max(pad_to, 48), any width. The
+// division by s is correctly rounded (__fdiv_rn), never a multiply by a
+// reciprocal, as the JAX kernel and quantize_act divide. The uint8
+// normalise is one correctly rounded multiply by f32(1/255), as the JAX
+// kernel computes its u / 255.0 (XLA rewrites that division into the
+// product, jitted or not). xpad is x seen
 // through a zero border (top, left, and whatever reaches past H, W up to
 // the padded Hp, Wp): the border is read as zero from the bounds, so the
 // padded copy the JAX path makes before its kernel is never written. Zero
@@ -32,8 +35,9 @@
 //   run by 3 bytes a pixel). Elements in the border are never copied.
 // - uint8: the code of a byte depends on the byte alone, so the block
 //   builds a 256-entry table of codes while its copies are in flight,
-//   with exactly the instructions of the plain version (two __fdiv_rn,
-//   rintf, the clip): bit for bit by construction, ties to even included.
+//   with exactly the instructions of the plain version (__fmul_rn by
+//   f32(1/255), __fdiv_rn by s, rintf, the clip): bit for bit by
+//   construction, ties to even included.
 //   Each byte then costs one shared load. The table is one 256-byte copy:
 //   its 64 words lie two to a bank, so a warp's lookups conflict at most
 //   two ways. A copy a lane, each in a bank of its own, never conflicts
@@ -58,6 +62,9 @@
 #include <cuda_runtime.h>
 
 #include "tma.cuh"
+
+// f32(1/255), the constant XLA multiplies by for the JAX kernel's u / 255.0
+constexpr float INV255 = 0x1.010102p-8f;
 
 namespace {
 
@@ -189,7 +196,7 @@ qs2d4_kernel(const void* __restrict__ xin, float s, int8_t* __restrict__ out,
   if (U8) {
     for (int v = t; v < 256; v += THREADS)
       tbl[v] = static_cast<uint8_t>(
-          quant(__fdiv_rn(__uint2float_rn(v), 255.f), s));
+          quant(__fmul_rn(__uint2float_rn(v), INV255), s));
   }
   __syncthreads();
 

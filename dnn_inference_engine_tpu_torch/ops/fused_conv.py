@@ -542,13 +542,18 @@ shift_s2d2.launches = 0
 # Fused quantize + space-to-depth(4) (kernel 5)
 # ---------------------------------------------------------------------------
 
+# f32(1/255): the JAX kernel's uint8 normalise u / 255.0 is compiled by XLA
+# into a multiply by this constant, jitted or not
+INV255 = 1 / 255.0
+
 def quant_space_to_depth4_plain(x, s_in, pad_to=0, pad_hw=(0, 0, 0, 0)):
     """Plain PyTorch version of ``quant_space_to_depth4`` (same
-    arguments): pad, normalize uint8 by /255, quantize, fold, lane-pad."""
+    arguments): pad, normalize uint8 by x f32(1/255), quantize, fold,
+    lane-pad."""
     if any(pad_hw):
         x = _pad_hw(x, *pad_hw)
     if x.dtype == torch.uint8:
-        x = x.to(torch.float32) / f32_scalar(255.0, x.device)
+        x = x.to(torch.float32) * f32_scalar(INV255, x.device)
     s = f32_scalar(s_in, x.device)
     xq = torch.clamp(torch.round(x / s), -QMAX, QMAX).to(torch.int8)
     return _pad_channels(space_to_depth(xq, 4), max(pad_to, 48))
@@ -589,9 +594,9 @@ def qs2d4_code_bytes(run: int) -> int:
 
 def qs2d4_code_table(s_in) -> np.ndarray:
     """The uint8 codes the kernel's table holds, built as the kernel builds
-    it: code[u] = clip(rint((u / 255) / s), +-127), both divisions
-    correctly rounded in float32, ties to even."""
-    v = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    it: code[u] = clip(rint((u * f32(1/255)) / s), +-127), the product and
+    the division each correctly rounded in float32, ties to even."""
+    v = np.arange(256, dtype=np.float32) * np.float32(INV255)
     q = np.rint(v / np.float32(s_in))
     return np.clip(q, -QMAX, QMAX).astype(np.int8)
 
@@ -601,9 +606,10 @@ def quant_space_to_depth4(x: torch.Tensor, s_in, pad_to: int = 0,
     """Fused quantize + space_to_depth(4): (N,H,W,3) uint8 or f32 ->
     (N,H/4,W/4,max(48,pad_to)) int8, lanes 48.. zero.
 
-    uint8 input is the serving wire format: v = u / 255 first, then the
-    division by ``s_in`` (two correctly rounded divisions, as the JAX
-    kernel and ``quantize_act``). ``pad_hw`` = (top, bottom, left, right):
+    uint8 input is the serving wire format: v = u * f32(1/255) first,
+    then the division by ``s_in``, each correctly rounded, as the JAX
+    kernel computes them (XLA turns its u / 255.0 into that product) and
+    ``quantize_act`` divides. ``pad_hw`` = (top, bottom, left, right):
     the result equals ``quant_space_to_depth4(_pad_hw(x, *pad_hw), ...)``,
     but the card kernel reads zeros outside ``x`` instead of making the
     padded copy. The padded H and W must be multiples of 8."""

@@ -6,15 +6,17 @@ Counterpart of ``dnn_inference_engine_tpu/postprocess.py``:
   and ``decode_yolov3_cols`` (boxes (N,4,M) cxcywh and scores (N,C,M),
   anchor-major order m = anchor*S*S + cell) and ``device_nms_cols`` (one
   class-agnostic candidate top-K, one shared IoU matrix, per-class greedy
-  suppression as a Jacobi fixpoint);
+  suppression: greedy NMS, on the card one ``nms_suppress`` launch, on
+  the CPU a Jacobi fixpoint);
 - the row-major public API on the tensors' device: ``decode_yolov2``,
   ``decode_yolov3`` (boxes (N,M,4), scores (N,M,C), m = cell*A +
   anchor), ``cxcywh_to_xyxy``, ``device_nms`` (the same fixpoint) and
   ``device_nms_seq`` (per-class top-K and a K-step greedy loop, a second
   oracle);
-- ``nms_fixpoint`` (``csrc/nms_fixpoint.cu``), the fixpoint's loop as one
-  kernel on the card, for JAX's on-device ``lax.while_loop``, and its
-  plain version ``nms_fixpoint_plain``;
+- ``nms_suppress`` (``csrc/nms_suppress.cu``), the suppress stage (IoU,
+  dominance and JAX's on-device ``lax.while_loop``) as one kernel on the
+  card, and its plain version ``nms_suppress_plain``: the IoU in PyTorch,
+  ``_dominance``'s words and the fixpoint's loop ``nms_fixpoint_plain``;
 - ``host_nms``: per-class greedy NMS of one image in numpy, through the
   native library's ``nms_greedy`` where it builds.
 
@@ -23,9 +25,8 @@ The profiler scopes of the JAX package (``post_decode``,
 profiler runs) let ``runtime/profiling.trace_attribution`` split a
 detect's device time.
 
-Plain PyTorch but for the fixpoint's loop: no Pallas kernel computes
-these, and the dominance words and the IoU stay PyTorch ops, as they are
-XLA ops in the JAX package. Tie-breaks follow the
+Plain PyTorch but for the suppress stage on the card: no Pallas kernel
+computes these. Tie-breaks follow the
 JAX package: ``jax.lax.top_k`` puts the lower index first among equal
 values, so every top-K here is a stable descending sort, and candidates
 keep the input's M order.
@@ -44,11 +45,12 @@ from dnn_inference_engine_tpu_torch.config import (
     INPUT_SIZE, MAX_DETECTIONS, NMS_IOU_THRESH, NUM_CLASSES,
     SCORE_THRESH_VIS, YOLOV2_TINY_ANCHORS,
 )
+from dnn_inference_engine_tpu_torch.ops.gemm import H100_SMS
 from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
 # Jacobi sweeps of the NMS fixpoint's plain version (``nms_fixpoint_plain``,
 # the CPU's path) between two host reads of its convergence test; the
-# kernel (``nms_fixpoint``) runs the whole loop on the card and reads
+# kernel (``nms_suppress``) runs the whole stage on the card and reads
 # nothing. Measured on an H100 (700 W) by chip_smoke.py phase 10 when the
 # plain loop ran on the card: seeded weights need 12 sweeps at b32, 7 at
 # b1 (K = 256) and 20 at the eval grade's b2 (K = 845); the NMS then took
@@ -185,30 +187,21 @@ def _sweep(dom_p: torch.Tensor, valid: torch.Tensor,
     return valid & ~(hits != 0).any(dim=-1)
 
 
-def _check_fixpoint_args(dom_p: torch.Tensor, valid: torch.Tensor) -> None:
-    k = valid.shape[-1] if valid.ndim else 0
-    if (valid.ndim != 3 or valid.dtype != torch.bool
-            or dom_p.dtype != torch.int64
-            or tuple(dom_p.shape) != (*valid.shape, -(-k // 64))
-            or dom_p.device != valid.device):
-        raise ValueError(
-            "nms_fixpoint: need dom_p (B,C,K,ceil(K/64)) int64 and valid "
-            f"(B,C,K) bool on one device, got {dom_p.dtype} "
-            f"{tuple(dom_p.shape)} on {dom_p.device} and {valid.dtype} "
-            f"{tuple(valid.shape)} on {valid.device}")
-
-
 def nms_fixpoint_plain(dom_p: torch.Tensor, valid: torch.Tensor,
                        group: Optional[int] = None,
                        return_sweeps: bool = False):
-    """Plain PyTorch version of ``nms_fixpoint``: the Jacobi loop, batched
-    over (image, class), in groups of ``group`` sweeps (default
-    ``SWEEPS_PER_SYNC``) between host reads of its convergence test
-    (``_greedy_fixpoint.host_syncs`` counts the reads). A sweep after the
-    fixpoint changes nothing, so the masks equal those of a read after
-    every sweep, and the K bound holds. With ``return_sweeps``, also the
-    sweeps each (image, class) takes when JAX's loop runs it alone, as
-    the kernel does: (B, C) int32."""
+    """Greedy NMS keep masks (B,C,K) bool as the Jacobi fixpoint of
+    ``keep[i] = valid[i] and not any_j(dom[i,j] and keep[j])`` from
+    ``keep = valid``, stopping where a sweep changes nothing or after K
+    sweeps, as JAX's ``lax.while_loop`` does. ``dom_p`` (B,C,K,W) int64:
+    bit j of word w is candidate 64w + j (``_dominance``); ``valid``
+    (B,C,K) bool. The loop is batched over (image, class), in groups of
+    ``group`` sweeps (default ``SWEEPS_PER_SYNC``) between host reads of
+    its convergence test (``_greedy_fixpoint.host_syncs`` counts the
+    reads). A sweep after the fixpoint changes nothing, so the masks equal
+    those of a read after every sweep, and the K bound holds. With
+    ``return_sweeps``, also the sweeps each (image, class) takes when
+    JAX's loop runs it alone: (B, C) int32."""
     group = group or SWEEPS_PER_SYNC
     k = valid.shape[-1]
     keep = _sweep(dom_p, valid, valid)
@@ -231,48 +224,6 @@ def nms_fixpoint_plain(dom_p: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-def nms_fixpoint(dom_p: torch.Tensor, valid: torch.Tensor,
-                 return_sweeps: bool = False):
-    """Greedy NMS keep masks (B,C,K) bool as the Jacobi fixpoint of
-    ``keep[i] = valid[i] and not any_j(dom[i,j] and keep[j])`` from
-    ``keep = valid``, stopping where a sweep changes nothing or after K
-    sweeps, as JAX's ``lax.while_loop`` does. ``dom_p`` (B,C,K,W) int64:
-    bit j of word w is candidate 64w + j (``_dominance``); ``valid``
-    (B,C,K) bool. With ``return_sweeps``, also each (image, class)'s
-    sweeps, (B, C) int32.
-
-    On a CUDA tensor one launch of ``csrc/nms_fixpoint.cu`` runs the whole
-    loop, a block each (image, class), and the host reads nothing; on a
-    CPU tensor the plain version runs."""
-    _check_fixpoint_args(dom_p, valid)
-    if valid.device.type == "cpu":
-        return nms_fixpoint_plain(dom_p, valid, return_sweeps=return_sweeps)
-    if valid.device.type != "cuda":
-        raise ValueError(f"nms_fixpoint: unsupported device {valid.device}")
-    from dnn_inference_engine_tpu_torch.ops import _build
-    b, c, k = valid.shape
-    w = dom_p.shape[-1]
-    if 3 * w * 8 > 48 * 1024:
-        raise ValueError(f"nms_fixpoint: K = {k} needs {3 * w * 8} bytes "
-                         "of shared memory a block, over 48 KB")
-    dom_p, valid = dom_p.contiguous(), valid.contiguous()
-    keep = torch.empty_like(valid)
-    sweeps = (torch.empty((b, c), dtype=torch.int32, device=valid.device)
-              if return_sweeps else None)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("nms_fixpoint", "nms_fixpoint",
-                         [p, p, p, p, i, i, i, p])
-    err = fn(dom_p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-             sweeps.data_ptr() if return_sweeps else None, b * c, k, w,
-             _build.stream_ptr(valid.device))
-    nms_fixpoint.launches += 1
-    _build.check(err, "nms_fixpoint")
-    return (keep, sweeps) if return_sweeps else keep
-
-
-nms_fixpoint.launches = 0
-
-
 def _greedy_fixpoint(s: torch.Tensor, oidx: torch.Tensor,
                      iou_hit: torch.Tensor, valid: torch.Tensor,
                      group: Optional[int] = None) -> torch.Tensor:
@@ -284,16 +235,164 @@ def _greedy_fixpoint(s: torch.Tensor, oidx: torch.Tensor,
     keep is the unique solution of keep[i] = valid[i] and not
     any_j(dom[i,j] and keep[j]); Jacobi iteration from keep = valid
     reaches it in (longest suppression chain + 2) sweeps, at most K
-    (``nms_fixpoint``). ``group``: run the plain version with that many
-    sweeps between host reads instead.
+    (``nms_fixpoint_plain``, ``group`` sweeps between host reads).
     """
-    dom_p = _dominance(s, oidx, iou_hit)
-    if group is not None:
-        return nms_fixpoint_plain(dom_p, valid, group)
-    return nms_fixpoint(dom_p, valid)
+    return nms_fixpoint_plain(_dominance(s, oidx, iou_hit), valid, group)
 
 
 _greedy_fixpoint.host_syncs = 0
+
+
+def _iou_hit(xyxy: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """(B,K,K) bool: the pairwise IoU of xyxy (B,4,K) over ``iou_thresh``."""
+    x1, y1, x2, y2 = xyxy.unbind(1)                        # (B,K)
+    area = torch.clamp_min(x2 - x1, 0) * torch.clamp_min(y2 - y1, 0)
+    ix1 = torch.maximum(x1[:, :, None], x1[:, None, :])
+    iy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
+    ix2 = torch.minimum(x2[:, :, None], x2[:, None, :])
+    iy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
+    inter = (torch.clamp_min(ix2 - ix1, 0)
+             * torch.clamp_min(iy2 - iy1, 0))
+    union = area[:, :, None] + area[:, None, :] - inter
+    iou = inter / torch.clamp_min(union, 1e-9)
+    return iou > iou_thresh
+
+
+def nms_suppress_plain(xyxy: torch.Tensor, sk: torch.Tensor,
+                       oidx: torch.Tensor, iou_thresh: float,
+                       score_thresh: float) -> torch.Tensor:
+    """Plain PyTorch version of ``nms_suppress`` (same arguments): the
+    pairwise IoU (B,K,K) of the candidates' boxes (``_iou_hit``), ``valid
+    = sk > score_thresh``, and ``_greedy_fixpoint`` over them (the
+    dominance words, then the Jacobi loop with its host reads)."""
+    return _greedy_fixpoint(sk, oidx, _iou_hit(xyxy, iou_thresh),
+                            sk > score_thresh)
+
+
+# the largest K the kernel takes: its count of word tasks, 32 W (W + 1)
+# with W = ceil(K/64), stays an int
+NMS_MAX_K = 1 << 18
+# the dynamic shared memory a block may take: the 227 KB of an H100 SM,
+# less the kernel's static words and a margin
+NMS_SMEM_MAX = 226 * 1024
+# the K up to which a class takes one block (its IoUs are few)
+NMS_CLUSTER_MIN_K = 513
+
+
+def nms_suppress_lists(k: int, rows_in_smem: bool = False) -> int:
+    """Bytes of one ``nms_suppress`` block's candidate lists at K (the
+    layout ``csrc/nms_suppress.cu`` states): boxes 16 K, the bitmatrix
+    rows 8 K ceil(K/64) when they stay in shared memory, oidx 8 K, scores,
+    areas, positions and rank positions 16 K, the sort's indices 4 P (P
+    the power of two >= K), the equal-key flags K."""
+    w = -(-k // 64)
+    p = 1 << max(k - 1, 0).bit_length()
+    return (16 * k + (8 * k * w if rows_in_smem else 0) + 8 * k + 16 * k
+            + 4 * p + k)
+
+
+def nms_suppress_smem(k: int, rows_in_smem: bool,
+                      lists_in_smem: bool = True) -> int:
+    """Dynamic shared memory of one ``nms_suppress`` block at K: the
+    removed and kept words, 16 ceil(K/64), then the lists
+    (``nms_suppress_lists``) when they stay in shared memory."""
+    return 16 * -(-k // 64) + (nms_suppress_lists(k, rows_in_smem)
+                               if lists_in_smem else 0)
+
+
+def nms_suppress_form(b: int, c: int, k: int, sms: int = H100_SMS) -> dict:
+    """How ``nms_suppress`` launches at (B, C, K) on ``sms`` SMs:
+    ``threads`` a block (256 up to K 512, so the b32 pin's 640 blocks run
+    in one wave; else 1024), ``cluster`` G blocks
+    an (image, class) (1 up to K 512; above, the largest of 8, 4, 2 with
+    B C G blocks on at most ``sms`` SMs, so the grid runs in one wave: a
+    block of K > 512 holds an SM), ``rows_in_smem`` (the bitmatrix
+    in shared memory where it fits, else a global scratch of
+    ``scratch_words``), ``lists_in_smem`` (the candidates' lists in
+    shared memory where they fit, up to K ~4800, else a global region of
+    ``list_bytes`` a block), ``smem`` bytes a block."""
+    if not 0 < k <= NMS_MAX_K:
+        raise ValueError(f"nms_suppress: K = {k}, need 1 <= K <= "
+                         f"{NMS_MAX_K}")
+    lists_in_smem = nms_suppress_smem(k, False) <= NMS_SMEM_MAX
+    rows_in_smem = (lists_in_smem
+                    and nms_suppress_smem(k, True) <= NMS_SMEM_MAX)
+    cluster = 1
+    if k >= NMS_CLUSTER_MIN_K:
+        cluster = next((g for g in (8, 4, 2) if b * c * g <= sms), 1)
+    return dict(threads=256 if k < NMS_CLUSTER_MIN_K else 1024,
+                cluster=cluster, rows_in_smem=rows_in_smem,
+                lists_in_smem=lists_in_smem,
+                smem=nms_suppress_smem(k, rows_in_smem, lists_in_smem),
+                scratch_words=0 if rows_in_smem
+                else b * c * k * -(-k // 64),
+                list_bytes=0 if lists_in_smem
+                else -(-nms_suppress_lists(k) // 16) * 16)
+
+
+def _check_suppress_args(xyxy, sk, oidx) -> None:
+    ok = (xyxy.ndim == 3 and sk.ndim == 3 and oidx.ndim == 2
+          and xyxy.dtype == torch.float32 and sk.dtype == torch.float32
+          and oidx.dtype == torch.int64 and xyxy.shape[1] == 4
+          and xyxy.shape[0] == sk.shape[0] == oidx.shape[0]
+          and xyxy.shape[2] == sk.shape[2] == oidx.shape[1]
+          and xyxy.device == sk.device == oidx.device)
+    if not ok:
+        raise ValueError(
+            "nms_suppress: need xyxy (B,4,K) float32, sk (B,C,K) float32 "
+            "and oidx (B,K) int64 on one device, got "
+            f"{xyxy.dtype} {tuple(xyxy.shape)} on {xyxy.device}, "
+            f"{sk.dtype} {tuple(sk.shape)} on {sk.device}, "
+            f"{oidx.dtype} {tuple(oidx.shape)} on {oidx.device}")
+
+
+def nms_suppress(xyxy: torch.Tensor, sk: torch.Tensor, oidx: torch.Tensor,
+                 iou_thresh: float = NMS_IOU_THRESH,
+                 score_thresh: float = SCORE_THRESH_VIS) -> torch.Tensor:
+    """Greedy NMS keep masks (B,C,K) bool of ``device_nms_cols``'s
+    candidates: xyxy (B,4,K) float32 (x1, y1, x2, y2), sk (B,C,K) float32,
+    oidx (B,K) int64 (the tie-break among equal scores); a candidate is
+    kept when its score is over ``score_thresh`` and no kept candidate
+    that precedes it (higher score, or equal score and lower oidx)
+    overlaps it with an IoU over ``iou_thresh`` (both thresholds compared
+    in float32).
+
+    On a CUDA tensor one launch of ``csrc/nms_suppress.cu`` (the IoU, the
+    rank order and the scan on the card; the host reads nothing); on a CPU
+    tensor the plain version, ``nms_suppress_plain``."""
+    _check_suppress_args(xyxy, sk, oidx)
+    if sk.device.type == "cpu":
+        return nms_suppress_plain(xyxy, sk, oidx, iou_thresh, score_thresh)
+    if sk.device.type != "cuda":
+        raise ValueError(f"nms_suppress: unsupported device {sk.device}")
+    from dnn_inference_engine_tpu_torch.ops import _build
+    b, c, k = sk.shape
+    form = nms_suppress_form(b, c, k, _build.sm_count(sk.device))
+    xyxy, sk, oidx = xyxy.contiguous(), sk.contiguous(), oidx.contiguous()
+    keep = torch.empty(sk.shape, dtype=torch.bool, device=sk.device)
+    scratch = (torch.empty(form["scratch_words"], dtype=torch.int64,
+                           device=sk.device)
+               if form["scratch_words"] else None)
+    lists = (torch.empty(b * c * form["cluster"] * form["list_bytes"],
+                         dtype=torch.uint8, device=sk.device)
+             if form["list_bytes"] else None)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.function("nms_suppress", "nms_suppress",
+                         [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, f,
+                          i, i, i, p])
+    err = fn(xyxy.data_ptr(), sk.data_ptr(), oidx.data_ptr(),
+             keep.data_ptr(),
+             scratch.data_ptr() if scratch is not None else None,
+             lists.data_ptr() if lists is not None else None,
+             form["list_bytes"], b * c, c, k, float(np.float32(iou_thresh)),
+             float(np.float32(score_thresh)), form["cluster"],
+             form["threads"], form["smem"], _build.stream_ptr(sk.device))
+    nms_suppress.launches += 1
+    _build.check(err, "nms_suppress")
+    return keep
+
+
+nms_suppress.launches = 0
 
 
 def _desc_topk(v: torch.Tensor, k: int):
@@ -301,6 +400,28 @@ def _desc_topk(v: torch.Tensor, k: int):
     ``jax.lax.top_k``)."""
     vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, topk: int):
+    """The class-agnostic candidate pool of ``device_nms_cols``: oidx
+    (B,K) (the top ``topk`` by best class score, or every M in order),
+    their boxes (B,4,K) and scores (B,C,K)."""
+    b, c, m = scores.shape
+    if topk < m:
+        _, oidx = _desc_topk(scores.amax(dim=1), topk)         # (B,K)
+        return (oidx, torch.gather(boxes, 2,
+                                   oidx[:, None, :].expand(b, 4, topk)),
+                torch.gather(scores, 2, oidx[:, None, :].expand(b, c, topk)))
+    return torch.arange(m, device=boxes.device).expand(b, m), boxes, scores
+
+
+def _xyxy_cols(bk: torch.Tensor) -> torch.Tensor:
+    """(B,4,K) cxcywh -> (B,4,K) xyxy, as ``nms_suppress`` takes it."""
+    x1 = bk[:, 0] - bk[:, 2] * 0.5                             # (B,K)
+    y1 = bk[:, 1] - bk[:, 3] * 0.5
+    x2 = bk[:, 0] + bk[:, 2] * 0.5
+    y2 = bk[:, 1] + bk[:, 3] * 0.5
+    return torch.stack([x1, y1, x2, y2], dim=1)
 
 
 @torch.no_grad()
@@ -312,37 +433,17 @@ def device_nms_cols(boxes: torch.Tensor, scores: torch.Tensor,
     """boxes (B,4,M) cxcywh, scores (B,C,M) -> (boxes (B,D,4) xyxy,
     scores (B,D), classes (B,D) int32), zero-padded, score-descending,
     D = max_det. Candidate order follows the input's M order. On the card
-    the fixpoint is one ``nms_fixpoint`` launch and the host reads
-    nothing; on the CPU its plain version reads the convergence test once
-    a group of ``SWEEPS_PER_SYNC`` sweeps (``_greedy_fixpoint.host_syncs``)."""
+    the suppress stage is one ``nms_suppress`` launch and the host reads
+    nothing; on the CPU its plain version reads the fixpoint's convergence
+    test once a group of ``SWEEPS_PER_SYNC`` sweeps
+    (``_greedy_fixpoint.host_syncs``)."""
     b, c, m = scores.shape
     topk = min(topk, m)
     with scope("nms_candidates"):
-        if topk < m:
-            _, oidx = _desc_topk(scores.amax(dim=1), topk)     # (B,K)
-            bk = torch.gather(boxes, 2,
-                              oidx[:, None, :].expand(b, 4, topk))
-            sk = torch.gather(scores, 2,
-                              oidx[:, None, :].expand(b, c, topk))
-        else:
-            oidx = torch.arange(m, device=boxes.device).expand(b, m)
-            bk, sk = boxes, scores
+        oidx, bk, sk = _nms_candidates(boxes, scores, topk)
     with scope("nms_suppress"):
-        x1 = bk[:, 0] - bk[:, 2] * 0.5                         # (B,K)
-        y1 = bk[:, 1] - bk[:, 3] * 0.5
-        x2 = bk[:, 0] + bk[:, 2] * 0.5
-        y2 = bk[:, 1] + bk[:, 3] * 0.5
-        area = torch.clamp_min(x2 - x1, 0) * torch.clamp_min(y2 - y1, 0)
-        ix1 = torch.maximum(x1[:, :, None], x1[:, None, :])
-        iy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
-        ix2 = torch.minimum(x2[:, :, None], x2[:, None, :])
-        iy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
-        inter = (torch.clamp_min(ix2 - ix1, 0)
-                 * torch.clamp_min(iy2 - iy1, 0))
-        union = area[:, :, None] + area[:, None, :] - inter
-        iou = inter / torch.clamp_min(union, 1e-9)
-        valid = sk > score_thresh
-        keep = _greedy_fixpoint(sk, oidx, iou > iou_thresh, valid)
+        bxyxy = _xyxy_cols(bk)
+        keep = nms_suppress(bxyxy, sk, oidx, iou_thresh, score_thresh)
     with scope("nms_merge"):
         sk_out = torch.where(keep, sk,
                              torch.zeros_like(sk)).reshape(b, c * topk)
@@ -350,7 +451,6 @@ def device_nms_cols(boxes: torch.Tensor, scores: torch.Tensor,
         s_top, i_top = _desc_topk(sk_out, d)
         cls = (i_top // topk).to(torch.int32)
         k_idx = i_top % topk
-        bxyxy = torch.stack([x1, y1, x2, y2], dim=1)           # (B,4,K)
         bk_out = torch.gather(bxyxy, 2, k_idx[:, None, :].expand(b, 4, d))
         bk_out = bk_out.transpose(1, 2)                        # (B,D,4)
         if d < max_det:           # keep the advertised static shape

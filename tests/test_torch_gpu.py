@@ -472,7 +472,7 @@ def test_quant_space_to_depth4_kernel_matches_plain(cuda, shape, ingest,
     assert torch.equal(got, ref)
 
 
-# scales at which u / 255 / s lands on (0.0078431377) or near a tie
+# scales at which u x f32(1/255) / s lands on (0.0078431377) or near a tie
 QS2D4_SCALES = (1 / 127.0, 0.0078431377, 0.0123, 0.007919)
 
 
@@ -480,7 +480,8 @@ QS2D4_SCALES = (1 / 127.0, 0.0078431377, 0.0123, 0.007919)
 @pytest.mark.parametrize("s", QS2D4_SCALES)
 def test_quant_space_to_depth4_kernel_every_byte_value(cuda, s, pad_hw):
     """Every uint8 value, each many times, through the kernel's code
-    table, against the plain version's two divisions; 120-byte rows."""
+    table, against the plain version's product by f32(1/255) and division
+    by s; 120-byte rows."""
     g = torch.Generator(device=cuda).manual_seed(5)
     n = 2 * 24 * 40 * 3
     perm = torch.randperm(n, generator=g, device=cuda)
@@ -491,6 +492,20 @@ def test_quant_space_to_depth4_kernel_every_byte_value(cuda, s, pad_hw):
                                              pad_hw=pad_hw)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), pad_to
+
+
+@pytest.mark.parametrize("s", QS2D4_SCALES)
+def test_quant_space_to_depth4_kernel_table_is_the_product(cuda, s):
+    """The kernel's uint8 codes are ``qs2d4_code_table`` (u x f32(1/255),
+    then / s, as JAX's kernel computes them) on all 256 byte values: at s
+    = f32(2/255) every odd byte lands on a tie and rounds to even."""
+    x = (torch.arange(8 * 32 * 3, device=cuda) % 256).to(torch.uint8)
+    x = x.reshape(1, 8, 32, 3)
+    got = fc.quant_space_to_depth4(x, s).cpu().numpy()
+    tbl = fc.qs2d4_code_table(s)
+    want = tbl[x.cpu().numpy()].reshape(1, 2, 4, 8, 4, 3) \
+        .transpose(0, 1, 3, 2, 4, 5).reshape(1, 2, 8, 48)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("ingest", ["uint8", "f32"])
@@ -1518,45 +1533,66 @@ def test_stage_times_on_card_stay_under_the_roofline(cuda, deadline):
             assert r[k] is None or r[k] <= 105.0, r
 
 
-# the NMS fixpoint: the CPU tests' seeded cases, and the card's main-path
-# sizes (b32 at the default topk 256, YOLOv3-tiny's uncapped 2535)
+# the NMS's suppress stage: the CPU tests' seeded box cases, and the card's
+# main-path sizes (the pins' b32 and b1 at the default topk 256, the eval
+# grades' every-candidate-valid K 845 on a cluster with the bitmatrix in
+# shared memory and K 2535 in the global scratch; YOLOv3-tiny's pools at
+# 544 px, K 4335, the largest whose lists fit in shared memory, and at 608
+# px, K 5415, the lists in global memory too), and chains K - 1 deep
 NMS_CARD_CASES = ["k256", "k100", "k100_ties", "k256_ties", "k256_empty",
-                  "k100_chain", "k65_chain", "b32_k256", "b2_k2535",
-                  "k256_chain"]
+                  "k100_chain", "k65_chain", "ulp", "oidx_reversed",
+                  "dup_keys", "nonfinite", "degenerate", "k845_all_valid",
+                  "k2535_all_valid", "b32_k256", "b1_k256", "b2_k845",
+                  "b2_k2535", "b2_k4335", "b2_k5415", "k256_chain",
+                  "k2535_chain", "k5415_chain"]
 
 
 def _nms_card_case(name):
     import _torch_nms_cases as nc
     if name == "b32_k256":
-        return nc.random_case(32, 20, 256, seed=6)
+        return nc.box_case(32, 20, 256, seed=6)
+    if name == "b1_k256":
+        return nc.box_case(1, 20, 256, seed=16)
+    if name == "b2_k845":
+        return nc.box_case(2, 20, 845, seed=17, valid_share=1)
     if name == "b2_k2535":
-        return nc.random_case(2, 20, 2535, seed=7)
+        return nc.box_case(2, 20, 2535, seed=7, valid_share=1)
+    if name == "b2_k4335":
+        return nc.box_case(2, 20, 4335, seed=27, valid_share=1)
+    if name == "b2_k5415":
+        return nc.box_case(2, 20, 5415, seed=37, valid_share=1)
+    if name == "k5415_chain":
+        return nc.box_chain_case(5415)
     if name == "k256_chain":
-        return nc.chain_case(256)
-    return nc.CASES[name]()
+        return nc.box_chain_case(256)
+    if name == "k2535_chain":
+        return nc.box_chain_case(2535)
+    return nc.BOX_CASES[name]()
 
 
 @pytest.mark.parametrize("name", NMS_CARD_CASES)
-def test_nms_fixpoint_kernel_matches_plain(cuda, deadline, name):
-    """One launch, masks and per-(image, class) sweeps equal to the plain
-    version's bit for bit."""
+def test_nms_suppress_kernel_matches_plain(cuda, deadline, name):
+    """One launch; keep masks equal to the plain version's bit for bit."""
+    import _torch_nms_cases as nc
     from dnn_inference_engine_tpu_torch import postprocess as pp
-    s, oidx, hit, valid = (torch.from_numpy(a).to(cuda)
-                           for a in _nms_card_case(name))
-    dom_p = pp._dominance(s, oidx, hit)
-    before = pp.nms_fixpoint.launches
-    keep, sweeps = pp.nms_fixpoint(dom_p, valid, return_sweeps=True)
-    assert pp.nms_fixpoint.launches == before + 1
-    ref, ref_sweeps = pp.nms_fixpoint_plain(dom_p, valid,
-                                            return_sweeps=True)
+    xyxy, s, oidx = (torch.from_numpy(a).to(cuda)
+                     for a in _nms_card_case(name))
+    if name in ("b2_k4335", "b2_k5415", "k5415_chain"):
+        form = pp.nms_suppress_form(*s.shape)
+        assert form["lists_in_smem"] == (name == "b2_k4335")
+        assert not form["rows_in_smem"]
+    th = (nc.IOU_THRESH, nc.SCORE_THRESH)
+    before = pp.nms_suppress.launches
+    keep = pp.nms_suppress(xyxy, s, oidx, *th)
+    assert pp.nms_suppress.launches == before + 1
+    ref = pp.nms_suppress_plain(xyxy, s, oidx, *th)
     torch.cuda.synchronize()
     assert torch.equal(keep, ref)
-    assert torch.equal(sweeps, ref_sweeps)
-    assert torch.equal(pp.nms_fixpoint(dom_p, valid), ref)
+    assert torch.equal(pp.nms_suppress(xyxy, s, oidx, *th), ref)
 
 
 def test_nms_on_card_reads_no_host(cuda, deadline):
-    """device_nms_cols on the card: one nms_fixpoint launch, no host read
+    """device_nms_cols on the card: one nms_suppress launch, no host read
     of the plain loop, and nothing that synchronizes the host (PyTorch's
     sync debug mode raises on a synchronizing call)."""
     from dnn_inference_engine_tpu_torch import postprocess as pp
@@ -1566,13 +1602,13 @@ def test_nms_on_card_reads_no_host(cuda, deadline):
     pp.device_nms_cols(boxes, scores, score_thresh=0.05)     # build, warm
     torch.cuda.synchronize()
     pp._greedy_fixpoint.host_syncs = 0
-    before = pp.nms_fixpoint.launches
+    before = pp.nms_suppress.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = pp.device_nms_cols(boxes, scores, score_thresh=0.05)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert pp.nms_fixpoint.launches == before + 1
+    assert pp.nms_suppress.launches == before + 1
     assert pp._greedy_fixpoint.host_syncs == 0
     ref = pp.device_nms_cols(boxes.cpu(), scores.cpu(), score_thresh=0.05)
     for a, b in zip(out, ref):

@@ -21,6 +21,7 @@ interpret mode on every byte value.
 Integer index arithmetic only, in int64, on one thread (ROADMAP C5).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -362,46 +363,90 @@ def _fold4(codes):
         .reshape(1, 2, 8, 48)
 
 
+def test_jax_uint8_normalise_multiplies_under_jit():
+    """Which JAX form of ``u.astype(f32) / 255.0`` multiplies, on all 256
+    byte values: op by op JAX divides (correctly rounded, as numpy);
+    under ``jax.jit`` XLA rewrites the division into one correctly rounded
+    multiply by f32(1/255), the reciprocal rounded once from 1/255 (equal
+    to f32(1) / f32(255)). JAX's ``quant_space_to_depth4`` fed uint8 takes
+    the product whether it is jitted or not (its kernel body is always
+    compiled), so the port's uint8 entry multiplies by ``INV255``."""
+    u = np.arange(256, dtype=np.uint8)
+    inv = np.float32(tfc.INV255)
+    assert inv == np.float32(1) / np.float32(255)
+    assert float(inv).hex() == "0x1.0101020000000p-8"
+    div = u.astype(np.float32) / np.float32(255.0)
+    mul = u.astype(np.float32) * inv
+
+    def norm(v):
+        return v.astype(jnp.float32) / 255.0
+    op_by_op = np.asarray(norm(jnp.asarray(u)))
+    jitted = np.asarray(jax.jit(norm)(jnp.asarray(u)))
+    np.testing.assert_array_equal(op_by_op, div)
+    np.testing.assert_array_equal(jitted, mul)
+    assert int((div != mul).sum()) == 126
+    x = np.tile(u.reshape(1, 1, 256, 1), (1, 8, 1, 3))
+    s_in = np.float32(0.0078431377)
+    ref = np.clip(np.rint(mul / s_in), -127, 127).astype(np.int8)
+    for jit in (True, False):
+        if jit:
+            got = jpc.quant_space_to_depth4(jnp.asarray(x), jnp.float32(s_in))
+        else:
+            with jax.disable_jit():
+                got = jpc.quant_space_to_depth4(jnp.asarray(x),
+                                                jnp.float32(s_in))
+        np.testing.assert_array_equal(
+            _fold4_any(np.asarray(got)), ref[x], err_msg=f"jit {jit}")
+
+
+def _fold4_any(codes):
+    """Undo s2d(4) of (1, H/4, W/4, 48) codes: (1, H, W, 3)."""
+    n, h4, w4, _ = codes.shape
+    return codes.reshape(n, h4, w4, 4, 4, 3).transpose(0, 1, 3, 2, 4, 5) \
+        .reshape(n, 4 * h4, 4 * w4, 3)
+
+
 @pytest.mark.parametrize("s_in", SCALES)
 def test_code_table_matches_jax_on_every_byte_value(r, s_in):
     """The table the kernel builds (its Python mirror), applied to an
     image holding all 256 byte values and folded by s2d(4), against the
-    JAX kernel in interpret mode and the plain version.
-
-    With u / 255 correctly rounded (the port, the plain version, JAX's
-    op-by-op normalise) the JAX kernel's codes equal the table's at every
-    scale. Fed uint8, the JAX kernel normalises inside ``jax.jit``, where
-    XLA turns / 255.0 into x f32(1/255): its codes are the table of that
-    product, equal to the port's at three of the scales and 31 byte
-    values apart at s = 0.0078431377 = f32(2/255), where u / 255 / s lands
-    on a tie for odd u (ROADMAP C6)."""
+    JAX kernel fed the same uint8 (interpret mode) and the plain version:
+    equal at every scale, s = 0.0078431377 = f32(2/255) included, where u
+    x f32(1/255) / s lands on a tie for every odd u. The f32 entry fed u /
+    255 correctly rounded (what the engine's f32 path makes) equals the
+    JAX kernel fed the same floats; it is the table of the division, 31
+    byte values apart from the uint8 table at f32(2/255) and none at the
+    other scales."""
     x = r.permutation(np.arange(8 * 32 * 3) % 256).astype(np.uint8)
     x = x.reshape(1, 8, 32, 3)
     assert len(np.unique(x)) == 256
     tbl = tfc.qs2d4_code_table(s_in)
+    ref_u8 = np.asarray(jpc.quant_space_to_depth4(jnp.asarray(x),
+                                                  jnp.float32(s_in)))
+    np.testing.assert_array_equal(_fold4(tbl[x]), ref_u8)
+    plain = tfc.quant_space_to_depth4_plain(torch.from_numpy(x), s_in)
+    np.testing.assert_array_equal(_fold4(tbl[x]), plain.numpy())
     xf = x.astype(np.float32) / np.float32(255.0)
     ref = np.asarray(jpc.quant_space_to_depth4(jnp.asarray(xf),
                                                jnp.float32(s_in)))
-    np.testing.assert_array_equal(_fold4(tbl[x]), ref)
-    plain = tfc.quant_space_to_depth4_plain(torch.from_numpy(x), s_in)
-    np.testing.assert_array_equal(_fold4(tbl[x]), plain.numpy())
-    mul = np.arange(256, dtype=np.float32) * np.float32(1 / 255.0)
-    tbl_mul = np.clip(np.rint(mul / np.float32(s_in)), -127, 127)
-    tbl_mul = tbl_mul.astype(np.int8)
-    ref_u8 = np.asarray(jpc.quant_space_to_depth4(jnp.asarray(x),
-                                                  jnp.float32(s_in)))
-    np.testing.assert_array_equal(_fold4(tbl_mul[x]), ref_u8)
-    apart = int((tbl != tbl_mul).sum())
-    assert apart == (31 if s_in == 0.0078431377 else 0)
-    assert np.all(np.abs(tbl.astype(int) - tbl_mul) <= 1)
+    plain_f32 = tfc.quant_space_to_depth4_plain(torch.from_numpy(xf), s_in)
+    np.testing.assert_array_equal(plain_f32.numpy(), ref)
+    div = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    tbl_div = np.clip(np.rint(div / np.float32(s_in)), -127, 127)
+    tbl_div = tbl_div.astype(np.int8)
+    np.testing.assert_array_equal(_fold4(tbl_div[x]), ref)
+    assert int((tbl != tbl_div).sum()) == (31 if s_in == 0.0078431377
+                                           else 0)
+    assert np.all(np.abs(tbl.astype(int) - tbl_div) <= 1)
 
 
-@pytest.mark.parametrize("s_in,ties", [(1 / 127.0, 0), (0.0078431377, 65)])
+@pytest.mark.parametrize("s_in,ties", [(1 / 127.0, 0), (0.0078431377, 127)])
 def test_code_table_ties_go_to_even(s_in, ties):
-    """At s = 0.0078431377 = f32(2/255), u / 255 / s lands exactly on .5
-    in float32 for 65 byte values; the table rounds those to even, as
-    rintf does. At s = 1/127 none does."""
-    q = np.arange(256, dtype=np.float32) / np.float32(255.0) / np.float32(s_in)
+    """At s = 0.0078431377 = f32(2/255), u x f32(1/255) / s lands exactly
+    on .5 in float32 for every odd byte value (127 of them); the table
+    rounds those to even, as rintf does. At s = 1/127 none does."""
+    q = (np.arange(256, dtype=np.float32) * np.float32(tfc.INV255)
+         / np.float32(s_in))
     at = np.flatnonzero(q - np.floor(q) == 0.5)
     assert at.size == ties
     tbl = tfc.qs2d4_code_table(s_in).astype(np.int64)
