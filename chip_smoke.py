@@ -7,6 +7,8 @@
     python3 chip_smoke.py --resnet18      # phase 11 alone
     python3 chip_smoke.py --profiling     # phase 12 alone
     python3 chip_smoke.py --multi-device  # phase 13 alone
+    python3 chip_smoke.py --bench         # phase 14 alone (with the two
+                                          # phase 12 figures it is held to)
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -163,8 +165,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    the trace time by stage kind; it fails where the trace rows miss the
    module time by 2%, a kernel's traced count is not its launch count
    after 3 traces, or a stage reads over BINDING_PCT_MAX of its floor in
-   context (or, resolved, looped alone); then the CLI's ``trace --detect`` (its post_decode and nms_*
-   scopes) and ``layer-times`` (fp32) in processes of their own;
+   context (or, resolved, looped alone); then the CLI's ``trace
+   --detect`` at b1 over 30 detects (its post_decode and nms_* scopes;
+   its module time is phase 14's reference) and ``layer-times`` (fp32)
+   in processes of their own;
 13. multi-device: conv_w8a8's int32-accumulator form (the row-parallel
    conv's) against its plain version, int32 for int32, at YOLOv2-tiny
    L13's Cin shards (512 and 256, b32 and b16), YOLOv3-tiny L12's (256,
@@ -186,7 +190,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    on every rank) and ``layer_times``, row names equal to the
    single-device engine's, and ``cli trace --detect --mesh`` (its
    post_decode and nms_* scopes on rank 0). Wall times of ranks that
-   share one card measure contention, not scaling.
+   share one card measure contention, not scaling;
+14. the bench: ``cli bench --mode w8a8 --batch 32`` in a process of its
+   own, its one JSON line held to the JAX bench's keys with the card
+   line, its b1 detect device time (from the trace) at most its wall p50
+   and within 5% of phase 12's traced b1 detect; ``bench_all`` over
+   configs 3, 6 and 8 (all eleven run as a command of their own), no
+   config's error, config 8's b1 detect device ms and config 6's module
+   ms within 5% of phase 12's.
 
 The lines before the last are the card line, the ``kernels`` JSON line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -205,7 +216,8 @@ import numpy as np
 import torch
 
 from dnn_inference_engine_tpu_torch.runtime.benchlib import (
-    f32_peak, peaks, tf32_peak)
+    card_line, device_ms, f32_peak, latency_ms, peaks, tf32_peak,
+    throughput_ms)
 from dnn_inference_engine_tpu_torch.runtime.profiling import (
     device_breakdown, kernel_counters, read_counts, reset_counts)
 
@@ -378,68 +390,11 @@ BT_SHAPES = [("L8 b32", (32, 26, 26, 128), 256),
              ("L13 b1", (1, 13, 13, 1024), 1024)]
 
 
-def device_ms(fn, reps: int) -> float:
-    """Median device time of ``reps`` calls after one warm-up: a spin
-    kernel holds the card while the host queues every call, each between
-    its own pair of CUDA events, so the host's launch work is hidden."""
-    fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(50_000_000)        # ~25-30 ms of clock cycles
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
-
-
-def throughput_ms(fn, reps: int) -> float:
-    """Time per call of ``reps`` calls run back to back between one pair
-    of CUDA events, from an idle card to the last result (host gaps and
-    stalls included): what a stream of batches gets."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def latency_ms(fn, reps: int) -> float:
-    """Median of ``reps`` calls, each from an idle card to its result,
-    between its own pair of CUDA events and synced before the next: what
-    one request waits."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype differ: {a.shape} {a.dtype} vs "
                              f"{b.shape} {b.dtype}")
     return float((a.double() - b.double()).abs().max())
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -2605,21 +2560,33 @@ def profile_path(model: str, batch: int, size: int, card: str) -> dict:
             "trace_ms_by_kind": by_kind, "seconds": took}
 
 
+def trace_detect_b1():
+    """``cli trace --mode w8a8 --batch 1 --detect --runs 30`` in a
+    process of its own, which must show the post_decode and nms_* scopes:
+    (its output, the module device ms a detect it prints)."""
+    text = _subprocess(["trace", "--mode", "w8a8", "--batch", "1",
+                        "--detect", "--runs", "30"])
+    missing = [s for s in POST_SCOPES if s not in text]
+    if missing:
+        raise AssertionError(f"cli trace --detect lacks {missing}:\n{text}")
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith("# module device time"))
+    return text, float(line.split()[4]) / 1e3
+
+
 def phase_profiling(card: str) -> dict:
     """Phase 12: the scope link, ``stage_times_traced`` on PROFILED, and
-    the CLI's ``trace --detect`` (its post_decode and nms_* scopes) and
-    ``layer-times`` in processes of their own."""
+    the CLI's ``trace --detect`` (``trace_detect_b1``; its module device
+    time is ``["detect b1"]``) and ``layer-times`` in processes of their
+    own."""
     scope_link_check(card)
     out = {f"{m} b{b}": profile_path(m, b, size, card)
            for m, b, size in PROFILED}
     torch.cuda.empty_cache()
     t0 = time.time()
-    text = _subprocess(["trace", "--mode", "w8a8", "--batch", "1",
-                        "--detect", "--runs", "5"])
-    missing = [s for s in POST_SCOPES if s not in text]
-    if missing:
-        raise AssertionError(f"cli trace --detect lacks {missing}:\n{text}")
-    print(f"cli trace --mode w8a8 --batch 1 --detect --runs 5 [{card}]:\n"
+    text, module_ms = trace_detect_b1()
+    out["detect b1"] = {"module_ms": module_ms}
+    print(f"cli trace --mode w8a8 --batch 1 --detect --runs 30 [{card}]:\n"
           + text.rstrip())
     text = _subprocess(["layer-times", "--mode", "fp32", "--batch", "1",
                         "--iters", "20,5"])
@@ -2627,6 +2594,111 @@ def phase_profiling(card: str) -> dict:
           + text.rstrip())
     print(f"profiling cli: {time.time() - t0:.1f} s")
     print(json.dumps({"profiling": out, "card": card}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the bench (bench.run_bench through the CLI, bench_all's configs)
+# ---------------------------------------------------------------------------
+
+# bench_all's configs in the whole script; ``python -m
+# dnn_inference_engine_tpu_torch.bench_all`` runs all eleven on its own
+BENCH_CONFIGS = ("3_yolov2_w8a8_b32", "6_stage_roofline",
+                 "8_b1_detect_latency")
+BENCH_AGREE = 0.05          # the bench's device ms against phase 12's
+
+
+def _agree(tag: str, got: float, ref: float) -> None:
+    if abs(got - ref) > BENCH_AGREE * ref:
+        raise AssertionError(f"bench: {tag} {got:.4f} ms, phase 12 "
+                             f"{ref:.4f} ms: more than "
+                             f"{BENCH_AGREE:.0%} apart")
+
+
+def bench_refs(card: str) -> dict:
+    """Phase 12's two figures the bench is held to, measured alone (for
+    ``--bench``): the v2 pin's b32 traced module ms and ``cli trace
+    --detect``'s b1 module ms."""
+    out = {"yolov2-tiny b32": profile_path("yolov2-tiny", 32, 416, card)}
+    torch.cuda.empty_cache()
+    out["detect b1"] = {"module_ms": trace_detect_b1()[1]}
+    return out
+
+
+def phase_bench(card: str, prof: dict) -> dict:
+    """Phase 14: ``cli bench --mode w8a8 --batch 32`` in a process of its
+    own, its one JSON line held to the JAX bench's keys, the card line,
+    its ``single_image_device_ms`` (the trace's b1 detect) at most the
+    wall p50 and within BENCH_AGREE of phase 12's traced b1 detect
+    (``prof``); then ``bench_all`` over BENCH_CONFIGS, ``--out`` under
+    ``chiprun_out/``: rc 0, no config's ``error``, config 8's detect
+    device ms within BENCH_AGREE of the same, config 6's module ms within
+    BENCH_AGREE of phase 12's v2 b32 module ms. Prints the phase's
+    numbers as one JSON line."""
+    t0 = time.time()
+    ref_b1 = prof["detect b1"]["module_ms"]
+    ref_b32 = prof["yolov2-tiny b32"]["module_ms"]
+    text = _subprocess(["bench", "--mode", "w8a8", "--batch", "32"],
+                       timeout=600)
+    lines = text.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"cli bench printed {len(lines)} lines:\n"
+                             + text)
+    res = json.loads(lines[0])
+    d = res["detail"]
+    want = {"ms_per_batch", "p50_single_image_ms", "single_image_device_ms",
+            "fp32_images_per_s", "fp32_precision", "kernel", "backend"}
+    if set(res) != {"metric", "value", "unit", "vs_baseline", "detail"} \
+            or not want <= set(d) or d["card"] != card \
+            or d["backend"] != "cuda":
+        raise AssertionError(f"cli bench's line breaks the contract: {res}")
+    dev_ms = d["single_image_device_ms"]
+    if not 0 < dev_ms <= d["p50_single_image_ms"]:
+        raise AssertionError(f"bench: b1 device {dev_ms} ms against the "
+                             f"wall p50 {d['p50_single_image_ms']} ms")
+    _agree("cli bench's single_image_device_ms", dev_ms, ref_b1)
+    print(f"cli bench --mode w8a8 --batch 32 [{card}]: {json.dumps(res)}")
+    print(f"  b32 {res['value']} images/s ({d['ms_per_batch']} ms, spread "
+          f"{d['ms_per_batch_spread_pct']}%), fp32 {d['fp32_images_per_s']} "
+          f"({d['fp32_ms_per_batch']} ms), vs_baseline {res['vs_baseline']};"
+          f" b1 detect wall p50 {d['p50_single_image_ms']} ms, device "
+          f"{dev_ms} ms {d['single_image_split_device_ms']} (phase 12 "
+          f"{ref_b1:.4f}); clocks {d['clocks_before']} -> "
+          f"{d['clocks_after']}")
+    out_path = Path(__file__).resolve().parent / "chiprun_out" / \
+        "bench_all_smoke.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "dnn_inference_engine_tpu_torch.bench_all",
+         "--configs", ",".join(BENCH_CONFIGS), "--out", str(out_path)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=900)
+    print(f"bench_all --configs {','.join(BENCH_CONFIGS)} [{card}]:\n"
+          + r.stdout.rstrip())
+    if r.returncode != 0:
+        raise AssertionError(f"bench_all rc {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    sweep = json.loads(out_path.read_text())["configs"]
+    if list(sweep) != list(BENCH_CONFIGS) or any(
+            "error" in c for c in sweep.values()):
+        raise AssertionError(f"bench_all: {sweep}")
+    c8 = sweep["8_b1_detect_latency"]
+    c6 = sweep["6_stage_roofline"]
+    _agree("config 8's detect_device_ms", c8["detect_device_ms"], ref_b1)
+    _agree("config 6's module_ms", c6["module_ms"], ref_b32)
+    print(f"  config 8 b1 detect device {c8['detect_device_ms']} ms "
+          f"(forward {c8['forward_device_ms']}, decode "
+          f"{c8['decode_device_ms']}, NMS {c8['nms_device_ms']}), wall p50 "
+          f"{c8['p50_wall_ms']}; config 6 module {c6['module_ms']} ms "
+          f"(phase 12 {ref_b32:.4f}), e2e_mfu {c6['e2e_mfu_pct']}%; config "
+          f"3 {sweep['3_yolov2_w8a8_b32']['images_per_s']} images/s")
+    out = {"cli_bench": res, "bench_all": {
+        "3_yolov2_w8a8_b32": sweep["3_yolov2_w8a8_b32"],
+        "6_stage_roofline": {k: c6[k] for k in ("module_ms", "e2e_mfu_pct",
+                                                "total_stage_ms")},
+        "8_b1_detect_latency": c8},
+        "phase12_b1_detect_ms": ref_b1, "phase12_v2_b32_module_ms": ref_b32,
+        "seconds": round(time.time() - t0, 1), "card": card}
+    print(json.dumps({"bench": out}))
     return out
 
 
@@ -3543,11 +3615,14 @@ def _md_inputs(d: Path, dev=None, size: int = 416) -> None:
 
 def _md_spawn(groups) -> dict:
     """Start every rank of every group at once ([(role, world, extra)]),
-    each a process of this script (``--md-rank``), and wait for all of
-    them; (role, rank) -> (rc, the rank's ``MD`` JSON or None, output
-    tail). A rank past MD_TIMEOUT is killed."""
+    each a process of this script (``--md-rank``) writing its output to a
+    file of its own in ``md_dir()``, and wait for all of them together;
+    (role, rank) -> (rc, the rank's ``MD`` JSON or None, output tail). A
+    rank past MD_TIMEOUT is killed. Files, not pipes: a rank whose pipe
+    no one reads blocks once the pipe is full, and the ranks waiting on
+    it in a collective block with it."""
     d = md_dir()
-    procs = {}
+    procs, logs = {}, {}
     for gi, (role, world, extra) in enumerate(groups):
         init = f"file://{d}/pg{gi}"
         for r in range(world):
@@ -3556,28 +3631,31 @@ def _md_spawn(groups) -> dict:
             env = dict(os.environ, OMP_NUM_THREADS="2")
             if role == "nccl2":
                 env["NCCL_DEBUG"] = "WARN"
-            procs[(gi, role, r)] = subprocess.Popen(
-                [sys.executable, __file__, "--md-rank", json.dumps(spec)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                env=env, cwd=Path(__file__).resolve().parent)
+            logs[(gi, role, r)] = log = d / f"g{gi}_{role}_rank{r}.log"
+            with open(log, "w") as f:
+                procs[(gi, role, r)] = subprocess.Popen(
+                    [sys.executable, __file__, "--md-rank",
+                     json.dumps(spec)], stdout=f, stderr=subprocess.STDOUT,
+                    env=env, cwd=Path(__file__).resolve().parent)
     deadline = time.time() + MD_TIMEOUT
-    out = {}
+    rcs = {}
     try:
         for key, p in procs.items():
             try:
-                text, _ = p.communicate(timeout=max(1, deadline - time.time()))
-                rc = p.returncode
+                rcs[key] = p.wait(timeout=max(1, deadline - time.time()))
             except subprocess.TimeoutExpired:
-                p.kill()
-                text, rc = p.communicate()[0], None
-            md = [json.loads(ln[3:]) for ln in text.splitlines()
-                  if ln.startswith("MD ")]
-            out[key] = (rc, md[-1] if md else None, text[-3000:])
+                rcs[key] = None
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    out = {}
+    for key, log in logs.items():
+        text = log.read_text()
+        md = [json.loads(ln[3:]) for ln in text.splitlines()
+              if ln.startswith("MD ")]
+        out[key] = (rcs[key], md[-1] if md else None, text[-3000:])
     return out
 
 
@@ -3992,7 +4070,9 @@ def main() -> int:
     rows["gemm_fused"]["resnet18_stem"] = {
         b: r["stem"] for b, r in resnet_rows.items()}
     torch.cuda.empty_cache()
-    timed("profiling", phase_profiling, card)
+    prof = timed("profiling", phase_profiling, card)
+    torch.cuda.empty_cache()
+    timed("bench", phase_bench, card, prof)
     torch.cuda.empty_cache()
     rows["nms_suppress"] = timed("front door", phase_front_door,
                                  card)["nms_suppress"]
@@ -4099,6 +4179,20 @@ def profiling_only() -> int:
     return 0
 
 
+def bench_only() -> int:
+    """Phase 14 alone (``--bench``), with phase 12's two reference
+    figures measured first (``bench_refs``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    t0 = time.time()
+    phase_bench(card, bench_refs(card))
+    print(f"bench: {time.time() - t0:.1f} s")
+    return 0
+
+
 def front_door_only() -> int:
     """Phase 10 alone (``--front-door``): the kernels build at first use."""
     if not torch.cuda.is_available():
@@ -4147,6 +4241,8 @@ if __name__ == "__main__":
         sys.exit(resnet18_only())
     if sys.argv[1:] == ["--profiling"]:
         sys.exit(profiling_only())
+    if sys.argv[1:] == ["--bench"]:
+        sys.exit(bench_only())
     if sys.argv[1:] == ["--multi-device"]:
         sys.exit(multi_device_only())
     if len(sys.argv) == 3 and sys.argv[1] == "--md-rank":

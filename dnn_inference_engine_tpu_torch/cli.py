@@ -13,10 +13,13 @@ the plain PyTorch versions):
   python -m dnn_inference_engine_tpu_torch.cli plan-sweep --mode w8a8 --batch 8 --out s.json
   python -m dnn_inference_engine_tpu_torch.cli layer-times --mode w8a8 --batch 32
   python -m dnn_inference_engine_tpu_torch.cli trace --mode w8a8 --detect --out t.json
+  python -m dnn_inference_engine_tpu_torch.cli bench --mode w8a8 --batch 32
 
 ``layer-times`` with ``--device cpu`` times the plain versions on the
-CPU (no percentages of the card); ``trace`` needs the card.
-``bench`` waits for the card's bench (ROADMAP item A8).
+CPU (no percentages of the card); ``trace`` needs the card. ``bench``
+prints ``bench.run_bench``'s one JSON line (the images/s of the mode's
+forward at ``--batch``, the b1 detect's wall p50 and device time, the
+fp32 baseline and ``vs_baseline``); on the CPU the card's fields are None.
 
 A mesh runs one process a rank. Under torchrun every rank runs the same
 command and rank 0 prints:
@@ -42,9 +45,6 @@ import sys
 import time
 
 import numpy as np
-
-# subcommands of the JAX CLI that wait for a ROADMAP item
-_LATER = {"bench": "A8"}
 
 
 def _add_common(p):
@@ -257,6 +257,17 @@ def cmd_check_goldens(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """``bench.run_bench`` on the flags' model, mode, tier and batch, on
+    ``--device``; prints its JSON line (progress on stderr)."""
+    from dnn_inference_engine_tpu_torch.bench import run_bench
+    result = run_bench(model=args.model, mode=args.mode, kernel=args.kernel,
+                       batch=args.batch, verbose=True, device=args.device,
+                       input_size=args.input_size)
+    print(json.dumps(result))
+    return 0
+
+
 def _iters(text):
     return tuple(int(v) for v in text.split(",")) if text else None
 
@@ -372,10 +383,7 @@ def cmd_plan_sweep(args) -> int:
 
 
 def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="dnn_inference_engine_tpu_torch.cli",
-        epilog="not ported yet: " + ", ".join(
-            f"{c} (ROADMAP item {i})" for c, i in _LATER.items()))
+    ap = argparse.ArgumentParser(prog="dnn_inference_engine_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("detect", help="run detection on one image")
@@ -383,6 +391,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--image", required=True)
     p.add_argument("--out", default=None, help="write annotated image here")
     p.set_defaults(fn=cmd_detect)
+
+    p = sub.add_parser("bench", help="throughput/latency benchmark (one "
+                       "device: not with --mesh)")
+    _add_common(p)
+    p.add_argument("--input-size", type=int, default=None)
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("layer-times", help="per-stage (W8A8 plan) or "
                        "per-layer timing report; with --mesh, every rank "
@@ -468,14 +482,14 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     ap = _parser()
-    if argv and argv[0] in _LATER:
-        ap.error(f"{argv[0]!r} is not ported yet (ROADMAP item "
-                 f"{_LATER[argv[0]]})")
     args = ap.parse_args(argv)
     mesh = tuple(int(v) for v in args.mesh.split(",")) if args.mesh \
         else (1, 1)
     if len(mesh) != 2 or min(mesh) < 1:
         ap.error(f"--mesh {args.mesh}: give DP,MP, both >= 1")
+    if args.cmd == "bench" and args.mesh:
+        ap.error("bench times one device; scaling over ranks is "
+                 "bench_all's config 5_scaling")
     n = getattr(args, "num_processes", None)
     if n and n > 1 and mesh[0] * mesh[1] != n:
         ap.error(f"--num-processes {n} needs a --mesh of {n} ranks")

@@ -28,10 +28,24 @@ NVIDIA's data sheets for the H100 variant the card's name gives
 (``peaks``, ``tf32_peak``, ``f32_peak``), not the JAX package's TPU v5e
 constants; the compute floor is the tensor cores' (``"tc"``), the
 bandwidth floor the HBM's (``"hbm"``).
+
+The card's own timers have no JAX counterpart (XLA times a whole
+executable; the port runs eagerly, one launch at a time), and each
+raises on any device but a CUDA card rather than time the CPU:
+
+- ``device_ms``: one call's device time, the host's launch work hidden
+  behind a spin kernel (a kernel's time);
+- ``throughput_ms``: calls back to back between one pair of CUDA events,
+  host gaps included (what a stream of batches gets);
+- ``latency_ms``: each call from an idle card to its result (what one
+  request waits);
+- ``card_line`` and ``clocks``: the card's name and power limit, and its
+  SM and memory clocks, from ``nvidia-smi``, to stand beside a number.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Callable, Sequence
 
@@ -194,3 +208,109 @@ def binding_bound_s(ops: float, hbm_bytes: float, peak_ops: float,
     t_tc = ops / peak_ops
     t_hbm = hbm_bytes / hbm_bps
     return (t_tc, "tc") if t_tc >= t_hbm else (t_hbm, "hbm")
+
+
+# ---------------------------------------------------------------------------
+# the card's timers and identity
+# ---------------------------------------------------------------------------
+
+def _card(on=None) -> torch.device:
+    """The CUDA device of ``on`` (a tensor, a device or its name; None:
+    the current card). Any other device raises: a CPU time is no measure
+    of the card, and these timers never fall back to one."""
+    if isinstance(on, torch.Tensor):
+        on = on.device
+    dev = torch.device("cuda" if on is None else on)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the card's timers need a CUDA device, not "
+                           f"{dev}: they time with CUDA events (use "
+                           "per_iter_time or wall_time on the CPU)")
+    if not torch.cuda.is_available():
+        raise RuntimeError("the card's timers need a CUDA device and none "
+                           "is available")
+    return dev
+
+
+def device_ms(fn: Callable, reps: int, device=None) -> float:
+    """Median device time of ``reps`` calls of ``fn()`` after one warm-up:
+    a spin kernel holds the card while the host queues every call, each
+    between its own pair of CUDA events, so the host's launch work is
+    hidden. ``device``: the card the calls run on (a tensor on it, a
+    device or its name; default the current card)."""
+    with torch.cuda.device(_card(device)):
+        fn()
+        torch.cuda.synchronize()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        torch.cuda._sleep(50_000_000)        # ~25-30 ms of clock cycles
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def throughput_ms(fn: Callable, reps: int, device=None) -> float:
+    """Time per call of ``reps`` calls run back to back between one pair
+    of CUDA events, from an idle card to the last result (host gaps and
+    stalls included): what a stream of batches gets."""
+    with torch.cuda.device(_card(device)):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+
+def latency_ms(fn: Callable, reps: int, device=None) -> float:
+    """Median of ``reps`` calls, each from an idle card to its result,
+    between its own pair of CUDA events and synced before the next: what
+    one request waits."""
+    with torch.cuda.device(_card(device)):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+
+def _smi(query: str, device=None) -> str:
+    dev = _card(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader",
+         "-i", str(index)], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_line(device=None) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, for
+    example "NVIDIA H100 80GB HBM3, 700.00 W": a card may be set below its
+    maximum power and then runs slower under load."""
+    return _smi("name,power.limit", device)
+
+
+def clocks(device=None) -> dict:
+    """The card's SM and memory clocks now, in MHz (``nvidia-smi
+    --query-gpu=clocks.sm,clocks.mem``): {"sm_mhz": ..., "mem_mhz": ...}.
+    An idle card idles its SM clock down, so read them right after the
+    work they stand beside."""
+    sm, mem = (int(v.split()[0]) for v in
+               _smi("clocks.sm,clocks.mem", device).split(","))
+    return {"sm_mhz": sm, "mem_mhz": mem}

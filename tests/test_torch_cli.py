@@ -7,8 +7,8 @@ float32 ulps of the JAX CLI's; ``detect`` prints the JAX CLI's detection
 lines (fp32 from the pickle, W8A8 from either package's checkpoint);
 ``eval`` its mAP within 1e-6; ``dump-goldens`` its layers within 1e-4
 and ``check-goldens`` its report; ``serve`` answers a ``.npy`` POST with
-the detections of a direct detect. The subcommands that wait for a
-ROADMAP item are refused naming it; the mesh flags reach the config of
+the detections of a direct detect; ``bench`` prints one JSON line. The
+mesh flags reach the config of
 every subcommand that builds an engine, ``detect`` under torchrun on a
 (1, 2) channel mesh prints the single-device lines, and ``serve
 --num-processes 2`` answers HTTP from the leader and stops its
@@ -215,12 +215,24 @@ def test_serve_answers_a_npy_post(files, monkeypatch, capsys):
     assert seen["detect"]["classes"] == c[keep].tolist()
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["bench", "--mode", "w8a8"], "A8")])
-def test_refusals_name_the_roadmap_item(capsys, argv, item):
-    with pytest.raises(SystemExit):
-        cli.main(argv)
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+def test_bench_prints_one_json_line(monkeypatch, capsys):
+    """``bench`` on the CPU prints ``run_bench``'s one JSON line, the
+    flags' mode and batch in it (loop counts cut to a few calls: the
+    line's contract, not its timing)."""
+    from dnn_inference_engine_tpu_torch.runtime import benchlib
+    stats, wall = benchlib.per_iter_time_stats, benchlib.wall_time
+    monkeypatch.setattr(benchlib, "per_iter_time_stats", lambda fn, args, **kw:
+                        stats(fn, args, iters_hi=4, iters_lo=2, reps=2))
+    monkeypatch.setattr(benchlib, "wall_time", lambda fn, args, **kw:
+                        wall(fn, args, reps=3))
+    assert cli.main(["bench", "--device", "cpu", "--input-size", "64",
+                     "--mode", "w8a8", "--batch", "2"]) == 0
+    lines = _lines(capsys)
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["metric"] == "yolov2-tiny W8A8 images/sec/chip (batch 2)"
+    assert res["detail"]["backend"] == "cpu"
+    assert res["value"] > 0 and res["vs_baseline"] > 0
 
 
 @pytest.mark.parametrize("argv", [

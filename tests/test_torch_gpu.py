@@ -1613,3 +1613,45 @@ def test_nms_on_card_reads_no_host(cuda, deadline):
     ref = pp.device_nms_cols(boxes.cpu(), scores.cpu(), score_thresh=0.05)
     for a, b in zip(out, ref):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# the bench's timers and run_bench on the card
+# ---------------------------------------------------------------------------
+
+def test_card_timers_time_one_known_kernel(cuda, deadline):
+    """``device_ms``, ``throughput_ms`` and ``latency_ms`` of shift_s2d2 at
+    the pin's b32 input (PERF.md row 3): each call one launch, the device
+    time no longer than either host-inclusive time, all finite."""
+    from dnn_inference_engine_tpu_torch.runtime import benchlib
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = _i8(g, cuda, 32, 104, 104, 32)
+    before = fc.shift_s2d2.launches
+    dev = benchlib.device_ms(lambda: fc.shift_s2d2(x), 20, device=x)
+    thr = benchlib.throughput_ms(lambda: fc.shift_s2d2(x), 20)
+    lat = benchlib.latency_ms(lambda: fc.shift_s2d2(x), 20, device=cuda)
+    assert fc.shift_s2d2.launches == before + 3 * 21
+    assert all(np.isfinite(v) and v > 0 for v in (dev, thr, lat))
+    assert dev <= 1.05 * thr and dev <= 1.05 * lat, (dev, thr, lat)
+    assert benchlib.card_line(cuda).startswith(
+        torch.cuda.get_device_name(cuda))
+    assert set(benchlib.clocks(cuda)) == {"sm_mhz", "mem_mhz"}
+
+
+def test_run_bench_on_card_at_batch_2(cuda, deadline):
+    """``run_bench`` at b2 on the card: the JAX contract's keys, the card
+    line, the b1 detect's device time from the trace at most its wall p50
+    and the sum of its split, ``value`` the forward's images/s."""
+    from dnn_inference_engine_tpu_torch.bench import run_bench
+    from dnn_inference_engine_tpu_torch.runtime import benchlib
+    faulthandler.dump_traceback_later(300, exit=True)   # three engines
+    res = run_bench(batch=2)
+    d = res["detail"]
+    assert d["backend"] == "cuda" and d["card"] == benchlib.card_line(cuda)
+    assert res["value"] == pytest.approx(2e3 / d["ms_per_batch"], rel=1e-3,
+                                         abs=0.05)
+    dev, split = d["single_image_device_ms"], d["single_image_split_device_ms"]
+    assert 0 < dev <= d["p50_single_image_ms"]
+    assert sum(split.values()) == pytest.approx(dev, abs=2e-4)
+    assert all(v > 0 for v in split.values()), split
+    assert d["clocks_before"]["sm_mhz"] > 0

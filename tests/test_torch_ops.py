@@ -594,7 +594,8 @@ def test_port_imports_no_jax():
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "new = ['parallel.mesh', 'parallel.sharding',\n"
         "       'parallel.shard_map_forward', 'parallel.sharded_engine',\n"
-        "       'runtime.serve_distributed']\n"
+        "       'runtime.serve_distributed', 'bench', 'bench_all',\n"
+        "       'runtime.benchlib']\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k.startswith('dnn_inference_engine_tpu.')\n"

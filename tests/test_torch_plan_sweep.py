@@ -242,17 +242,17 @@ def test_cli_plan_sweep_writes_an_artifact_engine_consumes(tmp_path,
 
 
 def test_cli_names_the_roadmap_item_of_other_commands(capsys):
-    """The JAX CLI's subcommand that waits for a ROADMAP item: the bench
-    for A8. Profiling (trace, layer-times) is ported: the parser takes
-    both."""
-    for argv, item in ((["bench", "--mode", "w8a8"], "A8"),):
-        with pytest.raises(SystemExit):
-            cli.main(argv)
-        assert f"ROADMAP item {item}" in capsys.readouterr().err
-    for argv in (["trace", "--runs", "3", "--detect"],
+    """No subcommand of the JAX CLI waits for a ROADMAP item any more: the
+    bench (A8) was the last. The parser takes bench, trace and
+    layer-times to their commands, and its help names no item."""
+    for argv in (["bench", "--mode", "w8a8"],
+                 ["trace", "--runs", "3", "--detect"],
                  ["layer-times", "--iters", "4,2"]):
         args = cli._parser().parse_args(argv)
         assert args.fn.__name__ == "cmd_" + argv[0].replace("-", "_")
+    with pytest.raises(SystemExit):
+        cli.main(["--help"])
+    assert "ROADMAP" not in capsys.readouterr().out
 
 
 def test_engine_names_strategy_file_and_illegal_layer(tmp_path):
