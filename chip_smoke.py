@@ -34,9 +34,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    mode 4 and against the im2col + ``gemm_fused`` route it replaced,
    timed beside it, ``torch._int_mm`` on the im2col'd A, its bound, the
    previous kernel's time and the kernel's other schedules on the same
-   inputs (round robin or stream-K), each bit for bit; the per-tap stem
-   is
-   timed beside
+   inputs (round robin or stream-K), each bit for bit; its small-Cin
+   kernel conv_w8a8_rows at the generic forward's entry conv (3x3, Cin 3
+   -> 16, 416 px, b2 and b8) the same way, beside the route it replaced;
+   the per-tap stem is timed beside
    the k2 stem on the same inputs (b16 and b1), with the k2 stem's own
    b32 time beside them; then the attic kernels: stage0_fused
    through both of its wrappers (b32, b2 and b1, v1's operand at ht 4
@@ -102,9 +103,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    largest head, detections as sets within that: ``detections_close``),
    W8A8 with ``kernel="xla"`` and ``"pallas"`` and the fallback from an
    illegal strategy file (bit for bit), each with its launch counts (the
-   xla tier's 3x3 convs on conv_w8a8 but the entry conv's, Cin 3, on the
-   im2col route; the fallback's ``auto`` takes the gemm tier where
-   use_pallas says so), and
+   xla tier's 3x3 convs on conv_w8a8 but the entry conv's, Cin 3, on
+   conv_w8a8_rows, and no conv on the im2col route; the fallback's
+   ``auto`` takes the gemm tier where use_pallas says so), and
    ``Model.forward(mode="w8", kernel="pallas")`` (gemm_f32 with int8
    codes on every conv; only layer 0's K = 27 in the ragged form);
 10. the front door at 416 px, from files written here from seeds: a
@@ -147,13 +148,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    (f32 outputs too), through the wrapper and launched directly, timed
    beside the im2col + ``gemm_fused`` route, ``torch._int_mm`` on the
    im2col'd A and the bound (a 1x1/s2 conv's bytes count the quarter of
-   the input it reads); the stem (7x7/s2, Cin 3: im2col +
-   ``gemm_fused``'s ragged form) the same way; card against CPU at b2 in
+   the input it reads); the stem (7x7/s2, Cin 3) on the small-Cin kernel
+   conv_w8a8_rows the same way, timed beside the route it replaced
+   (im2col + ``gemm_fused``'s ragged form); card against CPU at b2 in
    w8a8 (every plan stage's entry state up to the pool identical, the
    logits within RESNET_LOGIT_TOL), fp32 and w8; ``classify`` at b32 and
    b1 in each mode with its launch counts (W8A8: 19 conv_w8a8, 1
-   gemm_fused in the ragged form, 1 im2col; fp32: 11 gemm_f32; w8: none),
-   every conv_w8a8 launch of a W8A8 classify bit for bit, throughput,
+   conv_w8a8_rows, no gemm_fused, no im2col; fp32: 11 gemm_f32; w8:
+   none), every conv_w8a8 and conv_w8a8_rows launch of a W8A8 classify
+   bit for bit, throughput,
    latency and the device breakdown; and ``plan-sweep --quick`` at b32 in
    w8a8;
 12. profiling: one conv_w8a8 launch traced inside a stage scope must
@@ -277,6 +280,13 @@ KERNELS = {
     "conv_w8a8": dict(
         route="cuda",
         source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8.cu",
+        replaces="dnn_inference_engine_tpu/ops/conv.py:110"),
+    # its small-Cin form (conv2d_w8a8's "rows" route): ResNet-18's 7x7/s2
+    # stem (layer 0 of the all-xla pin) and the generic forward's entry
+    # conv, Cin 3
+    "conv_w8a8_rows": dict(
+        route="cuda",
+        source="dnn_inference_engine_tpu_torch/csrc/conv_w8a8_rows.cu",
         replaces="dnn_inference_engine_tpu/ops/conv.py:110"),
     # its int32-accumulator form (the raw store): XLA's int8 conv with
     # preferred_element_type=int32 in the row-parallel conv
@@ -1445,20 +1455,23 @@ class GemmShapes:
 
 class ConvCheck:
     """While active, keeps the inputs and output of every ``conv2d_w8a8``
-    call that launches the conv_w8a8 kernel (each module of the port that
-    calls the wrapper, but ops/conv.py itself, gets a recorder in its
-    place, so the wrapper's own counters still count); ``verify`` then
-    holds each output to ``conv2d_w8a8_plain`` on the same inputs, bit for
-    bit."""
+    call that launches the conv_w8a8 kernel or the small-Cin kernel
+    (conv_w8a8_rows; each module of the port that calls the wrapper, but
+    ops/conv.py itself, gets a recorder in its place, so the wrapper's own
+    counters still count); ``verify`` then holds each output to
+    ``conv2d_w8a8_plain`` on the same inputs, bit for bit."""
 
     def __enter__(self):
         from dnn_inference_engine_tpu_torch.ops import conv as cv
         self.cv, self.fn, self.calls, self.mods = cv, cv.conv2d_w8a8, [], []
 
+        def launched():
+            return self.fn.launches + cv.conv_w8a8_rows.launches
+
         def record(*args, **kw):
-            before = self.fn.launches
+            before = launched()
             out = self.fn(*args, **kw)
-            if self.fn.launches != before:
+            if launched() != before:
                 self.calls.append((args, kw, out))
             return out
         for name, mod in list(sys.modules.items()):
@@ -1475,8 +1488,9 @@ class ConvCheck:
 
     def verify(self, tag: str, want: int):
         if len(self.calls) != want:
-            raise AssertionError(f"{tag}: {len(self.calls)} conv_w8a8 "
-                                 f"launches checked, {want} expected")
+            raise AssertionError(f"{tag}: {len(self.calls)} conv_w8a8 and "
+                                 f"conv_w8a8_rows launches checked, {want} "
+                                 f"expected")
         for i, (args, kw, out) in enumerate(self.calls):
             ref = self.cv.conv2d_w8a8_plain(*args, **kw)
             if not torch.equal(out, ref):
@@ -1484,8 +1498,9 @@ class ConvCheck:
                     f"{tag}: conv_w8a8 launch {i} ({tuple(args[0].shape)} x "
                     f"{tuple(args[2].shape)}) != conv2d_w8a8_plain in "
                     f"{int((out != ref).sum())} codes")
-        print(f"{tag}: every conv_w8a8 launch of the detect "
-              f"({len(self.calls)}) equals conv2d_w8a8_plain bit for bit")
+        print(f"{tag}: every conv_w8a8 and conv_w8a8_rows launch of the "
+              f"detect ({len(self.calls)}) equals conv2d_w8a8_plain bit for "
+              f"bit")
 
 
 class XlaTierIm2col:
@@ -1816,7 +1831,7 @@ def phase_main_path(model: str, batch: int, want: dict, card: str,
         with ConvCheck() as chk:
             eng.detect(imgs)
             torch.cuda.synchronize()
-        chk.verify(tag, want["conv_w8a8"])
+        chk.verify(tag, want["conv_w8a8"] + want["conv_w8a8_rows"])
     run = eng.detect_fn()
 
     def fwd():
@@ -1861,13 +1876,12 @@ BF16_REL_TOL = 2.0 ** -7
 ILLEGAL_STRATEGY = {"2": ["fold_xla_s2", 2], "4": ["xla", 1]}
 
 
-def _generic_counts(gpu, tag: str, want: dict, want_folded: int,
-                    want_im2col: int = 0):
+def _generic_counts(gpu, tag: str, want: dict, want_folded: int):
     """One classify of a b2 batch with the counters from 0: the launches
     must equal ``want`` (the others 0), ``want_folded`` of the int8 GEMMs
-    must be in the folded order, the gemm tier's, and ``want_im2col`` of
-    the xla tier's W8A8 convs must take conv2d_w8a8's im2col route (the
-    entry conv, Cin 3)."""
+    must be in the folded order, the gemm tier's, and no W8A8 conv of the
+    xla tier may take conv2d_w8a8's im2col route (the entry conv, Cin 3,
+    runs conv_w8a8_rows)."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     imgs = np.random.default_rng(4).integers(
@@ -1883,10 +1897,9 @@ def _generic_counts(gpu, tag: str, want: dict, want_folded: int,
     if gm.gemm_f32.ragged_launches:
         raise AssertionError(f"{tag}: a gemm_f32 launch took the ragged "
                              f"form")
-    if counts != want or folded != want_folded or im2col != want_im2col:
+    if counts != want or folded != want_folded or im2col:
         raise AssertionError(f"{tag}: launches {counts}, folded {folded}, "
-                             f"im2col {im2col} != {want}, {want_folded}, "
-                             f"{want_im2col}")
+                             f"im2col {im2col} != {want}, {want_folded}, 0")
 
 
 def phase_modes_card_vs_cpu():
@@ -1894,7 +1907,8 @@ def phase_modes_card_vs_cpu():
     CPU at 416 px, b2: fp32 (kernel auto: cuDNN and gemm_f32) within
     F32_REL_TOL, the w8 plans within BF16_REL_TOL, W8A8 with kernel xla
     and pallas and the C1 fallback from an illegal strategy file bit for
-    bit, each with its launch counts: the fallback's ``auto`` takes the
+    bit, each with its launch counts: the xla tier's entry conv (Cin 3)
+    on conv_w8a8_rows, no im2col route; the fallback's ``auto`` takes the
     gemm tier exactly where use_pallas says so (there the convs that
     requantize run in the folded order; a head is f32 in both tiers)."""
     from dnn_inference_engine_tpu_torch.models import build_model
@@ -1907,7 +1921,7 @@ def phase_modes_card_vs_cpu():
         deep = [li for li, _, t in report if t == "pallas"]
         # the xla tier's convs that conv_w8a8 takes: 3x3 (stride 1 in
         # both models) with Cin % 16 == 0, requantizing; the entry conv
-        # (Cin 3) takes the im2col route
+        # (Cin 3) takes conv_w8a8_rows
         kern = [li for li, d, _ in report if li in quant
                 and d.startswith("conv3x3")
                 and int(d.split()[1].split("->")[0]) % 16 == 0]
@@ -1924,8 +1938,8 @@ def phase_modes_card_vs_cpu():
         phase_card_vs_cpu(model, 2, False, mode="w8", rel_tol=BF16_REL_TOL)
         gpu = phase_card_vs_cpu(model, 2, False, mode="w8a8", kernel="xla")
         _generic_counts(gpu, f"{model} w8a8 xla",
-                        {"conv_w8a8": len(kern),
-                         "gemm_fused": n - len(kern)}, 0, len(entry))
+                        {"conv_w8a8": len(kern), "conv_w8a8_rows": len(entry),
+                         "gemm_fused": n - len(kern) - len(entry)}, 0)
         gpu = phase_card_vs_cpu(model, 2, False, mode="w8a8",
                                 kernel="pallas")
         _generic_counts(gpu, f"{model} w8a8 pallas", {"gemm_fused": n},
@@ -1938,11 +1952,12 @@ def phase_modes_card_vs_cpu():
     if gpu._plan is not None:
         raise AssertionError("the illegal strategy built a plan")
     xla_kern = [li for li in kern if li not in deep]
+    xla_entry = [li for li in entry if li not in deep]
     _generic_counts(gpu, "yolov2-tiny w8a8 C1 fallback (auto)",
                     {"conv_w8a8": len(xla_kern),
-                     "gemm_fused": n - len(xla_kern)},
-                    len(set(deep) & set(quant)),
-                    len([li for li in entry if li not in deep]))
+                     "conv_w8a8_rows": len(xla_entry),
+                     "gemm_fused": n - len(xla_kern) - len(xla_entry)},
+                    len(set(deep) & set(quant)))
 
 
 def phase_w8_pallas_forward(card: str):
@@ -2199,60 +2214,103 @@ def resnet_conv_rows(g, dev, batch, ops_peak, bw, tag):
     return rows
 
 
-def resnet_stem_row(g, dev, batch, ops_peak, bw):
-    """ResNet-18's stem (7x7/s2, Cin 3, 224 px): the xla tier's im2col and
-    ``gemm_fused`` in its ragged form (K = 147), against the plain
-    version, timed beside ``torch._int_mm`` (K padded to 152, the nearest
-    it takes) and the bound."""
+def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
+    """The small-Cin kernel (conv_w8a8_rows, conv2d_w8a8's "rows" route) at
+    one shape: through the wrapper (one conv_w8a8_rows launch, no
+    gemm_fused, no im2col) and launched directly, each against the plain
+    version bit for bit; timed beside the route it replaced (im2col +
+    ``gemm_fused`` in its ragged form, and the im2col alone),
+    ``torch._int_mm`` on the im2col'd A (K padded to a multiple of 8, the
+    nearest it takes), the plain version and the bound."""
+    from dnn_inference_engine_tpu_torch.ops import _build
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
         extract_patches)
     from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
-    x = torch.randint(-127, 128, (batch, 224, 224, 3), generator=g,
-                      device=dev, dtype=torch.int8)
-    wq = torch.randint(-127, 128, (7, 7, 3, 64), generator=g, device=dev,
+    cin = xs[3]
+    x = torch.randint(-127, 128, xs, generator=g, device=dev,
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=dev,
                        dtype=torch.int8)
-    s_w = (torch.rand(64, generator=g, device=dev) + 0.5) * 1e-3
-    b = torch.randn(64, generator=g, device=dev)
-    kw = dict(act="relu", stride=2, s_out=0.05)
-    ragged = gm.gemm_fused.ragged_launches
+    s_w = (torch.rand(cout, generator=g, device=dev) + 0.5) * 1e-3
+    b = torch.randn(cout, generator=g, device=dev)
+    kw = dict(act=act, stride=stride, s_out=0.05)
+
+    def counters():
+        return (cv.conv_w8a8_rows.launches, gm.gemm_fused.launches,
+                cv.conv2d_w8a8.im2col_launches, cv.conv2d_w8a8.launches)
+    before = counters()
     got = cv.conv2d_w8a8(x, 0.02, wq, s_w, b, **kw)
-    ragged = gm.gemm_fused.ragged_launches - ragged
-    err = max_abs_err(got, cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw))
-    wt = gm.kmajor_weights(wq)
+    launched = tuple(a - c for a, c in zip(counters(), before))
+    ref = cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw)
+    plan = cv.rows_plan(*xs, cout, k, stride, _build.sm_count(dev))
+    tile = cv.rows_tile_matrix(wq)
     scale = f32_scalar(0.02, dev) * s_w
+    kk = k * k * cin
+    wt = gm.kmajor_weights(wq)
+
+    def kernel():
+        return cv.conv_w8a8_rows(x, tile, scale, b, 0.05, k, stride, act,
+                                 plan)
 
     def route():
-        # the wrapper's route on prepared operands (its scale upload would
-        # block the host behind the queued calls)
-        return gm.gemm_fused(extract_patches(x, 7, 7, 2, "SAME").reshape(
-            -1, 147), wt, scale, b, act="relu", s_out=0.05)
-    err = max(err, max_abs_err(route().reshape(got.shape), got))
-    ms = device_ms(route, 10)
+        # the route it replaced, on prepared operands (the wrapper's scale
+        # upload would block the host behind the queued calls)
+        return gm.gemm_fused(extract_patches(x, k, k, stride, "SAME").reshape(
+            -1, kk), wt, scale, b, act=act, s_out=0.05).reshape(got.shape)
+    ragged = gm.gemm_fused.ragged_launches
+    err = max(max_abs_err(got, ref), max_abs_err(kernel(), ref),
+              max_abs_err(route(), ref))
+    ragged = gm.gemm_fused.ragged_launches - ragged
+    ms = device_ms(kernel, 20)
+    route_ms = device_ms(route, 10)
+    im2col_ms = device_ms(lambda: extract_patches(x, k, k, stride, "SAME"),
+                          10)
     plain_ms = device_ms(
         lambda: cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw), 2)
-    a = extract_patches(x, 7, 7, 2, "SAME").reshape(-1, 147)
-    m = a.shape[0]
-    im2col_ms = device_ms(
-        lambda: extract_patches(x, 7, 7, 2, "SAME"), 10)
-    a8 = torch.cat([a, a.new_zeros(m, 5)], 1)
-    b8 = torch.cat([wt, a.new_zeros(64, 5)], 1)
+    a = extract_patches(x, k, k, stride, "SAME").reshape(-1, kk)
+    m, kp = a.shape[0], -(-kk // 8) * 8
+    a8 = torch.cat([a, a.new_zeros(m, kp - kk)], 1)
+    b8 = torch.cat([wt, a.new_zeros(cout, kp - kk)], 1)
     lib_ms = device_ms(lambda: torch._int_mm(a8, b8.t()), 10)
-    bound, by = _bound(2.0 * m * 147 * 64,
-                       x.numel() + wq.numel() + 8 * 64 + got.numel(),
+    bound, by = _bound(2.0 * m * kk * cout,
+                       x.numel() + wq.numel() + 8 * cout + got.numel(),
                        ops_peak, bw)
-    print(f"  resnet18 stem b{batch} (7x7/s2, Cin 3, M={m} K=147 N=64): "
-          f"im2col + gemm_fused, {ragged} ragged launch: err={err} "
-          f"ms={ms:.4f} (the im2col alone {im2col_ms:.4f}) int_mm_ms="
-          f"{lib_ms:.4f} (K 152) plain_ms={plain_ms:.3f} bound_ms="
+    print(f"  {tag} ({k}x{k}/s{stride}, Cin {cin}, M={m} K={kk} N={cout}): "
+          f"conv_w8a8_rows err={err} ms={ms:.4f} (run {plan.run}, "
+          f"{plan.ksteps} k32 steps, {plan.upx} px a unit, {plan.units} "
+          f"units, grid {plan.grid}); im2col + gemm_fused (ragged) "
+          f"{route_ms:.4f} (the im2col alone {im2col_ms:.4f}); int_mm_ms="
+          f"{lib_ms:.4f} (K {kp}) plain_ms={plain_ms:.3f} bound_ms="
           f"{bound:.4f} ({by})")
-    if err != 0 or ragged != 1:
-        raise AssertionError(f"resnet18 stem b{batch}: err {err}, ragged "
-                             f"launches {ragged}")
-    return dict(M=m, K=147, N=64, max_abs_err=err, ms=ms,
+    if err != 0 or launched != (1, 0, 0, 0) or ragged != 1:
+        raise AssertionError(f"{tag}: err {err}, launches (rows, gemm_fused, "
+                             f"im2col, conv_w8a8) {launched}, the old "
+                             f"route's ragged launches {ragged}")
+    return dict(x=list(xs), k=k, stride=stride, M=m, K=kk, N=cout,
+                max_abs_err=err, ms=ms, im2col_gemm_ms=route_ms,
                 im2col_ms=im2col_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, upx=plan.upx, units=plan.units,
+                grid=plan.grid)
+
+
+def resnet_stem_row(g, dev, batch, ops_peak, bw):
+    """ResNet-18's stem (7x7/s2, Cin 3 -> 64, 224 px, relu) on
+    conv_w8a8_rows (``rows_conv_row``)."""
+    return rows_conv_row(g, dev, f"resnet18 stem b{batch}",
+                         (batch, 224, 224, 3), 7, 2, 64, "relu", ops_peak,
+                         bw)
+
+
+def phase_rows_kernel(dev, ops_peak, bw):
+    """conv_w8a8_rows at the generic W8A8 forward's entry conv (3x3/s1,
+    Cin 3 -> 16, 416 px, leaky) at b2 (``_generic_counts``) and b8 (a
+    card of bench_all's config 5)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    return {f"entry b{n}": rows_conv_row(
+        g, dev, f"yolo entry conv b{n}", (n, 416, 416, 3), 3, 1, 16,
+        "leaky", ops_peak, bw) for n in (2, 8)}
 
 
 def phase_resnet_kernels(dev, ops_peak, bw):
@@ -2341,15 +2399,15 @@ def phase_resnet_card_vs_cpu(card: str):
                                  f"logits: max diff {diff} > {atol}")
 
 
-def phase_resnet_path(batch: int, mode: str, want: dict, card: str,
-                      want_ragged: int = 0, want_im2col: int = 0):
+def phase_resnet_path(batch: int, mode: str, want: dict, card: str):
     """ResNet-18 ``classify`` at 224 px, 1000 classes, under ``mode``'s
     path (w8a8 and w8: the all-xla plan; fp32: the generic auto forward):
     one classify with the counters set to 0 just before and read just
-    after (they must equal ``want``, every counter named; the stem's
-    ``gemm_fused`` launch in the ragged form and its im2col, ``want_*``),
-    every conv_w8a8 launch held to its plain version (w8a8), then
-    throughput, latency and the device breakdown of the forward."""
+    after (they must equal ``want``, every counter named; no
+    ``gemm_fused`` launch in the ragged form and no im2col copy: the stem
+    runs conv_w8a8_rows), every conv_w8a8 and conv_w8a8_rows
+    launch held to its plain version (w8a8), then throughput, latency and
+    the device breakdown of the forward."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
     want = {**dict.fromkeys(kernel_counters(), 0), **want}
@@ -2367,24 +2425,24 @@ def phase_resnet_path(batch: int, mode: str, want: dict, card: str,
         raise AssertionError(f"{tag}: bad logits {logits.shape}")
     got = (counts, gm.gemm_fused.ragged_launches, im2col.calls,
            cv.conv2d_w8a8.im2col_launches, gm.gemm_f32.ragged_launches)
-    if got != (want, want_ragged, want_im2col, want_im2col, 0):
+    if got != (want, 0, 0, 0, 0):
         raise AssertionError(f"{tag}: launches {counts}, ragged gemm_fused "
                              f"{got[1]}, im2col copies {got[2]}, im2col "
                              f"route {got[3]}, ragged gemm_f32 {got[4]}; "
-                             f"want {want}, {want_ragged}, {want_im2col}")
+                             f"want {want} and none of the others")
     if mode == "w8a8":
         with ConvCheck() as chk:
             eng.classify(imgs)
             torch.cuda.synchronize()
-        chk.verify(tag, want["conv_w8a8"])
+        chk.verify(tag, want["conv_w8a8"] + want["conv_w8a8_rows"])
 
     def fwd():
         return eng._fwd(x)
     t = dict(tp=throughput_ms(fwd, 20), lat=latency_ms(fwd, 20))
     groups, ops = device_breakdown(fwd)
     busy = sum(groups.values())
-    print(f"{tag} launches per classify {counts} (stem: {want_ragged} "
-          f"ragged gemm_fused, {want_im2col} im2col) [{card}]")
+    print(f"{tag} launches per classify {counts} (no ragged gemm_fused, "
+          f"no im2col) [{card}]")
     print(f"{tag} device ms per forward (torch.profiler, 5 forwards): "
           + ", ".join(f"{g} {v:.4f}" for g, v in groups.items() if v)
           + f"; busy {busy:.4f} = {busy / t['tp']:.2f} of the back-to-back "
@@ -2423,8 +2481,9 @@ def phase_resnet_sweep(card: str):
 
 
 def phase_resnet18(card: str, ops_peak, bw):
-    """Phase 11: the conv_w8a8 forms, the card against the CPU, the
-    classify paths at b32 and b1 in each mode, the sweep."""
+    """Phase 11: the conv_w8a8 forms and the stem on conv_w8a8_rows, the
+    card against the CPU, the classify paths at b32 and b1 in each mode,
+    the sweep."""
     dev = torch.device("cuda")
     t0 = time.time()
     rows = phase_resnet_kernels(dev, ops_peak, bw)
@@ -2432,13 +2491,13 @@ def phase_resnet18(card: str, ops_peak, bw):
     t1 = time.time()
     phase_resnet_card_vs_cpu(card)
     t2 = time.time()
-    # the stem on im2col + gemm_fused (ragged, K 147), the other 19 convs
-    # on conv_w8a8
-    w8a8 = dict(conv_w8a8=19, gemm_fused=1)
+    # the stem on conv_w8a8_rows, the other 19 convs on conv_w8a8: no
+    # im2col, no gemm_fused
+    w8a8 = dict(conv_w8a8=19, conv_w8a8_rows=1)
     paths = {}
     for batch in (32, 1):
-        paths[f"w8a8 b{batch}"] = phase_resnet_path(
-            batch, "w8a8", w8a8, card, want_ragged=1, want_im2col=1)
+        paths[f"w8a8 b{batch}"] = phase_resnet_path(batch, "w8a8", w8a8,
+                                                    card)
         paths[f"w8 b{batch}"] = phase_resnet_path(batch, "w8", {}, card)
         paths[f"fp32 b{batch}"] = phase_resnet_path(
             batch, "fp32", dict(gemm_f32=11), card)
@@ -3990,6 +4049,9 @@ def main() -> int:
     rows.update(timed("conv_w8a8 kernel", phase_conv_w8a8,
                       torch.device("cuda"), ops_peak, bw))
     torch.cuda.empty_cache()
+    entry_rows = timed("conv_w8a8_rows kernel", phase_rows_kernel,
+                       torch.device("cuda"), ops_peak, bw)
+    torch.cuda.empty_cache()
     rows.update(timed("gemm_f32 kernel", phase_gemm_f32,
                       torch.device("cuda"), peaks_f32, bw))
     torch.cuda.empty_cache()
@@ -4067,8 +4129,15 @@ def main() -> int:
     rows["conv_w8a8"]["resnet18"] = {
         b: {k: v for k, v in r.items() if k != "stem"}
         for b, r in resnet_rows.items()}
-    rows["gemm_fused"]["resnet18_stem"] = {
-        b: r["stem"] for b, r in resnet_rows.items()}
+    # the row's figures are the ResNet-18 stem's at b32, its main path's
+    shapes = {**{f"resnet18 stem {b}": r["stem"]
+                 for b, r in resnet_rows.items()}, **entry_rows}
+    stem = shapes["resnet18 stem b32"]
+    rows["conv_w8a8_rows"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+        **{k: stem[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "im2col_gemm_ms")},
+        shapes=shapes)
     torch.cuda.empty_cache()
     prof = timed("profiling", phase_profiling, card)
     torch.cuda.empty_cache()
@@ -4087,21 +4156,23 @@ def main() -> int:
     # detect for the strategy plans' kernels, the S3 b32 detect for
     # stage0_fused, the b32 tail pass for conv3x3_bt (on no detect path),
     # the copy-engine tools' mains for conv_dma and tma_probe, and the
-    # YOLOv2 b32 fp32 detect (EngineConfig()'s defaults) for gemm_f32, and
-    # the (1, 2) mesh's rank 0 b32 detect for conv_w8a8's int32 form
+    # YOLOv2 b32 fp32 detect (EngineConfig()'s defaults) for gemm_f32, the
+    # (1, 2) mesh's rank 0 b32 detect for conv_w8a8's int32 form, and the
+    # ResNet-18 W8A8 b32 classify for the small-Cin form
     counts["tail"] = {"conv3x3_bt": tail_launches}
     counts["tools"] = tools_launches
     path_of = {"stem_fused_dg": "yolov3-tiny", "quant_space_to_depth4": "S1",
                "gmax_shift_s2d2": "S1", "conv3x3_rs": "S1",
                "stage0_fused": "S3", "conv3x3_bt": "tail",
                "conv_dma": "tools", "tma_probe": "tools",
-               "gemm_f32": "fp32", "conv_w8a8_acc": "multi-device"}
+               "gemm_f32": "fp32", "conv_w8a8_acc": "multi-device",
+               "conv_w8a8_rows": "resnet18"}
     kernels = []
     for kname, meta in KERNELS.items():
         path = path_of.get(kname, "yolov2-tiny")
         row = dict(name=kname, **meta, launches=counts[path][kname])
         row.update(rows[kname])
-        if counts["resnet18"].get(kname):
+        if path != "resnet18" and counts["resnet18"].get(kname):
             # the ResNet-18 W8A8 b32 classify's launches beside the row's
             # own path's
             row["resnet18_launches"] = counts["resnet18"][kname]

@@ -11,12 +11,16 @@ optionally, a fold stage's group-max) for every form that
 ``conv_w8a8_form`` gives it: the 3x3 SAME and shifted-fold 2x2 VALID
 convs of the plans and of ``Model.forward``, int8 or (a linear conv, no
 group-max) f32 out, and ResNet-18's stride-2 3x3 and 1x1 SAME convs. A
-1x1 stride-1 conv is the fused int8 GEMM (ops/gemm.py) on a view of the
-activation; the forms the kernel refuses (Cin % 16 != 0, any other
-kernel size, stride or padding: ResNet-18's 7x7/s2 stem, Cin 3) take an
-im2col and that GEMM. ``conv2d_w8a8_plain`` is the plain version of the
-whole function: ``conv_acc_plain``'s exact int32 product, then
-``conv_epilogue``.
+small Cin (Cin % 16 != 0, kw Cin <= 32: ResNet-18's 7x7/s2 stem and the
+YOLO models' 3x3 entry conv, Cin 3) takes ``csrc/conv_w8a8_rows.cu``,
+which reads the raw rows of the input into shared memory and each
+kernel row of a patch from them as one run of K. A 1x1 stride-1 conv is
+the fused int8 GEMM (ops/gemm.py) on a view of the activation; the forms
+both kernels refuse (``conv_w8a8_form``'s "im2col": a group-max or the
+int32 accumulator at such a Cin, kw Cin > 32, any other kernel size,
+stride or padding) take an im2col and that GEMM. ``conv2d_w8a8_plain``
+is the plain version of the whole function: ``conv_acc_plain``'s exact
+int32 product, then ``conv_epilogue``.
 
 ``conv2d_w8a8_acc`` is the int32-accumulator form of the same conv (XLA's
 int8 conv with ``preferred_element_type=int32``, no epilogue), which the
@@ -29,6 +33,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -133,9 +138,10 @@ FIXUP_STAGES = 8
 
 class ConvForm(NamedTuple):
     """How ``conv2d_w8a8`` runs a conv on the card. ``route``: "patch" or
-    "tap" (the kernel, by its two ways of bringing A to wgmma), "gemm" (a
-    1x1 conv: ``gemm_fused`` on a view of the activation) or "im2col" (a
-    form the kernel refuses: im2col + ``gemm_fused``).
+    "tap" (the kernel, by its two ways of bringing A to wgmma), "rows"
+    (the small-Cin kernel, ``rows_plan``), "gemm" (a 1x1 conv:
+    ``gemm_fused`` on a view of the activation) or "im2col" (a form the
+    kernels refuse: im2col + ``gemm_fused``).
     ``kb``: bytes of Cin a patch step (the boxes' inner extent); ``steps``
     a tile's K steps (patch: k tap rows x ceil(Cin/kb); tap: 9 taps x
     Cin/128 chunks); ``tiles`` block tiles, ``grid`` persistent blocks.
@@ -263,6 +269,13 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
     before any launch:
 
     - kh = kw = 1, stride 1: "gemm" (the conv is the GEMM of a view);
+    - "rows" (``csrc/conv_w8a8_rows.cu``, ``rows_plan``) for a small Cin:
+      Cin % 16 != 0 with kw Cin <= 32, a square odd k up to 7, SAME
+      padding, stride 1 or 2, Cout 16 or 64, int8 output in the conv
+      order or f32 output, no group-max, no ``raw`` and no trim
+      (ResNet-18's 7x7/s2 stem and the YOLO models' 3x3 entry conv, Cin
+      3): ``kb`` the bytes of K a kernel row, ``steps`` its k32 steps,
+      ``tiles`` its units, ``grid`` its blocks;
     - the kernel's forms, Cin % 16 == 0, int8 output in the conv order
       (``quantized``, an s_out), f32 or (``raw``) the int32 accumulator
       (neither with ``gmax``), and at stride 1 k =
@@ -279,15 +292,20 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
         projections of ResNet-18 too, which took 0.0419 ms at b32 where
         ``gemm_fused`` on one strided copy took 0.0473, PERF.md);
       each with ``conv_schedule``'s schedule;
-    - anything else: "im2col" (ROADMAP B13).
+    - anything else: "im2col" (ROADMAP B13b).
 
-    ``raw`` (``conv2d_w8a8_acc``) takes the routes of the f32 output.
+    ``raw`` (``conv2d_w8a8_acc``) takes the routes of the f32 output but
+    "rows".
     """
     if raw and (gmax or quantized):
         raise ValueError("conv_w8a8_form: the int32 accumulator has no "
                          "codes and no group-max")
     if kh == kw == 1 and stride == 1 and not gmax:
         return ConvForm("gemm")
+    if (not raw and not gmax and out_hw is None
+            and rows_takes(cin, cout, kh, kw, stride, padding)):
+        p = rows_plan(n, h, w, cin, cout, kh, stride, sms)
+        return ConvForm("rows", p.run, p.ksteps, p.units, p.grid)
     if stride == 1:
         k_ok = (kh, kw, padding) in ((3, 3, "SAME"), (2, 2, "VALID"))
     else:
@@ -310,6 +328,186 @@ def conv_w8a8_form(n: int, h: int, w: int, cin: int, cout: int, kh: int,
         steps, step_bytes = kh * -(-cin // kb), kw * kb
     return ConvForm(route, kb, steps, tiles,
                     *conv_schedule(tiles, steps, step_bytes, sms))
+
+
+# The small-Cin conv (csrc/conv_w8a8_rows.cu, the "rows" route): a unit is
+# ROWS_TILE * t consecutive output pixels of one image, t from
+# ROWS_UNIT_TILES; a block of 256 threads (two warpgroups) stages a
+# unit's input rows, and each warpgroup runs every other 64-pixel tile.
+ROWS_COUTS = (16, 64)           # one wgmma m64nNk32 n-tile
+ROWS_MAX_RUN = 32               # most bytes of a kernel row, kw * Cin
+ROWS_MAX_K = 7
+ROWS_TILE = 64
+ROWS_UNIT_TILES = (16, 8, 6, 4, 2)
+ROWS_BLOCKS_PER_SM = 2
+# a unit's fixed cost (its stage, two block barriers, the first tile's
+# wait), in tiles: weighs fewer, larger units against the last round's
+# idle blocks
+ROWS_UNIT_COST = 2
+
+
+class RowsPlan(NamedTuple):
+    """The geometry of one launch of the "rows" kernel, computed here and
+    passed to it (and replayed by the CPU tests):
+
+    - ``run``: bytes of K a kernel row, kw Cin rounded up to 4 (its last
+      bytes meet zero rows of B); ``ksteps``: k32 steps over kh runs;
+    - ``pt``, ``pl``: XLA's SAME pads before the rows and the columns
+      (``_same_pads``: (2, 3) at 224 px for k7/s2);
+    - a staged row is ``rb`` bytes: ``padb`` zero bytes (pl Cin rounded
+      up to 16, so that an input row lands 16-byte aligned), the input
+      row's W Cin bytes, then zeros past every byte a pixel reads;
+      output pixel (oy, ox) of a unit staged from output row y0 reads
+      kernel row i at staged row stride (oy - y0) + i, from byte
+      ``stride ox Cin + padb - pl Cin`` (any phase mod 4);
+    - ``upx``: output pixels a unit; ``nr``: the most staged rows a unit
+      needs; ``units_img`` units an image, ``units`` in all; ``grid``
+      persistent blocks, block b taking units b, b + grid, ..."""
+    run: int
+    ksteps: int
+    pt: int
+    pl: int
+    ho: int
+    wo: int
+    padb: int
+    rb: int
+    upx: int
+    nr: int
+    units_img: int
+    units: int
+    grid: int
+
+
+def rows_takes(cin: int, cout: int, kh: int, kw: int, stride: int,
+               padding) -> bool:
+    """The conv shapes the "rows" kernel takes (``conv_w8a8_form``)."""
+    return (cin % 16 != 0 and kw * cin <= ROWS_MAX_RUN and kh == kw
+            and kh % 2 == 1 and kh <= ROWS_MAX_K and stride in (1, 2)
+            and padding == "SAME" and cout in ROWS_COUTS)
+
+
+@functools.lru_cache(maxsize=256)
+def rows_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
+              stride: int, sms: int = H100_SMS) -> RowsPlan:
+    """The "rows" kernel's geometry and schedule (``RowsPlan``) for an (n,
+    h, w, cin) input and a k x k SAME conv at ``stride``. The unit size
+    is the one of ROWS_UNIT_TILES whose rounds of ROWS_BLOCKS_PER_SM
+    blocks an SM cost least, a round costing its tiles a block plus
+    ROWS_UNIT_COST (the larger on a tie)."""
+    run = -(-(k * cin) // 4) * 4
+    ksteps = -(-(k * run) // 32)
+    pt, _ = _same_pads(h, k, stride)
+    pl, pr = _same_pads(w, k, stride)
+    ho, wo = -(-h // stride), -(-w // stride)
+    padb = -(-(pl * cin) // 16) * 16
+    # the last pixel's run starts (w + pr - k) Cin bytes into the row and
+    # a 4-byte group is read as two aligned words: up to run + 3 past it
+    rb = -(-(padb + (w + pr - k) * cin + run + 4) // 16) * 16
+    slots = ROWS_BLOCKS_PER_SM * sms
+    best = None
+    for t in ROWS_UNIT_TILES:
+        upx = ROWS_TILE * t
+        units_img = -(-(ho * wo) // upx)
+        cost = -(-(n * units_img) // slots) * (t + ROWS_UNIT_COST)
+        if best is None or cost < best[0]:
+            best = (cost, upx, units_img)
+    _, upx, units_img = best
+    # a unit's pixels span at most this many output rows past its first
+    dy = min(ho - 1, (upx - 1) // wo + 1)
+    units = n * units_img
+    return RowsPlan(run, ksteps, pt, pl, ho, wo, padb, rb, upx,
+                    stride * dy + k, units_img, units, max(min(units, slots),
+                                                           1))
+
+
+def rows_tile_index(cin: int, cout: int, k: int) -> torch.Tensor:
+    """(cout, k k cin) int64: where weight (o, i, dx, ci) (the HWIO
+    reshape's column o, K index (i k + dx) cin + ci) lies in
+    ``rows_tile_matrix``: K byte kk = i run + dx cin + ci, in K atom kk //
+    128 (cout rows of 128 bytes each), row o, 16-byte chunk (kk % 128) //
+    16 XOR o % 8 (wgmma's 128-byte swizzle)."""
+    run = -(-(k * cin) // 4) * 4
+    i = torch.arange(k).view(-1, 1)
+    kk = (i * run + torch.arange(k * cin).view(1, -1)).reshape(1, -1)
+    o = torch.arange(cout).view(-1, 1)
+    c = kk % 128
+    return ((kk // 128) * cout * 128 + o * 128
+            + (((c // 16) ^ (o % 8)) * 16) + c % 16)
+
+
+def rows_tile_bytes(cin: int, cout: int, k: int) -> int:
+    """Bytes of ``rows_tile_matrix``: the K atoms of ksteps k32 steps."""
+    run = -(-(k * cin) // 4) * 4
+    return -(-(-(-(k * run) // 32) * 32) // 128) * cout * 128
+
+
+def rows_tile_matrix(wq: torch.Tensor) -> torch.Tensor:
+    """(k, k, Cin, Cout) int8 weights -> the B tile the "rows" kernel
+    copies into shared memory once a block: the (Cout, K) K-major matrix
+    with each kernel row's kw Cin bytes one run of ``run`` bytes (zeros
+    after them and past the last run), in wgmma's 128-byte swizzled
+    layout (``rows_tile_index``). Made once and cached on ``wq`` (until
+    ``wq`` is written in place)."""
+    cached = getattr(wq, "_rows_tile", None)
+    if cached is not None and cached[0] == wq._version:
+        return cached[1]
+    k, _, cin, cout = (int(d) for d in wq.shape)
+    out = wq.new_zeros(rows_tile_bytes(cin, cout, k))
+    out[rows_tile_index(cin, cout, k).reshape(-1).to(wq.device)] = (
+        wq.reshape(k * k * cin, cout).T.reshape(-1))
+    wq._rows_tile = (wq._version, out)
+    return out
+
+
+def conv_w8a8_rows(x: torch.Tensor, tile: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, s_out: Optional[Scale], k: int,
+                   stride: int, act: str, p: RowsPlan) -> torch.Tensor:
+    """One launch of ``csrc/conv_w8a8_rows.cu`` on operands ``conv2d_w8a8``
+    prepared: x (N, H, W, Cin) int8 on the card, ``tile`` the
+    ``rows_tile_matrix`` of the (k, k, Cin, Cout) weights, scale =
+    s_in*s_w and bias (Cout,) float32, the plan ``p`` (``rows_plan``).
+    Returns (N, Ho, Wo, Cout) int8 codes in the conv order (requant.cuh
+    MODE 0, or 4 for an s_out that is not a positive normal float), or
+    with ``s_out`` None the float32 act(acc*scale + bias); counts in
+    ``conv_w8a8_rows.launches``."""
+    if x.dtype != torch.int8 or tile.dtype != torch.int8:
+        raise TypeError(f"conv_w8a8_rows takes int8 x and weights, got "
+                        f"{x.dtype} and {tile.dtype}")
+    if any(t.device.type != "cuda" or t.device != x.device
+           for t in (x, tile, scale, bias)):
+        raise ValueError("conv_w8a8_rows: all operands on one CUDA device")
+    n, h, w, cin = (int(d) for d in x.shape)
+    cout = int(scale.shape[0])
+    if (cout not in ROWS_COUTS or tile.numel() != rows_tile_bytes(cin, cout, k)
+            or not rows_takes(cin, cout, k, k, stride, "SAME")):
+        raise ValueError(f"conv_w8a8_rows: x {tuple(x.shape)}, k {k}, "
+                         f"stride {stride}, Cout {cout}: not the kernel's "
+                         f"form")
+    x = x.contiguous()
+    tile, scale = tile.contiguous(), scale.contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    out_kind = int(s_out is None)
+    out = torch.empty((n, p.ho, p.wo, cout),
+                      dtype=torch.float32 if out_kind else torch.int8,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("conv_w8a8_rows", "conv_w8a8_rows",
+                         [ptr, ptr, ptr, ptr, ctypes.c_float, ptr] + [i] * 22
+                         + [ptr])
+    err = fn(x.data_ptr(), tile.data_ptr(), scale.data_ptr(),
+             bias.data_ptr(), float(s_out) if out_kind == 0 else 0.0,
+             out.data_ptr(), n, h, w, cin, cout, k, stride, p.pt, p.pl,
+             p.ho, p.wo, p.run, p.ksteps, p.padb, p.rb, p.upx, p.nr,
+             p.units_img, p.grid, KERNEL_ACT_CODES[act], out_kind,
+             int(x.data_ptr() % 16 == 0), _build.stream_ptr(x.device))
+    conv_w8a8_rows.launches += 1
+    _build.check(err, "conv_w8a8_rows")
+    return out
+
+
+conv_w8a8_rows.launches = 0
 
 
 def _patches(xq, kh, kw, stride, padding, out_hw):
@@ -408,11 +606,12 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
 
     It takes the route ``conv_w8a8_form`` gives: the kernel
     (``csrc/conv_w8a8.cu``, counted in ``conv2d_w8a8.launches`` where it
-    launches), ``gemm_fused`` on a 1x1 conv's view, or an im2col and
-    ``gemm_fused`` for the forms the kernel refuses (counted on the card
-    in ``conv2d_w8a8.im2col_launches``). On a CPU tensor the kernel's
-    route is the plain version (and ``gemm_fused`` its own); on a CUDA
-    tensor the kernel launches or the wrapper raises."""
+    launches), the small-Cin kernel (``conv_w8a8_rows``, counted in
+    ``conv_w8a8_rows.launches``), ``gemm_fused`` on a 1x1 conv's view, or
+    an im2col and ``gemm_fused`` for the forms both kernels refuse
+    (counted on the card in ``conv2d_w8a8.im2col_launches``). On a CPU
+    tensor a kernel's route is the plain version (and ``gemm_fused`` its
+    own); on a CUDA tensor the kernel launches or the wrapper raises."""
     kh, kw, cin, cout = (int(d) for d in wq.shape)
     if xq.ndim != 4 or xq.shape[3] != cin:
         raise ValueError(f"conv2d_w8a8: x {tuple(xq.shape)} against w "
@@ -435,12 +634,17 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
     if cpu:
         return conv2d_w8a8_plain(xq, s_in, wq, s_w, b, act, stride, padding,
                                  s_out, wt, out_hw, gmax)
+    scale = f32_scalar(s_in, xq.device) * s_w
+    if f.route == "rows":
+        return conv_w8a8_rows(xq, rows_tile_matrix(wq), scale, b, s_out, kh,
+                              stride, act,
+                              rows_plan(n, h, w, cin, cout, kh, stride,
+                                        _build.sm_count(xq.device)))
     go = cout // 4 if gmax else 0
     if go:
         bt = rs_tile_matrix(wq, go)       # made once, cached on wq
     else:
         bt = wt if wt is not None else kmajor_weights(wq)
-    scale = f32_scalar(s_in, xq.device) * s_w
     ho, wo = conv_out_hw(h, w, kh, padding, out_hw, stride)
     return conv_w8a8_launch(xq, bt, scale, b, s_out, kh, ho, wo, go, act, f,
                             stride)
@@ -561,7 +765,6 @@ conv2d_w8a8.launches = 0
 # of those, the int32-accumulator form's (conv2d_w8a8_acc): the
 # row-parallel conv of a channel-sharded forward
 conv2d_w8a8.acc_launches = 0
-# convs in a form the kernel refuses (conv_w8a8_form's "im2col" route):
-# on the YOLO plans' paths none; Model.forward's entry conv (Cin 3) and
-# ResNet-18's 7x7/s2 stem (Cin 3)
+# convs in a form both kernels refuse (conv_w8a8_form's "im2col" route):
+# on no ported path (the plans, Model.forward, ResNet-18)
 conv2d_w8a8.im2col_launches = 0

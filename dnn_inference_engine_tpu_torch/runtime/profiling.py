@@ -144,7 +144,8 @@ def kernel_counters() -> Dict[str, Callable]:
             "stage0_fused": stage0.stage0_fused,
             "conv3x3_bt": tail.conv3x3_bt,
             "conv_dma": pc.conv_dma, "tma_probe": pr.probe,
-            "conv_w8a8": cv.conv2d_w8a8, "nms_suppress": post.nms_suppress}
+            "conv_w8a8": cv.conv2d_w8a8, "conv_w8a8_rows": cv.conv_w8a8_rows,
+            "nms_suppress": post.nms_suppress}
 
 
 def reset_counts() -> None:
@@ -182,6 +183,7 @@ KERNEL_GROUPS = (("gemm_fused", "gemm_fused_kernel"),
                  ("conv_w8a8", "conv_patch_kernel"),
                  ("conv_w8a8", "conv_window_kernel"),
                  ("conv_w8a8", "conv_tap_kernel"),
+                 ("conv_w8a8_rows", "conv_rows_kernel"),
                  ("shift_s2d2", "shift_s2d2_kernel"),
                  ("nms_suppress", "nms_suppress_kernel"),
                  ("im2col and route torch.cat", "CatArrayBatchedCopy"),

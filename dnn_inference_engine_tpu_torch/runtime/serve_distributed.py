@@ -257,7 +257,6 @@ class DistributedBatcher(ContinuousBatcher):
         self._step_no = 0
         self._fatal: Optional[BaseException] = None
         self._wire_closed = False
-        self._headers_out = False
         if self._nproc > 1:
             if engine.mesh is None:
                 raise ValueError("several ranks need the engine's mesh "
@@ -266,21 +265,30 @@ class DistributedBatcher(ContinuousBatcher):
             self._rows = _proc_rows(engine.mesh, self.max_batch)
 
     def submit(self, image: np.ndarray):
+        """As ``ContinuousBatcher.submit``; raises once the loop has stopped
+        on a lockstep failure. A request that passes that check while the
+        loop goes fatal may be queued after the loop's last drain
+        (``_fail_queued``), with no loop left to take it: so the queue is
+        drained again after the put whenever the loop has gone fatal by
+        then, and every future handed out resolves."""
         if self._fatal is not None:
             raise RuntimeError(
                 "distributed serving loop stopped after a lockstep "
                 f"failure: {self._fatal!r}")
-        return super().submit(image)
+        fut = super().submit(image)
+        if self._fatal is not None:
+            self._fail_queued(self._fatal)
+        return fut
 
     def _step(self, x: np.ndarray):
         """Send the followers their rows, run the sharded detect on this
         rank's, gather: (boxes, scores, classes) of every row, tensors.
 
         All fallible local work (placing the rows, the dead-follower
-        check) comes before the step's headers; once they are out, an
-        exception desyncs the lockstep, and the caller treats it as
-        fatal."""
-        self._headers_out = False
+        check) comes before the step's headers. With several ranks the
+        caller treats every failure of a step as fatal, before the
+        headers or after them: a failure after them desyncs the lockstep,
+        and one before them (a follower recorded dead) ends the run."""
         if self._nproc == 1:
             return self._rep(self.engine.detect_device(x))
         s = self._step_no
@@ -295,7 +303,6 @@ class DistributedBatcher(ContinuousBatcher):
                                 x[plo:phi].tobytes())
         for p in range(1, self._nproc):
             self._wire.set_header(s, p, _H_DATA)
-        self._headers_out = True
         self._step_no += 1
         return self._rep(self.engine.detect_fn()(xl))
 

@@ -20,6 +20,10 @@ Modes:
   crash   the leader stops its loop without the shutdown headers after
           serving and goes quiet; every follower must return on its
           header timeout
+  race    a submit that passes the fatal check, then the loop's step
+          fails (fatal) and it drains the queue, then the submit's put:
+          the request's future must still resolve with the step's
+          exception; every follower returns on the shutdown header
   fdead   a follower times out (no keepalives) and marks itself dead;
           the leader's next submit must fail fast, and later submits
           raise
@@ -156,8 +160,9 @@ def run_serve(mode, rank, world, d):
                 sizes.append(len(p))
             return p
         sd._KVWire.recv = spy
-        if mode == "fdead":
-            served = sd.follower_loop(eng, leader_timeout_s=4.0)
+        if mode in ("fdead", "race"):
+            served = sd.follower_loop(
+                eng, leader_timeout_s=4.0 if mode == "fdead" else 120.0)
             assert served == 0, served
             print(f"RANK_OK {mode} {rank}", flush=True)
             os._exit(0)          # the leader is still up: no teardown
@@ -170,6 +175,10 @@ def run_serve(mode, rank, world, d):
             print(f"RANK_OK {mode} {rank} served={served}", flush=True)
             os._exit(0)          # the wedged leader never tears down
         return
+    if mode == "race":
+        run_race(sd, eng, imgs)
+        print(f"RANK_OK {mode} {rank}", flush=True)
+        os._exit(0)
     ref = Engine(config("yolov2-tiny", "auto"), device="cpu").load_weights(
         os.path.join(d, "yolov2-tiny.npz")).prepare()
     if mode == "fdead":
@@ -221,6 +230,47 @@ def run_serve(mode, rank, world, d):
         print(f"RANK_OK {mode} {rank}", flush=True)
         os._exit(42)
     assert b.stats()["images"] == len(imgs) + (mode == "serve")
+
+
+def run_race(sd, eng, imgs):
+    """The leader's side of ``race``: the order submit's fatal check, the
+    loop's fatal step and drain, submit's put, forced by a put that waits
+    for the drain (``_fail_queued``) and a step that raises."""
+    import threading
+    b = sd.DistributedBatcher(eng)
+    b.keepalive_s = 3600.0
+    fail = RuntimeError("forced step failure")
+
+    def step(x):
+        raise fail
+    b._step = step
+    drained, entered = threading.Event(), threading.Event()
+    fail_queued = b._fail_queued
+
+    def drain(exc):
+        fail_queued(exc)
+        drained.set()
+    b._fail_queued = drain
+    put = b.q.put
+
+    def gated_put(item, *args, **kw):
+        if item[0] is imgs[1]:
+            entered.set()
+            assert drained.wait(60), "the loop never drained"
+        return put(item, *args, **kw)
+    b.q.put = gated_put
+    b.start()
+    late = []
+    t = threading.Thread(target=lambda: late.append(b.submit(imgs[1])))
+    t.start()
+    assert entered.wait(60), "the late submit never reached its put"
+    first = b.submit(imgs[0])            # the step that goes fatal
+    assert first.exception(timeout=60) is fail
+    t.join(60)
+    assert late, "the late submit did not return"
+    # the late request was queued after the loop's last drain
+    assert late[0].exception(timeout=5) is fail
+    b.stop()
 
 
 def run_timing(rank, d, mesh):

@@ -1221,32 +1221,97 @@ def test_conv_w8a8_schedules_match_plain(cuda, deadline, case, schedule):
 
 
 def test_conv_w8a8_refused_forms_take_the_im2col_route(cuda):
-    """Cin % 16 != 0 (a 3x3 or a 7x7/s2 stem) takes the im2col +
-    gemm_fused route (its own counter, no kernel launch); f32 output from
-    a 3x3 conv and the stride-2 forms (3x3 int8 out, 1x1 f32 out) take
-    the kernel; a 1x1 stride-1 conv the GEMM on a view
-    (neither counter); each equals the plain version, bit for bit."""
+    """Cin % 16 != 0 takes the small-Cin kernel (conv_w8a8_rows, its own
+    counter) where kw Cin <= 32, k <= 7 and Cout is 16 or 64 (a 3x3 or a
+    7x7/s2 stem at Cin 3), else the im2col + gemm_fused route (its own
+    counter, no kernel launch: Cout 32, Cin 12 at k3, Cin 3 at k9, and a
+    group-max at Cin 3); f32
+    output from a 3x3 conv and the stride-2 forms (3x3 int8 out, 1x1 f32
+    out) take the conv_w8a8 kernel; a 1x1 stride-1 conv the GEMM on a
+    view (no counter); each equals the plain version, bit for bit."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     g = torch.Generator(device=cuda).manual_seed(5)
-    # (x shape, k, stride, s_out, kernel launches, im2col launches)
-    cases = [((2, 20, 20, 3), 3, 1, 0.05, 0, 1),
-             ((2, 20, 20, 3), 7, 2, None, 0, 1),
-             ((2, 13, 13, 64), 3, 1, None, 1, 0),
-             ((2, 14, 14, 32), 3, 2, 0.05, 1, 0),
-             ((2, 13, 15, 128), 3, 2, 0.05, 1, 0),
-             ((2, 14, 14, 64), 1, 2, None, 1, 0),
-             ((2, 13, 13, 64), 1, 1, 0.05, 0, 0),
-             ((2, 13, 13, 64), 1, 1, None, 0, 0)]
-    for xs, k, stride, s_out, kern, im2col in cases:
-        x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, 32, 0.05)
-        before = (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches)
-        got = cv.conv2d_w8a8(x, s_in, w, s_w, b, stride=stride, s_out=s_out)
-        assert (cv.conv2d_w8a8.launches, cv.conv2d_w8a8.im2col_launches) == (
-            before[0] + kern, before[1] + im2col), (xs, k, stride, s_out)
-        ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, stride=stride,
-                                   s_out=s_out)
+    # (x shape, k, stride, Cout, s_out, group-max, conv_w8a8, rows and
+    # im2col launches)
+    cases = [((2, 20, 20, 3), 3, 1, 16, 0.05, False, 0, 1, 0),
+             ((2, 20, 20, 3), 7, 2, 64, None, False, 0, 1, 0),
+             ((2, 20, 20, 3), 3, 1, 32, 0.05, False, 0, 0, 1),
+             ((2, 20, 20, 12), 3, 1, 16, 0.05, False, 0, 0, 1),
+             ((2, 20, 20, 3), 9, 1, 64, 0.05, False, 0, 0, 1),
+             ((2, 20, 20, 3), 3, 1, 64, 0.05, True, 0, 0, 1),
+             ((2, 13, 13, 64), 3, 1, 32, None, False, 1, 0, 0),
+             ((2, 14, 14, 32), 3, 2, 32, 0.05, False, 1, 0, 0),
+             ((2, 13, 15, 128), 3, 2, 32, 0.05, False, 1, 0, 0),
+             ((2, 14, 14, 64), 1, 2, 32, None, False, 1, 0, 0),
+             ((2, 13, 13, 64), 1, 1, 32, 0.05, False, 0, 0, 0),
+             ((2, 13, 13, 64), 1, 1, 32, None, False, 0, 0, 0)]
+
+    def counts():
+        return (cv.conv2d_w8a8.launches, cv.conv_w8a8_rows.launches,
+                cv.conv2d_w8a8.im2col_launches)
+    for xs, k, stride, cout, s_out, gmax, kern, rows, im2col in cases:
+        x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, cout, 0.05, gmax)
+        kw = dict(stride=stride, s_out=s_out, gmax=gmax)
+        before = counts()
+        got = cv.conv2d_w8a8(x, s_in, w, s_w, b, **kw)
+        assert counts() == (before[0] + kern, before[1] + rows,
+                            before[2] + im2col), (xs, k, stride, s_out)
+        ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (xs, k, stride, s_out)
+
+
+# the small-Cin kernel (conv_w8a8_rows): ResNet-18's stem (224 px, k7/s2,
+# Cin 3 -> 64, relu) and the YOLO entry conv (416 px, k3/s1, Cin 3 -> 16,
+# leaky) at their batches, f32 output, mode 4 (an s_out that is not a
+# normal float), odd sizes and a misaligned x (rows staged word by word
+# from device memory), Cin 8 and 5: (tag, x shape, k, stride, Cout,
+# s_out, act)
+ROWS_CASES = [("r18 stem b2", (2, 224, 224, 3), 7, 2, 64, 0.05, "relu"),
+              ("r18 stem b1", (1, 224, 224, 3), 7, 2, 64, 0.05, "relu"),
+              ("r18 stem b2 f32", (2, 224, 224, 3), 7, 2, 64, None,
+               "linear"),
+              ("yolo entry b2", (2, 416, 416, 3), 3, 1, 16, 0.05, "leaky"),
+              ("yolo entry b8", (8, 416, 416, 3), 3, 1, 16, 0.05, "leaky"),
+              ("yolo entry b1 f32", (1, 416, 416, 3), 3, 1, 16, None,
+               "leaky"),
+              ("mode 4", (2, 20, 20, 3), 3, 1, 16, 1e-39, "leaky"),
+              ("odd 31x29 k7s2", (2, 31, 29, 3), 7, 2, 64, 0.05, "relu"),
+              ("odd 21x19 k3s1", (3, 21, 19, 3), 3, 1, 16, 0.05, "leaky"),
+              ("odd k3s2", (2, 17, 23, 3), 3, 2, 16, None, "relu"),
+              ("cin 8 k3", (2, 14, 14, 8), 3, 1, 16, 0.05, "leaky"),
+              ("cin 5 k5s2", (2, 15, 16, 5), 5, 2, 64, 0.05, "linear"),
+              ("misaligned x", (2, 32, 32, 3), 7, 2, 64, 0.05, "relu")]
+
+
+@pytest.mark.parametrize("case", ROWS_CASES, ids=[c[0] for c in ROWS_CASES])
+def test_conv_w8a8_rows_matches_plain(cuda, deadline, case):
+    """conv2d_w8a8's "rows" route: one conv_w8a8_rows launch, no other
+    kernel and no im2col, equal to conv2d_w8a8_plain bit for bit (codes,
+    and the f32 outputs: the same rounding order)."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    tag, xs, k, stride, cout, s_out, act = case
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x, w, s_in, s_w, b = _conv_inputs(g, cuda, xs, k, cout,
+                                      s_out or 0.05)
+    if tag == "misaligned x":
+        buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
+        x = buf[1:].view(xs).copy_(x)
+        assert x.data_ptr() % 16
+    assert cv.conv_w8a8_form(*xs, cout, k, k, stride, "SAME", None,
+                             s_out is not None).route == "rows", tag
+    before = (cv.conv2d_w8a8.launches, cv.conv_w8a8_rows.launches,
+              cv.conv2d_w8a8.im2col_launches, gm.gemm_fused.launches)
+    got = cv.conv2d_w8a8(x, s_in, w, s_w, b, act=act, stride=stride,
+                         s_out=s_out)
+    assert (cv.conv2d_w8a8.launches, cv.conv_w8a8_rows.launches,
+            cv.conv2d_w8a8.im2col_launches, gm.gemm_fused.launches) == (
+        before[0], before[1] + 1, before[2], before[3]), tag
+    ref = cv.conv2d_w8a8_plain(x, s_in, w, s_w, b, act=act, stride=stride,
+                               s_out=s_out)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), (tag, int((got != ref).sum()))
 
 
 # conv_w8a8's int32-accumulator form at the row-parallel convs' shards

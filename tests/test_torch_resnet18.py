@@ -334,10 +334,11 @@ def resnet_convs(batch, size=224):
 
 @pytest.mark.parametrize("batch", [32, 1])
 def test_conv_w8a8_form_at_resnet18_shapes(batch):
-    """conv_w8a8_form at 224 px: the stem (7x7/s2, Cin 3) is the one
-    im2col; the 3x3/s2 convs take the kernel's stride-2 PATCH form; the
-    linear 3x3 convs (f32 out) PATCH at 56 px, TAP at 28, 14 and 7; the
-    1x1/s2 projections the stride-2 PATCH form too."""
+    """conv_w8a8_form at 224 px: no conv takes the im2col route; the stem
+    (7x7/s2, Cin 3) takes the small-Cin kernel ("rows"); the 3x3/s2 convs
+    take the kernel's stride-2 PATCH form; the linear 3x3 convs (f32 out)
+    PATCH at 56 px, TAP at 28, 14 and 7; the 1x1/s2 projections the
+    stride-2 PATCH form too."""
     convs = resnet_convs(batch)
     assert len(convs) == 20
     routes = {}
@@ -347,8 +348,8 @@ def test_conv_w8a8_form_at_resnet18_shapes(batch):
         routes[li] = f.route
         if f.route in ("patch", "tap"):
             assert f.tiles > 0 and 0 < f.grid <= tconv.H100_SMS
-    assert routes[0] == "im2col"
-    assert [li for li, r in routes.items() if r == "im2col"] == [0]
+    assert routes[0] == "rows"
+    assert [li for li, r in routes.items() if r == "im2col"] == []
     assert {routes[li] for li in (8, 16, 24)} == {"patch"}
     assert {routes[li] for li in (11, 19, 27)} == {"patch"}
     assert [routes[li] for li in (2, 3, 5, 6)] == ["patch"] * 4

@@ -11,18 +11,33 @@ W8A8 under its pin, channel-sharded.
 - a follower that times out marks itself dead: the leader's next step
   fails fast, and later submits raise;
 - a leader that stops without the shutdown headers: every follower
-  returns on its header timeout (2 and 4 ranks).
-Every spawn has a timeout of its own.
+  returns on its header timeout (2 and 4 ranks);
+- a submit that passes the fatal check before the loop's step fails and
+  puts its request after the loop's last drain still gets a future that
+  resolves with the step's exception (ROADMAP C8).
+Every spawn has a timeout of its own. The module runs on one thread
+(ROADMAP C5); each rank does too.
 """
 
 import socket
 
 import numpy as np
 import pytest
+import threadpoolctl
+import torch
 
 import _torch_dist as td
 
 pytestmark = pytest.mark.subproc
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpoolctl.threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(torch_threads)
 
 
 @pytest.fixture(scope="module")
@@ -110,3 +125,12 @@ def test_follower_death_fails_the_leader_fast(d):
 def test_leader_crash_every_follower_exits_cleanly(d, world):
     outs = td.spawn("crash", world, d, timeout=180)
     td.check_ranks(outs, "crash", rcs=[42] + [0] * (world - 1))
+
+
+def test_submit_racing_the_fatal_step_resolves(d):
+    """The order submit's fatal check, the loop's fatal step and its drain,
+    then submit's put (forced on two ranks by a put that waits for the
+    drain): the late request's future resolves with the step's exception
+    within seconds instead of waiting for ever."""
+    outs = td.spawn("race", 2, d, timeout=180)
+    td.check_ranks(outs, "race")
