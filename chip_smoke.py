@@ -3,6 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --qs2d4-ab DIR   # quant_space_to_depth4 against
                                           # the checkout in DIR, in turns
+    python3 chip_smoke.py --rows-ab DIR    # conv_w8a8_rows the same way
+    python3 chip_smoke.py --rows-sweep     # conv_w8a8_rows under every
+                                          # unit size and 1-3 blocks an SM
     python3 chip_smoke.py --front-door    # phase 10 alone
     python3 chip_smoke.py --resnet18      # phase 11 alone
     python3 chip_smoke.py --profiling     # phase 12 alone
@@ -36,7 +39,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    previous kernel's time and the kernel's other schedules on the same
    inputs (round robin or stream-K), each bit for bit; its small-Cin
    kernel conv_w8a8_rows at the generic forward's entry conv (3x3, Cin 3
-   -> 16, 416 px, b2 and b8) the same way, beside the route it replaced;
+   -> 16, 416 px, b2 and b8) the same way, and its uint8 form (the wire
+   batch read through the code table), beside the route it replaced and
+   the epilogue's issue bound (its instructions an output from
+   ``cuobjdump -sass`` of the built library; the run fails where they
+   cannot be counted; to time another checkout's kernel in turns on one
+   card: ``python3 chip_smoke.py --rows-ab DIR``);
    the per-tap stem is timed beside
    the k2 stem on the same inputs (b16 and b1), with the k2 stem's own
    b32 time beside them; then the attic kernels: stage0_fused
@@ -149,14 +157,17 @@ Phases (each raises on failure, and the script then exits non-zero):
    beside the im2col + ``gemm_fused`` route, ``torch._int_mm`` on the
    im2col'd A and the bound (a 1x1/s2 conv's bytes count the quarter of
    the input it reads); the stem (7x7/s2, Cin 3) on the small-Cin kernel
-   conv_w8a8_rows the same way, timed beside the route it replaced
-   (im2col + ``gemm_fused``'s ragged form); card against CPU at b2 in
+   conv_w8a8_rows the same way (int8 and uint8 forms), timed beside the
+   route it replaced (im2col + ``gemm_fused``'s ragged form); card
+   against CPU at b2 in
    w8a8 (every plan stage's entry state up to the pool identical, the
    logits within RESNET_LOGIT_TOL), fp32 and w8; ``classify`` at b32 and
    b1 in each mode with its launch counts (W8A8: 19 conv_w8a8, 1
    conv_w8a8_rows, no gemm_fused, no im2col; fp32: 11 gemm_f32; w8:
    none), every conv_w8a8 and conv_w8a8_rows launch of a W8A8 classify
-   bit for bit, throughput,
+   bit for bit (the stem's on the uint8 wire), the stem stage one
+   conv_w8a8_rows launch that dispatches no other PyTorch operation but
+   its output's allocation, throughput,
    latency and the device breakdown; and ``plan-sweep --quick`` at b32 in
    w8a8;
 12. profiling: one conv_w8a8 launch traced inside a stage scope must
@@ -414,7 +425,10 @@ def phase_build():
     print(f"build: {len(reports)} kernels in {time.time() - t0:.1f} s")
     for name, rep in reports.items():
         for line in (rep or "").splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "Performance Loss" in line
+                    or ("spill" in line and " 0 bytes spill stores" not in
+                        line)):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -1456,51 +1470,69 @@ class GemmShapes:
 class ConvCheck:
     """While active, keeps the inputs and output of every ``conv2d_w8a8``
     call that launches the conv_w8a8 kernel or the small-Cin kernel
-    (conv_w8a8_rows; each module of the port that calls the wrapper, but
-    ops/conv.py itself, gets a recorder in its place, so the wrapper's own
-    counters still count); ``verify`` then holds each output to
-    ``conv2d_w8a8_plain`` on the same inputs, bit for bit."""
+    (conv_w8a8_rows), and of every ``conv2d_w8a8_u8`` call (the small-Cin
+    kernel on the uint8 wire): each module of the port that calls a
+    wrapper, but ops/conv.py itself, gets a recorder in its place, so the
+    wrapper's own counters still count; ``verify`` then holds each output
+    to its plain version (``conv2d_w8a8_plain``, ``conv2d_w8a8_u8_plain``)
+    on the same inputs, bit for bit."""
 
     def __enter__(self):
         from dnn_inference_engine_tpu_torch.ops import conv as cv
-        self.cv, self.fn, self.calls, self.mods = cv, cv.conv2d_w8a8, [], []
+        self.cv, self.calls, self.mods = cv, [], []
+        self.fns = {"conv2d_w8a8": cv.conv2d_w8a8,
+                    "conv2d_w8a8_u8": cv.conv2d_w8a8_u8}
 
         def launched():
-            return self.fn.launches + cv.conv_w8a8_rows.launches
+            return cv.conv2d_w8a8.launches + cv.conv_w8a8_rows.launches
 
-        def record(*args, **kw):
-            before = launched()
-            out = self.fn(*args, **kw)
-            if launched() != before:
-                self.calls.append((args, kw, out))
-            return out
-        for name, mod in list(sys.modules.items()):
-            if (name.startswith("dnn_inference_engine_tpu_torch.")
-                    and mod is not cv
-                    and getattr(mod, "conv2d_w8a8", None) is self.fn):
-                mod.conv2d_w8a8 = record
-                self.mods.append(mod)
+        def recorder(name):
+            fn = self.fns[name]
+
+            def record(*args, **kw):
+                before = launched()
+                out = fn(*args, **kw)
+                if launched() != before:
+                    self.calls.append((name, args, kw, out))
+                return out
+            return record
+        for mname, mod in list(sys.modules.items()):
+            if not mname.startswith("dnn_inference_engine_tpu_torch.") \
+                    or mod is cv:
+                continue
+            for name, fn in self.fns.items():
+                if getattr(mod, name, None) is fn:
+                    setattr(mod, name, recorder(name))
+                    self.mods.append((mod, name))
         return self
 
     def __exit__(self, *exc):
-        for mod in self.mods:
-            mod.conv2d_w8a8 = self.fn
+        for mod, name in self.mods:
+            setattr(mod, name, self.fns[name])
 
-    def verify(self, tag: str, want: int):
-        if len(self.calls) != want:
+    def plain(self, name, args, kw):
+        if name == "conv2d_w8a8":
+            return self.cv.conv2d_w8a8_plain(*args, **kw)
+        xu, e, *rest = args
+        return self.cv.conv2d_w8a8_u8_plain(xu, e.s_in, *rest, **kw)
+
+    def verify(self, tag: str, want: int, want_u8: int = 0):
+        n_u8 = sum(c[0] == "conv2d_w8a8_u8" for c in self.calls)
+        if len(self.calls) != want or n_u8 != want_u8:
             raise AssertionError(f"{tag}: {len(self.calls)} conv_w8a8 and "
-                                 f"conv_w8a8_rows launches checked, {want} "
+                                 f"conv_w8a8_rows launches checked ({n_u8} "
+                                 f"on the uint8 wire), {want} ({want_u8}) "
                                  f"expected")
-        for i, (args, kw, out) in enumerate(self.calls):
-            ref = self.cv.conv2d_w8a8_plain(*args, **kw)
+        for i, (name, args, kw, out) in enumerate(self.calls):
+            ref = self.plain(name, args, kw)
             if not torch.equal(out, ref):
                 raise AssertionError(
-                    f"{tag}: conv_w8a8 launch {i} ({tuple(args[0].shape)} x "
-                    f"{tuple(args[2].shape)}) != conv2d_w8a8_plain in "
+                    f"{tag}: {name} launch {i} ({tuple(args[0].shape)} x "
+                    f"{tuple(args[2].shape)}) != its plain version in "
                     f"{int((out != ref).sum())} codes")
         print(f"{tag}: every conv_w8a8 and conv_w8a8_rows launch of the "
-              f"detect ({len(self.calls)}) equals conv2d_w8a8_plain bit for "
-              f"bit")
+              f"detect ({len(self.calls)}, {n_u8} on the uint8 wire) equals "
+              f"its plain version bit for bit")
 
 
 class XlaTierIm2col:
@@ -2214,14 +2246,73 @@ def resnet_conv_rows(g, dev, batch, ops_peak, bw, tag):
     return rows
 
 
-def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
+def _sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i",
+         str(torch.cuda.current_device())],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def rows_epilogue_instr(act: str):
+    """(issued instructions an output of conv_w8a8_rows' epilogue under
+    ``act``, how it was counted): from ``cuobjdump -sass`` of the built
+    library, where the codes' instantiations <64, 0, 7, act> and <16, 0,
+    7, act> (Cout 64 and 16, 7 steps) differ only in their unrolled
+    epilogues: their instructions' difference (NOPs left out) over the
+    difference of their outputs, four FFMA an output (the division's).
+    Raises where the SASS cannot be read or the count falls outside 8-60
+    instructions an output."""
+    import re
+    import shutil
+    from dnn_inference_engine_tpu_torch.ops import _build
+    from dnn_inference_engine_tpu_torch.ops.activations import (
+        KERNEL_ACT_CODES)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = _build.BUILD_DIR / "libconv_w8a8_rows.so"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = [0, 0]
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP)\S", line):
+            counts[cur][0] += 1
+            counts[cur][1] += " FFMA" in line
+    a = KERNEL_ACT_CODES[act]
+    n = {c: next((v for f, v in counts.items()
+                  if f"conv_rows_kernelILi{c}ELi0ELi7ELi{a}E" in f), None)
+         for c in (64, 16)}
+    if None in n.values() or n[64][1] <= n[16][1]:
+        raise AssertionError(f"conv_w8a8_rows' SASS: no <64|16, 0, 7, {a}> "
+                             f"instantiations to difference ({n})")
+    per = (n[64][0] - n[16][0]) / ((n[64][1] - n[16][1]) / 4)
+    if not 8 <= per <= 60:
+        raise AssertionError(f"conv_w8a8_rows' SASS: {per:.2f} instructions "
+                             f"an output of the epilogue, outside 8-60 ({n})")
+    return per, (f"sass, {act} ({n[64][0]} and {n[16][0]} instructions, "
+                 f"{n[64][1]} and {n[16][1]} FFMA)")
+
+
+def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw,
+                  instr):
     """The small-Cin kernel (conv_w8a8_rows, conv2d_w8a8's "rows" route) at
     one shape: through the wrapper (one conv_w8a8_rows launch, no
     gemm_fused, no im2col) and launched directly, each against the plain
-    version bit for bit; timed beside the route it replaced (im2col +
+    version bit for bit, and its uint8 form (``conv2d_w8a8_u8``: the
+    wire batch read through the code table) the same way; timed beside
+    the route it replaced (im2col +
     ``gemm_fused`` in its ragged form, and the im2col alone),
     ``torch._int_mm`` on the im2col'd A (K padded to a multiple of 8, the
-    nearest it takes), the plain version and the bound."""
+    nearest it takes), the plain version, the bound and the epilogue's
+    issue bound (``instr``: ``rows_epilogue_instr``, an output on each
+    lane of every SM at the highest SM clock; computed, not timed). The
+    previous kernel is timed in turns with this one by ``--rows-ab``."""
     from dnn_inference_engine_tpu_torch.ops import _build
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
@@ -2231,6 +2322,8 @@ def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
     cin = xs[3]
     x = torch.randint(-127, 128, xs, generator=g, device=dev,
                       dtype=torch.int8)
+    xu = torch.randint(0, 256, xs, generator=g, device=dev,
+                       dtype=torch.uint8)
     wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=dev,
                        dtype=torch.int8)
     s_w = (torch.rand(cout, generator=g, device=dev) + 0.5) * 1e-3
@@ -2242,8 +2335,11 @@ def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
                 cv.conv2d_w8a8.im2col_launches, cv.conv2d_w8a8.launches)
     before = counters()
     got = cv.conv2d_w8a8(x, 0.02, wq, s_w, b, **kw)
+    e = cv.entry_codes(1 / 127, s_w)
+    got_u8 = cv.conv2d_w8a8_u8(xu, e, wq, s_w, b, **kw)
     launched = tuple(a - c for a, c in zip(counters(), before))
     ref = cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, **kw)
+    ref_u8 = cv.conv2d_w8a8_u8_plain(xu, e.s_in, wq, s_w, b, **kw)
     plan = cv.rows_plan(*xs, cout, k, stride, _build.sm_count(dev))
     tile = cv.rows_tile_matrix(wq)
     scale = f32_scalar(0.02, dev) * s_w
@@ -2254,6 +2350,10 @@ def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
         return cv.conv_w8a8_rows(x, tile, scale, b, 0.05, k, stride, act,
                                  plan)
 
+    def kernel_u8():
+        return cv.conv_w8a8_rows(xu, tile, e.scale, b, 0.05, k, stride, act,
+                                 plan, codes=e.codes)
+
     def route():
         # the route it replaced, on prepared operands (the wrapper's scale
         # upload would block the host behind the queued calls)
@@ -2263,7 +2363,10 @@ def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
     err = max(max_abs_err(got, ref), max_abs_err(kernel(), ref),
               max_abs_err(route(), ref))
     ragged = gm.gemm_fused.ragged_launches - ragged
+    err_u8 = max(max_abs_err(got_u8, ref_u8), max_abs_err(kernel_u8(),
+                                                          ref_u8))
     ms = device_ms(kernel, 20)
+    u8_ms = device_ms(kernel_u8, 20)
     route_ms = device_ms(route, 10)
     im2col_ms = device_ms(lambda: extract_patches(x, k, k, stride, "SAME"),
                           10)
@@ -2277,22 +2380,30 @@ def rows_conv_row(g, dev, tag, xs, k, stride, cout, act, ops_peak, bw):
     bound, by = _bound(2.0 * m * kk * cout,
                        x.numel() + wq.numel() + 8 * cout + got.numel(),
                        ops_peak, bw)
+    issue_ms = (m * cout * instr[0]
+                / (_build.sm_count(dev) * 128 * _sm_clock_hz()) * 1e3)
     print(f"  {tag} ({k}x{k}/s{stride}, Cin {cin}, M={m} K={kk} N={cout}): "
-          f"conv_w8a8_rows err={err} ms={ms:.4f} (run {plan.run}, "
-          f"{plan.ksteps} k32 steps, {plan.upx} px a unit, {plan.units} "
-          f"units, grid {plan.grid}); im2col + gemm_fused (ragged) "
+          f"conv_w8a8_rows err={err} ms={ms:.4f}, uint8 form err={err_u8} "
+          f"ms={u8_ms:.4f} (run {plan.run}, {plan.ksteps} k32 steps, "
+          f"{plan.upx} px a unit, {plan.units} units, grid {plan.grid}); "
+          f"im2col + gemm_fused (ragged) "
           f"{route_ms:.4f} (the im2col alone {im2col_ms:.4f}); int_mm_ms="
           f"{lib_ms:.4f} (K {kp}) plain_ms={plain_ms:.3f} bound_ms="
-          f"{bound:.4f} ({by})")
-    if err != 0 or launched != (1, 0, 0, 0) or ragged != 1:
-        raise AssertionError(f"{tag}: err {err}, launches (rows, gemm_fused, "
-                             f"im2col, conv_w8a8) {launched}, the old "
-                             f"route's ragged launches {ragged}")
+          f"{bound:.4f} ({by}) epilogue issue bound {issue_ms:.4f} ms "
+          f"({instr[0]:.2f} instructions an output, {instr[1]})")
+    if (err != 0 or err_u8 != 0 or launched != (2, 0, 0, 0)
+            or ragged != 1):
+        raise AssertionError(f"{tag}: err {err}, uint8 form err {err_u8}, "
+                             f"launches (rows, gemm_fused, im2col, "
+                             f"conv_w8a8) {launched}, the old route's "
+                             f"ragged launches {ragged}")
     return dict(x=list(xs), k=k, stride=stride, M=m, K=kk, N=cout,
-                max_abs_err=err, ms=ms, im2col_gemm_ms=route_ms,
-                im2col_ms=im2col_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by=by, upx=plan.upx, units=plan.units,
-                grid=plan.grid)
+                max_abs_err=max(err, err_u8), ms=ms, u8_ms=u8_ms,
+                im2col_gemm_ms=route_ms, im2col_ms=im2col_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, issue_bound_ms=issue_ms,
+                epilogue_instr=instr[0], epilogue_instr_by=instr[1],
+                upx=plan.upx, units=plan.units, grid=plan.grid)
 
 
 def resnet_stem_row(g, dev, batch, ops_peak, bw):
@@ -2300,7 +2411,7 @@ def resnet_stem_row(g, dev, batch, ops_peak, bw):
     conv_w8a8_rows (``rows_conv_row``)."""
     return rows_conv_row(g, dev, f"resnet18 stem b{batch}",
                          (batch, 224, 224, 3), 7, 2, 64, "relu", ops_peak,
-                         bw)
+                         bw, rows_epilogue_instr("relu"))
 
 
 def phase_rows_kernel(dev, ops_peak, bw):
@@ -2308,9 +2419,10 @@ def phase_rows_kernel(dev, ops_peak, bw):
     Cin 3 -> 16, 416 px, leaky) at b2 (``_generic_counts``) and b8 (a
     card of bench_all's config 5)."""
     g = torch.Generator(device=dev).manual_seed(21)
+    instr = rows_epilogue_instr("leaky")
     return {f"entry b{n}": rows_conv_row(
         g, dev, f"yolo entry conv b{n}", (n, 416, 416, 3), 3, 1, 16,
-        "leaky", ops_peak, bw) for n in (2, 8)}
+        "leaky", ops_peak, bw, instr) for n in (2, 8)}
 
 
 def phase_resnet_kernels(dev, ops_peak, bw):
@@ -2434,10 +2546,13 @@ def phase_resnet_path(batch: int, mode: str, want: dict, card: str):
         with ConvCheck() as chk:
             eng.classify(imgs)
             torch.cuda.synchronize()
-        chk.verify(tag, want["conv_w8a8"] + want["conv_w8a8_rows"])
+        chk.verify(tag, want["conv_w8a8"] + want["conv_w8a8_rows"],
+                   want_u8=want["conv_w8a8_rows"])
 
     def fwd():
         return eng._fwd(x)
+    if mode == "w8a8":
+        stem_stage_is_one_launch(tag, eng, x, card)
     t = dict(tp=throughput_ms(fwd, 20), lat=latency_ms(fwd, 20))
     groups, ops = device_breakdown(fwd)
     busy = sum(groups.values())
@@ -2455,6 +2570,45 @@ def phase_resnet_path(batch: int, mode: str, want: dict, card: str):
           f"synced) {t['lat']:.3f} ms [{card}]")
     return dict(counts=counts, busy=busy, tp=t["tp"], lat=t["lat"],
                 groups=groups)
+
+
+def stem_stage_is_one_launch(tag: str, eng, x, card: str):
+    """ResNet-18's W8A8 stem stage (the plan's stage 0, an ``xla`` conv
+    on the uint8 wire ``x``, its code table built by
+    ``prepare_plan_params``) run once more: every PyTorch operation it
+    dispatches is recorded
+    (``TorchDispatchMode``), and it must be the output's allocation alone
+    (no normalise, quantize, scale or upload pass), with one
+    conv_w8a8_rows launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.runtime.plan import _run_stage
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.name())
+            return func(*args, **(kwargs or {}))
+    st, pp = eng._plan[0], eng._plan_params[0]
+    if x.dtype != torch.uint8 or "entry_codes" not in pp:
+        raise AssertionError(f"{tag}: the stem stage did not take the uint8 "
+                             f"wire ({x.dtype}, {sorted(pp)})")
+    torch.cuda.synchronize()
+    before = cv.conv_w8a8_rows.launches
+    with Ops() as ops:
+        _run_stage(eng.model.layers, st, pp, x, None, 1, eng.act_scales)
+    torch.cuda.synchronize()
+    launched = cv.conv_w8a8_rows.launches - before
+    if launched != 1 or ops.names != ["aten::empty.memory_format"]:
+        raise AssertionError(f"{tag}: the stem stage launched "
+                             f"conv_w8a8_rows {launched} times and "
+                             f"dispatched {ops.names}; want 1 and the "
+                             f"output's allocation alone")
+    print(f"{tag}: the stem stage is one conv_w8a8_rows launch on the uint8 "
+          f"wire; it dispatches nothing but its output's allocation [{card}]")
 
 
 def phase_resnet_sweep(card: str):
@@ -4136,7 +4290,8 @@ def main() -> int:
     rows["conv_w8a8_rows"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
         **{k: stem[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "im2col_gemm_ms")},
+                                "library_ms", "im2col_gemm_ms", "u8_ms",
+                                "issue_bound_ms")},
         shapes=shapes)
     torch.cuda.empty_cache()
     prof = timed("profiling", phase_profiling, card)
@@ -4204,19 +4359,21 @@ print("AB " + json.dumps({{"S1 b32": ms(xu, pad_hw=b), "S2 b32": ms(xu),
 """
 
 
-def qs2d4_ab(base: Path) -> int:
-    """quant_space_to_depth4 of another checkout (``base``, for example the
+def _ab(base: Path, turn: str, label: str, **fields) -> int:
+    """``turn`` (a script for ``python -c`` that prints one line ``AB
+    {case: ms}``, formatted with ``root``, its checkout, and ``fields``)
+    run from another checkout (``base``, for example the
     parent commit unpacked by ``git archive`` into a directory that
-    ``.gitignore`` lists) and of this one, in turns (base, this, this,
+    ``.gitignore`` lists) and from this one, in turns (base, this, this,
     base) on one card, each turn a process of its own from its checkout's
-    root, which builds its own kernels: the S1 and S2 b32 entries (u8), S1
-    f32 and the S1 b1 entry, ms a launch (``device_ms``)."""
+    root, which builds its own kernels; prints each turn and each case's
+    means as ``label case: base ms this ms``."""
     here = Path(__file__).resolve().parent
     runs = {"base": [], "this": []}
     for name, root in (("base", base.resolve()), ("this", here),
                        ("this", here), ("base", base.resolve())):
         r = subprocess.run([sys.executable, "-c",
-                            _QS2D4_TURN.format(root=str(root))],
+                            turn.format(root=str(root), **fields)],
                            cwd=root, capture_output=True, text=True,
                            timeout=600)
         if r.returncode != 0:
@@ -4231,9 +4388,116 @@ def qs2d4_ab(base: Path) -> int:
     for case in runs["this"][0]:
         mean = {n: sum(t[case] for t in ts) / len(ts)
                 for n, ts in runs.items()}
-        print(f"quant_space_to_depth4 {case}: base {mean['base']:.4f} this "
+        print(f"{label} {case}: base {mean['base']:.4f} this "
               f"{mean['this']:.4f} ms ({mean['this'] / mean['base']:.3f} of "
               f"base) [{card}]")
+    return 0
+
+
+def qs2d4_ab(base: Path) -> int:
+    """quant_space_to_depth4 of ``base`` and of this checkout in turns
+    (``_ab``): the S1 and S2 b32 entries (u8), S1 f32 and the S1 b1 entry,
+    ms a launch (``device_ms``)."""
+    return _ab(base, _QS2D4_TURN, "quant_space_to_depth4")
+
+
+_ROWS_TURN = """
+import json, sys, torch
+sys.path.insert(0, {root!r})
+from dnn_inference_engine_tpu_torch.ops import _build
+from dnn_inference_engine_tpu_torch.ops import conv as cv
+from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+from dnn_inference_engine_tpu_torch.runtime.benchlib import device_ms
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(22)
+out = {{}}
+for tag, xs, k, stride, cout, act in {shapes!r}:
+    x = torch.randint(-127, 128, xs, generator=g, device=dev,
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, k, xs[3], cout), generator=g,
+                       device=dev, dtype=torch.int8)
+    s_w = (torch.rand(cout, generator=g, device=dev) + 0.5) * 1e-3
+    b = torch.randn(cout, generator=g, device=dev)
+    plan = cv.rows_plan(*xs, cout, k, stride, _build.sm_count(dev))
+    tile = cv.rows_tile_matrix(wq)
+    scale = f32_scalar(0.02, dev) * s_w
+    def kernel():
+        return cv.conv_w8a8_rows(x, tile, scale, b, 0.05, k, stride, act,
+                                 plan)
+    ref = cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, act=act, stride=stride,
+                               s_out=0.05)
+    assert torch.equal(kernel(), ref), tag
+    out[tag] = device_ms(kernel, 20)
+print("AB " + json.dumps(out))
+"""
+# rows_conv_row's shapes: (tag, x shape, k, stride, Cout, act)
+ROWS_AB_SHAPES = [("resnet18 stem b32", (32, 224, 224, 3), 7, 2, 64, "relu"),
+                  ("resnet18 stem b1", (1, 224, 224, 3), 7, 2, 64, "relu"),
+                  ("yolo entry conv b2", (2, 416, 416, 3), 3, 1, 16,
+                   "leaky"),
+                  ("yolo entry conv b8", (8, 416, 416, 3), 3, 1, 16,
+                   "leaky")]
+
+
+def rows_ab(base: Path) -> int:
+    """conv_w8a8_rows of ``base`` and of this checkout in turns (``_ab``):
+    ms a launch (``device_ms``) at rows_conv_row's shapes, each launch
+    held to the plain version."""
+    return _ab(base, _ROWS_TURN, "conv_w8a8_rows", shapes=ROWS_AB_SHAPES)
+
+
+def rows_sweep() -> int:
+    """conv_w8a8_rows at rows_conv_row's shapes (``ROWS_AB_SHAPES``) under
+    every unit size of ROWS_UNIT_TILES and 1-3 blocks an SM, ms a launch
+    (``device_ms``), each plan's output held to the plain version: the
+    timing ROWS_UNIT_COST and ROWS_BLOCKS_PER_SM are fitted to
+    (``--rows-sweep``)."""
+    from dnn_inference_engine_tpu_torch.ops import _build
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    dev = torch.device("cuda")
+    sms = _build.sm_count(dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    tiles = cv.ROWS_UNIT_TILES
+    for tag, xs, k, stride, cout, act in ROWS_AB_SHAPES:
+        x = torch.randint(-127, 128, xs, generator=g, device=dev,
+                          dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, k, xs[3], cout), generator=g,
+                           device=dev, dtype=torch.int8)
+        s_w = (torch.rand(cout, generator=g, device=dev) + 0.5) * 1e-3
+        b = torch.randn(cout, generator=g, device=dev)
+        tile = cv.rows_tile_matrix(wq)
+        scale = f32_scalar(0.02, dev) * s_w
+        ref = cv.conv2d_w8a8_plain(x, 0.02, wq, s_w, b, act=act,
+                                   stride=stride, s_out=0.05)
+        plans = {}
+        try:
+            for t in tiles:
+                # rows_plan's own geometry with one unit size to choose from
+                cv.ROWS_UNIT_TILES = (t,)
+                plans[f"{cv.ROWS_TILE * t} px"] = cv.rows_plan.__wrapped__(
+                    *xs, cout, k, stride, sms)
+        finally:
+            cv.ROWS_UNIT_TILES = tiles
+        plan = cv.rows_plan(*xs, cout, k, stride, sms)
+        for bps in (1, 2, 3):
+            plans[f"{bps} blocks an SM"] = plan._replace(
+                grid=min(plan.units, bps * sms))
+        ms = {}
+        for name, q in plans.items():
+            def kernel(q=q):
+                return cv.conv_w8a8_rows(x, tile, scale, b, 0.05, k, stride,
+                                         act, q)
+            if not torch.equal(kernel(), ref):
+                raise AssertionError(f"{tag} {name}: differs from the plain "
+                                     "version")
+            ms[name] = round(device_ms(kernel, 20), 4)
+        print(f"conv_w8a8_rows {tag}: the plan's {plan.upx} px a unit, grid "
+              f"{plan.grid}; ms by plan {ms} [{card}]", flush=True)
     return 0
 
 
@@ -4306,6 +4570,10 @@ def resnet18_only() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--qs2d4-ab":
         sys.exit(qs2d4_ab(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--rows-ab":
+        sys.exit(rows_ab(Path(sys.argv[2])))
+    if sys.argv[1:] == ["--rows-sweep"]:
+        sys.exit(rows_sweep())
     if sys.argv[1:] == ["--front-door"]:
         sys.exit(front_door_only())
     if sys.argv[1:] == ["--resnet18"]:

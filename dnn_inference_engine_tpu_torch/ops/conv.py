@@ -49,7 +49,8 @@ from dnn_inference_engine_tpu_torch.ops.fused_conv import (
 from dnn_inference_engine_tpu_torch.ops.gemm import (
     H100_SMS, WG_BK, WG_BM, WG_BN, GemmForm, epilogue_plain, gemm_fused,
     int32_acc_plain, k_splits, kmajor_weights, ptr_or_none, split_buffers)
-from dnn_inference_engine_tpu_torch.quant.quantize import Scale, f32_scalar
+from dnn_inference_engine_tpu_torch.quant.quantize import (
+    Scale, f32_scalar, quantize_act)
 
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int, padding,
@@ -339,11 +340,14 @@ ROWS_MAX_RUN = 32               # most bytes of a kernel row, kw * Cin
 ROWS_MAX_K = 7
 ROWS_TILE = 64
 ROWS_UNIT_TILES = (16, 8, 6, 4, 2)
-ROWS_BLOCKS_PER_SM = 2
+# blocks an SM by Cout: the kernel's __launch_bounds__ (two accumulator
+# sets a thread: 64 registers at Cout 64, 16 at Cout 16)
+ROWS_BLOCKS_PER_SM = {16: 3, 64: 2}
 # a unit's fixed cost (its stage, two block barriers, the first tile's
 # wait), in tiles: weighs fewer, larger units against the last round's
-# idle blocks
-ROWS_UNIT_COST = 2
+# idle blocks (fitted to every unit size's time at the stem's and the
+# entry conv's batches: ``chip_smoke.py --rows-sweep``, PERF.md section 6)
+ROWS_UNIT_COST = 3
 
 
 class RowsPlan(NamedTuple):
@@ -391,7 +395,7 @@ def rows_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
               stride: int, sms: int = H100_SMS) -> RowsPlan:
     """The "rows" kernel's geometry and schedule (``RowsPlan``) for an (n,
     h, w, cin) input and a k x k SAME conv at ``stride``. The unit size
-    is the one of ROWS_UNIT_TILES whose rounds of ROWS_BLOCKS_PER_SM
+    is the one of ROWS_UNIT_TILES whose rounds of ROWS_BLOCKS_PER_SM[cout]
     blocks an SM cost least, a round costing its tiles a block plus
     ROWS_UNIT_COST (the larger on a tie)."""
     run = -(-(k * cin) // 4) * 4
@@ -403,7 +407,7 @@ def rows_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
     # the last pixel's run starts (w + pr - k) Cin bytes into the row and
     # a 4-byte group is read as two aligned words: up to run + 3 past it
     rb = -(-(padb + (w + pr - k) * cin + run + 4) // 16) * 16
-    slots = ROWS_BLOCKS_PER_SM * sms
+    slots = ROWS_BLOCKS_PER_SM[cout] * sms
     best = None
     for t in ROWS_UNIT_TILES:
         upx = ROWS_TILE * t
@@ -461,20 +465,28 @@ def rows_tile_matrix(wq: torch.Tensor) -> torch.Tensor:
 
 def conv_w8a8_rows(x: torch.Tensor, tile: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, s_out: Optional[Scale], k: int,
-                   stride: int, act: str, p: RowsPlan) -> torch.Tensor:
+                   stride: int, act: str, p: RowsPlan,
+                   codes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of ``csrc/conv_w8a8_rows.cu`` on operands ``conv2d_w8a8``
-    prepared: x (N, H, W, Cin) int8 on the card, ``tile`` the
+    (or ``conv2d_w8a8_u8``) prepared: x (N, H, W, Cin) int8 on the card,
+    or with ``codes`` (the (256,) int8 ``entry_code_table``) the uint8
+    wire batch, each byte read as its code; ``tile`` the
     ``rows_tile_matrix`` of the (k, k, Cin, Cout) weights, scale =
     s_in*s_w and bias (Cout,) float32, the plan ``p`` (``rows_plan``).
     Returns (N, Ho, Wo, Cout) int8 codes in the conv order (requant.cuh
     MODE 0, or 4 for an s_out that is not a positive normal float), or
     with ``s_out`` None the float32 act(acc*scale + bias); counts in
     ``conv_w8a8_rows.launches``."""
-    if x.dtype != torch.int8 or tile.dtype != torch.int8:
-        raise TypeError(f"conv_w8a8_rows takes int8 x and weights, got "
-                        f"{x.dtype} and {tile.dtype}")
-    if any(t.device.type != "cuda" or t.device != x.device
-           for t in (x, tile, scale, bias)):
+    want = torch.int8 if codes is None else torch.uint8
+    if x.dtype != want or tile.dtype != torch.int8:
+        raise TypeError(f"conv_w8a8_rows takes {want} x and int8 weights, "
+                        f"got {x.dtype} and {tile.dtype}")
+    if codes is not None and (codes.dtype != torch.int8
+                              or codes.shape != (256,)):
+        raise ValueError(f"conv_w8a8_rows: codes must be (256,) int8, got "
+                         f"{tuple(codes.shape)} {codes.dtype}")
+    if any(t is not None and (t.device.type != "cuda" or t.device != x.device)
+           for t in (x, tile, scale, bias, codes)):
         raise ValueError("conv_w8a8_rows: all operands on one CUDA device")
     n, h, w, cin = (int(d) for d in x.shape)
     cout = int(scale.shape[0])
@@ -494,9 +506,12 @@ def conv_w8a8_rows(x: torch.Tensor, tile: torch.Tensor, scale: torch.Tensor,
         return out
     ptr, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("conv_w8a8_rows", "conv_w8a8_rows",
-                         [ptr, ptr, ptr, ptr, ctypes.c_float, ptr] + [i] * 22
-                         + [ptr])
-    err = fn(x.data_ptr(), tile.data_ptr(), scale.data_ptr(),
+                         [ptr, ptr, ptr, ptr, ptr, ctypes.c_float, ptr]
+                         + [i] * 22 + [ptr])
+    if codes is not None:
+        codes = codes.contiguous()
+    err = fn(x.data_ptr(), ptr_or_none(codes), tile.data_ptr(),
+             scale.data_ptr(),
              bias.data_ptr(), float(s_out) if out_kind == 0 else 0.0,
              out.data_ptr(), n, h, w, cin, cout, k, stride, p.pt, p.pl,
              p.ho, p.wo, p.run, p.ksteps, p.padb, p.rb, p.upx, p.nr,
@@ -508,6 +523,76 @@ def conv_w8a8_rows(x: torch.Tensor, tile: torch.Tensor, scale: torch.Tensor,
 
 
 conv_w8a8_rows.launches = 0
+
+
+def entry_codes_plain(xu: torch.Tensor, s_in: Scale) -> torch.Tensor:
+    """The int8 codes of a uint8 batch at input scale ``s_in``, as the
+    plan's entry makes them: u / 255 in float32 (a division, as the JAX
+    plan's op-by-op entry), then ``quantize_act``."""
+    x = xu.to(torch.float32) / f32_scalar(255.0, xu.device)
+    return quantize_act(x, s_in)
+
+
+def entry_code_table(s_in: Scale, device) -> torch.Tensor:
+    """(256,) int8: ``entry_codes_plain`` of every byte value, by the same
+    PyTorch ops on ``device``, so a kernel that reads byte u as code[u]
+    gives the plain path's codes bit for bit. code[0] is 0."""
+    return entry_codes_plain(torch.arange(256, dtype=torch.uint8,
+                                          device=device), s_in)
+
+
+class EntryCodes(NamedTuple):
+    """What ``conv2d_w8a8_u8`` needs of an input scale, made once:
+    ``s_in`` (a Python float), ``codes`` its ``entry_code_table`` and
+    ``scale`` = f32(s_in) * s_w, on the weights' device."""
+    s_in: float
+    codes: torch.Tensor
+    scale: torch.Tensor
+
+
+def entry_codes(s_in: float, s_w: torch.Tensor) -> EntryCodes:
+    dev = s_w.device
+    return EntryCodes(s_in, entry_code_table(s_in, dev),
+                      f32_scalar(s_in, dev) * s_w)
+
+
+def conv2d_w8a8_u8_plain(xu: torch.Tensor, s_in: Scale, wq: torch.Tensor,
+                         s_w: torch.Tensor, b: torch.Tensor,
+                         act: str = "leaky", stride: int = 1,
+                         padding="SAME",
+                         s_out: Optional[Scale] = None) -> torch.Tensor:
+    """Plain PyTorch version of ``conv2d_w8a8_u8``: the uint8 batch's codes
+    (``entry_codes_plain``), then ``conv2d_w8a8_plain``."""
+    return conv2d_w8a8_plain(entry_codes_plain(xu, s_in), s_in, wq, s_w, b,
+                             act, stride, padding, s_out)
+
+
+def conv2d_w8a8_u8(xu: torch.Tensor, e: EntryCodes, wq: torch.Tensor,
+                   s_w: torch.Tensor, b: torch.Tensor, act: str = "leaky",
+                   stride: int = 1, padding="SAME",
+                   s_out: Optional[Scale] = None) -> torch.Tensor:
+    """A plan's entry conv on the uint8 wire batch ``xu``: ``conv2d_w8a8``
+    of its codes at input scale ``e.s_in`` (``entry_codes_plain``: u / 255,
+    then ``quantize_act``) for a conv the small-Cin kernel takes
+    (``rows_takes``). On the card one ``conv_w8a8_rows`` launch reads the
+    bytes and their codes from ``e.codes``, with ``e.scale``: no
+    normalise, quantize or scale pass runs before it. On a CPU tensor the
+    plain version, ``conv2d_w8a8_u8_plain``."""
+    kh, kw, cin, cout = (int(d) for d in wq.shape)
+    if (xu.dtype != torch.uint8 or xu.ndim != 4 or xu.shape[3] != cin
+            or not rows_takes(cin, cout, kh, kw, stride, padding)):
+        raise ValueError(f"conv2d_w8a8_u8: x {tuple(xu.shape)} {xu.dtype}, "
+                         f"w {tuple(wq.shape)}, stride {stride}, {padding}: "
+                         f"not the small-Cin kernel's uint8 form")
+    if xu.device.type == "cpu":
+        return conv2d_w8a8_u8_plain(xu, e.s_in, wq, s_w, b, act, stride,
+                                    padding, s_out)
+    n, h, w, _ = (int(d) for d in xu.shape)
+    return conv_w8a8_rows(xu, rows_tile_matrix(wq), e.scale, b, s_out, kh,
+                          stride, act,
+                          rows_plan(n, h, w, cin, cout, kh, stride,
+                                    _build.sm_count(xu.device)),
+                          codes=e.codes)
 
 
 def _patches(xq, kh, kw, stride, padding, out_hw):

@@ -64,7 +64,7 @@ def shard_engine_params(engine, mesh: Mesh) -> None:
                 f"{st.kind}:{st.fold}; a sharded stage must be an unfolded "
                 "xla, gemm or auto stage")
     engine._plan_params = prepare_plan_params(
-        engine.model, engine._local_params, engine._plan)
+        engine.model, engine._local_params, engine._plan, engine.act_scales)
 
 
 def _make_local_forward(engine, pair: Optional[Tuple[int, int]],

@@ -65,8 +65,8 @@ from dnn_inference_engine_tpu_torch.quant.quantize import (
     calibrate, f32_scalar, quantize_model_params,
 )
 from dnn_inference_engine_tpu_torch.runtime.plan import (
-    plan_forward_w8, plan_forward_w8a8, plan_input_uint8_ok, plan_or_reason,
-    prepare_plan_params,
+    plan_entry_u8_rows, plan_forward_w8, plan_forward_w8a8,
+    plan_input_uint8_ok, plan_or_reason, prepare_plan_params,
 )
 from dnn_inference_engine_tpu_torch.runtime.plan_sweep import load_strategy
 
@@ -166,7 +166,8 @@ class Engine:
         save_checkpoint(path, self.params, self.act_scales)
 
     def prepare(self, calib_images: Optional[np.ndarray] = None) -> "Engine":
-        """Quantize and calibrate as the mode needs, and build the fused
+        """Quantize and calibrate as the mode needs (calibration first: the
+        plan's params hold its entry's code table), and build the fused
         plan for w8 and w8a8 with ``kernel="auto"``: from the strategy file
         ``config.strategy`` when one is set, else from the pinned table.
         Where that plan is illegal (or, in w8, holds an int8-only kind)
@@ -191,43 +192,40 @@ class Engine:
                     raise RuntimeError("load_weights first")
                 self.params = quantize_model_params(self.fp32_params,
                                                     self.model.layers)
+            if mode == "w8a8" and self.act_scales is None:
+                if calib_images is None and self.config.calib:
+                    from dnn_inference_engine_tpu_torch.preprocess import (
+                        load_calib_images)
+                    calib_images = load_calib_images(self.config.calib,
+                                                     self.config.input_size)
+                if calib_images is None:
+                    if self._weights_from_file:
+                        raise ValueError(
+                            "w8a8 with file-loaded weights needs real "
+                            "calibration images: pass calib_images to "
+                            "prepare(), load a checkpoint with saved scales, "
+                            "or set config.calib. (Uniform-noise fallback is "
+                            "only allowed for randomly initialized weights.)")
+                    # uniform-noise calibration, the same batch the JAX engine
+                    # draws: fine for synthetic weights only
+                    warnings.warn(
+                        "w8a8 calibration falling back to uniform noise "
+                        "(synthetic-weights mode); activation scales will not "
+                        "match natural images", stacklevel=2)
+                    calib_images = np.random.default_rng(0).uniform(
+                        0, 1, (8, self.config.input_size,
+                               self.config.input_size, 3)).astype(np.float32)
+                if self.fp32_params is None:
+                    raise RuntimeError("w8a8 calibration needs fp32 params")
+                self.act_scales = calibrate(self.model, self.fp32_params,
+                                            calib_images, device=self.device)
+                if self.mesh is not None:
+                    self.act_scales = broadcast_floats(self.act_scales)
             if self.config.kernel == "auto":
                 self._build_plan()
         self._local_params = self.params
         if self.mesh is not None:
             shard_engine_params(self, self.mesh)
-        if mode == "fp32":
-            self._prepared = True
-            return self
-        if mode == "w8a8" and self.act_scales is None:
-            if calib_images is None and self.config.calib:
-                from dnn_inference_engine_tpu_torch.preprocess import (
-                    load_calib_images)
-                calib_images = load_calib_images(self.config.calib,
-                                                 self.config.input_size)
-            if calib_images is None:
-                if self._weights_from_file:
-                    raise ValueError(
-                        "w8a8 with file-loaded weights needs real "
-                        "calibration images: pass calib_images to "
-                        "prepare(), load a checkpoint with saved scales, "
-                        "or set config.calib. (Uniform-noise fallback is "
-                        "only allowed for randomly initialized weights.)")
-                # uniform-noise calibration, the same batch the JAX engine
-                # draws: fine for synthetic weights only
-                warnings.warn(
-                    "w8a8 calibration falling back to uniform noise "
-                    "(synthetic-weights mode); activation scales will not "
-                    "match natural images", stacklevel=2)
-                calib_images = np.random.default_rng(0).uniform(
-                    0, 1, (8, self.config.input_size,
-                           self.config.input_size, 3)).astype(np.float32)
-            if self.fp32_params is None:
-                raise RuntimeError("w8a8 calibration needs fp32 params")
-            self.act_scales = calibrate(self.model, self.fp32_params,
-                                        calib_images, device=self.device)
-            if self.mesh is not None:
-                self.act_scales = broadcast_floats(self.act_scales)
         self._prepared = True
         return self
 
@@ -254,19 +252,25 @@ class Engine:
         if self.mesh is not None:
             return                # built from the shard: prepare() does it
         self._plan_params = prepare_plan_params(self.model, self.params,
-                                                plan)
+                                                plan, self.act_scales)
 
     # ------------------------------------------------------------------
     # Forward, decode, NMS
     # ------------------------------------------------------------------
 
+    def _plan_takes_u8(self) -> bool:
+        """The w8a8 plan's entry stage reads the uint8 wire batch: a fused
+        entry kernel (``plan_input_uint8_ok``, as the JAX plan) or an
+        ``xla`` entry conv on the small-Cin kernel (``plan_entry_u8_rows``:
+        ResNet-18's stem)."""
+        return (self._plan is not None and self.config.mode == "w8a8"
+                and (plan_input_uint8_ok(self._plan)
+                     or plan_entry_u8_rows(self.model, self._plan)))
+
     def _input(self, x: torch.Tensor) -> torch.Tensor:
-        """A uint8 batch divided by 255, on the device, unless a w8a8
-        plan's entry stage ingests it (ResNet-18's entry is an ``xla``
-        stage, which does not)."""
-        if x.dtype == torch.uint8 and not (
-                self._plan is not None and self.config.mode == "w8a8"
-                and plan_input_uint8_ok(self._plan)):
+        """A uint8 batch divided by 255, on the device, unless the w8a8
+        plan's entry stage reads it (``_plan_takes_u8``)."""
+        if x.dtype == torch.uint8 and not self._plan_takes_u8():
             x = x.to(torch.float32) / f32_scalar(255.0, x.device)
         return x
 
@@ -385,8 +389,7 @@ class Engine:
         size = self.config.input_size
         x = np.random.default_rng(0).uniform(
             0, 1, (batch, size, size, 3)).astype(np.float32)
-        if (self._plan is not None and self.config.mode == "w8a8"
-                and plan_input_uint8_ok(self._plan)):
+        if self._plan_takes_u8():
             x = np.clip(np.round(x * 255), 0, 255).astype(np.uint8)
         return torch.as_tensor(x, device=self.device)
 

@@ -26,7 +26,10 @@ there. Stage kinds of the W8A8 plan, with what runs them on the card:
                (rs) or shifted k=2 (rs2) folded conv with the group-max on
                the int32 accumulator; scale and bias fold 1/s_out
   xla          ops/conv.conv2d_w8a8: the conv_w8a8 kernel (a 1x1 conv:
-               gemm_fused on a view), conv order
+               gemm_fused on a view), conv order; as the entry stage on
+               the uint8 wire, where the small-Cin kernel takes the conv
+               (plan_entry_u8_rows), ops/conv.conv2d_w8a8_u8: one
+               conv_w8a8_rows launch that reads each byte as its code
   gemm         im2col + gemm_fused in the folded order
                (ops/conv_lowering.conv2d_w8a8_gemm)
   auto         xla or gemm per layer shape (ops/dispatch.py)
@@ -80,7 +83,7 @@ from dnn_inference_engine_tpu_torch.ops.attic.stage0 import (
     build_stage0_weights_v2, dense_k_from_v2, stage0_fused_v2,
     stage0_tile_matrix)
 from dnn_inference_engine_tpu_torch.ops.conv import (
-    conv2d_w8_bf16, conv2d_w8a8)
+    conv2d_w8_bf16, conv2d_w8a8, conv2d_w8a8_u8, entry_codes, rows_takes)
 from dnn_inference_engine_tpu_torch.ops.conv_lowering import (
     conv2d_w8a8_gemm, gemm_weights)
 from dnn_inference_engine_tpu_torch.ops.dispatch import conv2d_w8a8_dispatch
@@ -344,14 +347,19 @@ def plan_or_reason(model, strategy: Optional[Dict] = None,
 
 
 def prepare_plan_params(model, qparams: Sequence[Dict],
-                        stages: Sequence[Stage]) -> List[Dict]:
+                        stages: Sequence[Stage],
+                        act_scales: Optional[Sequence[float]] = None
+                        ) -> List[Dict]:
     """Pre-fold weights for folded stages (host-side, once), store each
     conv stage's K-major weight matrix ``wt`` (gemm_weights: the GEMM's,
     and the conv_w8a8 kernel's without a group-max), and lay out the
     stem_dg kernel's weight slabs, the rs kernel's K-major matrix, the
     conv_w8a8 kernel's pool-major matrix of a fold stage and the s0
     kernel's dense-K matrix and tile (each cached on its weights); a
-    dense stage keeps its params and gains its f32 weights ``w``."""
+    dense stage keeps its params and gains its f32 weights ``w``. Given
+    the W8A8 ``act_scales``, an entry stage that reads the uint8 wire on
+    the small-Cin kernel (``plan_entry_u8_rows``) gains its
+    ``entry_codes``: the byte-to-code table and s_in * s_w."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -398,6 +406,9 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
                 # group-max, cached on the folded weights
                 rs_tile_matrix(q["wq"], q["wq"].shape[3] // 4)
         out.append(q)
+    if act_scales is not None and plan_entry_u8_rows(model, stages):
+        out[0]["entry_codes"] = entry_codes(
+            act_scales[stages[0].conv_li], out[0]["s_w"])
     return out
 
 
@@ -451,6 +462,27 @@ def plan_input_uint8_ok(stages: Sequence[Stage]) -> bool:
     st = stages[0]
     return (st.kind in ("fold_xla", "fold_xla_k2", "stem_rs", "stem_dg")
             and st.fold == 4)
+
+
+def plan_entry_u8_rows(model, stages: Sequence[Stage]) -> bool:
+    """True when the W8A8 plan's entry stage is an unfolded ``xla`` conv
+    that the small-Cin kernel takes (``rows_takes``: ResNet-18's stem, the
+    YOLO models' entry conv): it reads the uint8 wire batch itself
+    (``conv2d_w8a8_u8``), so the batch skips the /255 pass. The port's own
+    check: ``plan_input_uint8_ok`` mirrors the JAX plan's, whose ``xla``
+    entry divides by 255 first."""
+    st = stages[0]
+    lay = model.layers[st.conv_li]
+    return isinstance(lay, Conv) and _rows_entry(
+        st, model.in_ch, (lay.ksize, lay.ksize, model.in_ch, lay.out_ch))
+
+
+def _rows_entry(st: Stage, cin: int, wshape) -> bool:
+    """An unfolded ``xla`` stage whose conv (HWIO ``wshape`` on a ``cin``
+    input) the small-Cin kernel takes."""
+    kh, kw, _, cout = (int(d) for d in wshape)
+    return (st.kind == "xla" and st.fold == 1
+            and rows_takes(cin, cout, kh, kw, st.stride, st.padding))
 
 
 def _conv_flops(model, input_size: Optional[int] = None) -> Dict[int, float]:
@@ -761,6 +793,21 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
             # fused quantize + s2d(4), uint8 wire or f32, lane-padded
             x = quant_space_to_depth4(x, cur_scale, pad_to=st.cin_pad)
             cur_fold = 4
+        elif (x.dtype == torch.uint8 and not (pair and li == pair[1])
+              and _rows_entry(st, x.shape[-1], pp["wq"].shape)):
+            # the uint8 wire straight into the small-Cin kernel: each byte
+            # read as its code (the table and s_in * s_w made once a plan)
+            e = pp.get("entry_codes")
+            if e is None or e.s_in != cur_scale:
+                raise ValueError(
+                    f"layer {li}: a uint8 entry needs the plan's entry_codes "
+                    f"at scale {cur_scale} (prepare_plan_params with the "
+                    f"act_scales); it has {e and e.s_in}")
+            s_out = None if st.s_out_is_final else s_next
+            x = conv2d_w8a8_u8(x, e, pp["wq"], pp["s_w"], pp["b"],
+                               act=st.act, stride=st.stride,
+                               padding=st.padding, s_out=s_out)
+            return x, s_out, cur_fold
         else:
             x = quantize_act(_entry_u8_to_f32(x), cur_scale)
     # layout: folded stages consume s2d(fold) of the plain tensor; the k=2

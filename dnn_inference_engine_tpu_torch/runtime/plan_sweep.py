@@ -35,7 +35,7 @@ import torch
 from dnn_inference_engine_tpu_torch.models.layers import Conv, MaxPool
 from dnn_inference_engine_tpu_torch.runtime.plan import (
     _referenced_layers, build_plan, plan_forward_w8, plan_forward_w8a8,
-    plan_input_uint8_ok, prepare_plan_params,
+    plan_entry_u8_rows, plan_input_uint8_ok, prepare_plan_params,
 )
 
 StrategyEntry = Tuple  # (kind, fold) or (kind, fold, opts)
@@ -152,15 +152,17 @@ class _SweepContext:
             return None
         if self.mode == "w8" and any(st.kind in ("rs", "s0") for st in plan):
             return None
-        pp = prepare_plan_params(self.model, self.eng.params, plan)
+        pp = prepare_plan_params(self.model, self.eng.params, plan,
+                                 self.eng.act_scales)
         scales = self.eng.act_scales
 
         def fwd(params, xx):
             if self.mode == "w8":
                 return plan_forward_w8(self.model, plan, params, xx)
             return plan_forward_w8a8(self.model, plan, params, scales, xx)
-        x = (self.x_u8 if self.mode == "w8a8" and plan_input_uint8_ok(plan)
-             else self.x_f32)
+        u8 = self.mode == "w8a8" and (plan_input_uint8_ok(plan)
+                                      or plan_entry_u8_rows(self.model, plan))
+        x = self.x_u8 if u8 else self.x_f32
         return fwd, pp, x
 
     @staticmethod

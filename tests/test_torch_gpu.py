@@ -1314,6 +1314,94 @@ def test_conv_w8a8_rows_matches_plain(cuda, deadline, case):
     assert torch.equal(got, ref), (tag, int((got != ref).sum()))
 
 
+# the small-Cin kernel's uint8 form (conv2d_w8a8_u8: the wire batch, each
+# byte read as its code): ResNet-18's stem at b2 and b1, the YOLO entry
+# conv at b2, f32 output, mode 4, a saturating input scale, an odd width
+# (rows staged word by word) and a misaligned x: (tag, x shape, k,
+# stride, Cout, s_out, act, s_in)
+ROWS_U8_CASES = [
+    ("r18 stem b2", (2, 224, 224, 3), 7, 2, 64, 0.05, "relu", 1 / 127),
+    ("r18 stem b1", (1, 224, 224, 3), 7, 2, 64, 0.05, "relu", 1 / 127),
+    ("yolo entry b2", (2, 416, 416, 3), 3, 1, 16, 0.05, "leaky", 0.0041),
+    ("r18 stem b2 f32", (2, 224, 224, 3), 7, 2, 64, None, "linear", 1 / 127),
+    ("mode 4", (2, 20, 20, 3), 3, 1, 16, 1e-39, "leaky", 1 / 127),
+    ("saturating", (2, 32, 32, 3), 7, 2, 64, 0.05, "relu", 0.003),
+    ("odd 31x29 k7s2", (2, 31, 29, 3), 7, 2, 64, 0.05, "relu", 1 / 127),
+    ("misaligned x", (2, 32, 32, 3), 7, 2, 64, 0.05, "relu", 1 / 127)]
+
+
+@pytest.mark.parametrize("case", ROWS_U8_CASES,
+                         ids=[c[0] for c in ROWS_U8_CASES])
+def test_conv_w8a8_rows_uint8_matches_plain(cuda, deadline, case):
+    """conv2d_w8a8_u8 on the card: one conv_w8a8_rows launch and no other
+    device pass but the output's allocation, equal to its plain version
+    (u / 255, quantize_act, conv2d_w8a8_plain) bit for bit."""
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    tag, xs, k, stride, cout, s_out, act, s_in = case
+    g = torch.Generator(device=cuda).manual_seed(24)
+    _, w, _, s_w, b = _conv_inputs(g, cuda, xs, k, cout, s_out or 0.05)
+    x = torch.randint(0, 256, xs, generator=g, device=cuda,
+                      dtype=torch.uint8)
+    if tag == "misaligned x":
+        buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda)
+        x = buf[1:].view(xs).copy_(x)
+        assert x.data_ptr() % 16
+    e = cv.entry_codes(s_in, s_w)
+    before = (cv.conv2d_w8a8.launches, cv.conv_w8a8_rows.launches,
+              cv.conv2d_w8a8.im2col_launches, gm.gemm_fused.launches)
+    got = cv.conv2d_w8a8_u8(x, e, w, s_w, b, act=act, stride=stride,
+                            s_out=s_out)
+    assert (cv.conv2d_w8a8.launches, cv.conv_w8a8_rows.launches,
+            cv.conv2d_w8a8.im2col_launches, gm.gemm_fused.launches) == (
+        before[0], before[1] + 1, before[2], before[3]), tag
+    ref = cv.conv2d_w8a8_u8_plain(x, s_in, w, s_w, b, act=act,
+                                  stride=stride, s_out=s_out)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), (tag, int((got != ref).sum()))
+    # the card's table is the CPU's
+    assert torch.equal(e.codes.cpu(), cv.entry_code_table(s_in, "cpu"))
+
+
+def test_resnet18_w8a8_uint8_stem_on_the_card(cuda, deadline):
+    """A ResNet-18 W8A8 engine on the card at 64 px takes its uint8 batch
+    into the stem's uint8 form: one conv_w8a8_rows launch a classify, no
+    /255 pass; the stem's output and the codes up to the pool equal a CPU
+    engine's with the card's weights and scales."""
+    import numpy as np
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.ops import conv as cv
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    from dnn_inference_engine_tpu_torch.runtime.plan import plan_forward_w8a8
+    kw = dict(model="resnet18", mode="w8a8", batch=2, input_size=64,
+              num_classes=10)
+    calib = np.random.default_rng(4).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32)
+    gpu = Engine(EngineConfig(**kw)).load_weights(seed=0).prepare(calib)
+    fp32 = [{k: v.cpu().numpy() for k, v in p.items()}
+            for p in gpu.fp32_params]
+    cpu = Engine(EngineConfig(**kw), device="cpu").load_weights(
+        params=fp32, act_scales=gpu.act_scales).prepare()
+    u8 = np.random.default_rng(6).integers(0, 256, (2, 64, 64, 3),
+                                           dtype=np.uint8)
+    gpu.classify(u8)
+    before = cv.conv_w8a8_rows.launches
+    logits = gpu.classify(u8)
+    assert cv.conv_w8a8_rows.launches == before + 1
+    want = cpu.classify(u8)
+    assert np.abs(logits - want).max() <= 1e-5 * np.abs(want).max()
+    recs = []
+    for eng in (gpu, cpu):
+        rec = []
+        plan_forward_w8a8(eng.model, eng._plan, eng._plan_params,
+                          eng.act_scales, eng._device_batch(u8),
+                          record_states=rec)
+        recs.append(rec)
+    gap = [st.kind for st in gpu._plan].index("gap")
+    for si in range(1, gap + 1):
+        assert torch.equal(recs[0][si][0].cpu(), recs[1][si][0]), si
+
+
 # conv_w8a8's int32-accumulator form at the row-parallel convs' shards
 # (416 px: YOLOv2-tiny L13, YOLOv3-tiny L12; ResNet-18 L3 at 224 px), at
 # b2 and b1 and a straddled stream-K tile (b1), and the refused Cin 8:

@@ -278,12 +278,20 @@ def test_stage_times_field_contract(stage_rows):
 
 
 def test_stage_times_work_and_traffic_match_jax(stage_rows):
-    jrows, rows, _ = stage_rows
+    """The port's stage rows carry JAX's work and traffic; where the port's
+    entry stage reads the uint8 wire and JAX's the f32 batch (ResNet-18's
+    stem, ``plan_entry_u8_rows``), its input is 1 byte a value, not 4."""
+    jrows, rows, eng = stage_rows
+    u8_entry = (tplan.plan_entry_u8_rows(eng.model, eng._plan)
+                and not tplan.plan_input_uint8_ok(eng._plan))
+    assert u8_entry == (eng.config.model == "resnet18")
+    values = eng._bench_input(2).numel()
     for j, t in zip(jrows, rows):
         assert (t["stage"], t["name"], t["kind"]) == \
             (j["stage"], j["name"], j["kind"])
         assert (t["gop"], t["gop_exec"]) == (j["gop"], j["gop_exec"])
-        assert abs(t["hbm_mb"] - j["hbm_mb"]) <= 0.01, t["name"]
+        less = 3 * values / 1e6 if u8_entry and t["stage"] == 0 else 0.0
+        assert abs(t["hbm_mb"] + less - j["hbm_mb"]) <= 0.01, t["name"]
 
 
 def test_stage_times_needs_the_w8a8_plan():
