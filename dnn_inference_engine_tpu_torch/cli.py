@@ -330,9 +330,11 @@ def cmd_layer_times(args) -> int:
 def cmd_trace(args) -> int:
     """Trace the engine's forward (or, with ``--detect``, the detect:
     forward, decode and NMS) on the card and print the device time of
-    each stage and postprocess scope (``trace_attribution``). On a mesh
-    every rank traces its shard over as many runs; rank 0 prints its own
-    scopes and each rank's module time, and writes ``--out``."""
+    each stage and postprocess scope (``trace_attribution``), with the
+    host time inside it, then the host time of the other spans
+    (``engine.*``, ``host.*``). On a mesh every rank traces its shard over
+    as many runs; rank 0 prints its own scopes and each rank's module
+    time, and writes ``--out``."""
     from dnn_inference_engine_tpu_torch.runtime.profiling import (
         trace_attribution)
     eng = _build_engine(args)
@@ -343,8 +345,14 @@ def cmd_trace(args) -> int:
     print(f"# module device time {art['module_device_us_per_run']:.1f} us"
           f" over {art['runs_traced']} runs; ops sum "
           f"{art['sum_of_ops_us_per_run']:.1f} us")
+    host = art["host_by_scope_us"]
+    print(f"# {'device us':>10s}  {'host us':>10s}  scope")
     for k, v in art["by_scope_us"].items():
-        print(f"{v:10.2f} us  {k}")
+        h = f"{host[k]:10.2f}" if k in host else f"{'-':>10s}"
+        print(f"{v:10.2f} us  {h} us  {k}")
+    for k, h in host.items():
+        if k not in art["by_scope_us"]:
+            print(f"{'-':>10s} us  {h:10.2f} us  {k}")
     _per_rank(eng, art["module_device_us_per_run"], "module device us")
     if args.out and (eng.mesh is None or eng.mesh.rank == 0):
         with open(args.out, "w") as f:

@@ -48,6 +48,7 @@ from dnn_inference_engine_tpu_torch.ops.fused_conv import (
     _pad_hw, group_max4, stem_grid, stem_k2_row)
 from dnn_inference_engine_tpu_torch.ops.gemm import int32_acc_plain
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 # v1's piece list: (s, m') pairs; piece p covers the flat column offset
 # d = 12*s + m' = 3*jc + c for jc in {-1..4}, c in {0..2}
@@ -277,6 +278,7 @@ def stage0_fused_plain(x, b, scale, bias, s_in, act="leaky"):
     return y.reshape(n, h4, w4, 64)
 
 
+@launch_span("stage0_fused")
 def _stage0(x, b, scale, bias, s_in, act, name):
     if x.dtype != torch.float32:
         raise TypeError(f"{name} takes f32 input, got {x.dtype}")

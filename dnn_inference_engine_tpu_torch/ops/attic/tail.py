@@ -32,6 +32,7 @@ from dnn_inference_engine_tpu_torch.ops.gemm import (
     H100_SMS, WG_BM, WG_BN, GemmForm, int32_acc_plain, k_splits, ptr_or_none,
     split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 
 def _bt_check(x, w, scale, bias):
@@ -96,6 +97,7 @@ def bt_form(m: int, cout: int, cin: int, sms: int = H100_SMS) -> GemmForm:
     return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
 
 
+@launch_span("conv3x3_bt")
 def conv3x3_bt(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, act: str = "leaky",
                quantize_out: bool = True) -> torch.Tensor:

@@ -51,6 +51,7 @@ from dnn_inference_engine_tpu_torch.ops.gemm import (
     int32_acc_plain, k_splits, kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import (
     Scale, f32_scalar, quantize_act)
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int, padding,
@@ -463,6 +464,7 @@ def rows_tile_matrix(wq: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@launch_span("conv_w8a8_rows")
 def conv_w8a8_rows(x: torch.Tensor, tile: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, s_out: Optional[Scale], k: int,
                    stride: int, act: str, p: RowsPlan,
@@ -775,6 +777,7 @@ def conv2d_w8a8_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
                             "linear", f, stride, raw=True)
 
 
+@launch_span("conv_w8a8")
 def conv_w8a8_launch(x: torch.Tensor, bt: torch.Tensor,
                      scale: Optional[torch.Tensor],
                      bias: Optional[torch.Tensor], s_out: Optional[Scale],

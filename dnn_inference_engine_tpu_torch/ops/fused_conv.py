@@ -51,6 +51,7 @@ from dnn_inference_engine_tpu_torch.ops.gemm import (
     H100_SMS, WG_BK, WG_BM, GemmForm, int32_acc_plain, k_splits,
     kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -265,6 +266,7 @@ def _stem_card_check(x, w, scale, bias, name):
         raise ValueError(f"{name}: all operands on one device")
 
 
+@launch_span("stem_fused_k2")
 def stem_fused_k2(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   bias: torch.Tensor, s_in, act: str = "leaky",
                   exact_u8: bool = False) -> torch.Tensor:
@@ -446,6 +448,7 @@ def stem_dg_weight_slabs(w: torch.Tensor) -> torch.Tensor:
     return slabs
 
 
+@launch_span("stem_fused_dg")
 def stem_fused_dg(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   bias: torch.Tensor, s_in, act: str = "leaky",
                   exact_u8: bool = False) -> torch.Tensor:
@@ -504,6 +507,7 @@ def shift_s2d2_plain(x: torch.Tensor) -> torch.Tensor:
     return space_to_depth(_pad_hw(x, 1, 2 * hout_p - h - 1, 1, 1), 2)
 
 
+@launch_span("shift_s2d2")
 def shift_s2d2(x: torch.Tensor) -> torch.Tensor:
     """Pad + SHIFTED space_to_depth(2): (N, H, W, C) int8 ->
     (N, roundup(H/2+1, 8), W/2+1, 4C) with
@@ -601,6 +605,7 @@ def qs2d4_code_table(s_in) -> np.ndarray:
     return np.clip(q, -QMAX, QMAX).astype(np.int8)
 
 
+@launch_span("quant_space_to_depth4")
 def quant_space_to_depth4(x: torch.Tensor, s_in, pad_to: int = 0,
                           pad_hw=(0, 0, 0, 0)) -> torch.Tensor:
     """Fused quantize + space_to_depth(4): (N,H,W,3) uint8 or f32 ->
@@ -659,6 +664,7 @@ def gmax_shift_s2d2_plain(y: torch.Tensor, go: int) -> torch.Tensor:
     return shift_s2d2_plain(group_max4(y))
 
 
+@launch_span("gmax_shift_s2d2")
 def gmax_shift_s2d2(y: torch.Tensor, go: int) -> torch.Tensor:
     """Pool-major group-max + SHIFTED space_to_depth(2), one pass:
     (N, H, W, 4*go) int8, the pre-group-max output of a fold-2 stage ->
@@ -812,6 +818,7 @@ def rs_form(m: int, cout: int, go: int, k: int,
     return GemmForm("wgmma", splits, tiles, min(tiles * splits, sms))
 
 
+@launch_span("conv3x3_rs")
 def conv3x3_rs(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, act: str = "leaky",
                quantize_out: bool = True, pool=None, ksize: int = 3,

@@ -54,6 +54,7 @@ from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.ops.activations import (
     KERNEL_ACT_CODES, apply_activation)
 from dnn_inference_engine_tpu_torch.quant.quantize import Scale, quantize_act
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 
 # The block tile of the wgmma mainloop (csrc/wgmma_s8.cuh): 128 x 128, K
@@ -245,6 +246,7 @@ def _check(a, bt, scale, bias):
                              f"{v.dtype} {tuple(v.shape)}")
 
 
+@launch_span("gemm_fused")
 def gemm_fused(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, act: str = "leaky",
                quantize_out: bool = False, raw_acc: bool = False,
@@ -417,6 +419,7 @@ def _check_f32(a, bt, scale, bias):
                              f"{v.dtype} {tuple(v.shape)}")
 
 
+@launch_span("gemm_f32")
 def gemm_f32(a: torch.Tensor, bt: torch.Tensor, scale: torch.Tensor,
              bias: torch.Tensor, act: str = "leaky") -> torch.Tensor:
     """a (M,K) f32, bt (N,K) f32 or int8 codes, scale/bias (N,) f32 ->

@@ -46,7 +46,9 @@ from dnn_inference_engine_tpu_torch.config import (
     SCORE_THRESH_VIS, YOLOV2_TINY_ANCHORS,
 )
 from dnn_inference_engine_tpu_torch.ops.gemm import H100_SMS
-from dnn_inference_engine_tpu_torch.runtime.profiling import scope
+from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+from dnn_inference_engine_tpu_torch.runtime.profiling import (
+    launch_span, scope)
 
 # Jacobi sweeps of the NMS fixpoint's plain version (``nms_fixpoint_plain``,
 # the CPU's path) between two host reads of its convergence test; the
@@ -70,7 +72,7 @@ def _decode_rows(head, anchors, num_classes: int, input_size: int,
     mi = torch.arange(s * s * a, device=head.device)
     col = ((mi // a) % s).to(torch.float32)
     row = (mi // (a * s)).to(torch.float32)
-    anc = torch.tensor(anchors, dtype=torch.float32, device=head.device)
+    anc = f32_scalar(anchors, head.device)                  # (A, 2)
     anc_w, anc_h = anc[:, 0].repeat(s * s), anc[:, 1].repeat(s * s)
     with scope("post_decode"):
         bx = (col + torch.sigmoid(x[..., 0])) * cell_px
@@ -122,7 +124,7 @@ def _decode_cols(head, anchors, num_classes: int, input_size: int,
     cell = torch.arange(s2, device=head.device)
     col = (cell % s).to(torch.float32)
     row = (cell // s).to(torch.float32)
-    anc = torch.tensor(anchors, dtype=torch.float32, device=head.device)
+    anc = f32_scalar(anchors, head.device)                  # (A, 2)
     with scope("post_decode"):
         bx = (col + torch.sigmoid(x[:, :, 0, :])) * cell_px    # (N,A,S2)
         by = (row + torch.sigmoid(x[:, :, 1, :])) * cell_px
@@ -346,6 +348,7 @@ def _check_suppress_args(xyxy, sk, oidx) -> None:
             f"{oidx.dtype} {tuple(oidx.shape)} on {oidx.device}")
 
 
+@launch_span("nms_suppress")
 def nms_suppress(xyxy: torch.Tensor, sk: torch.Tensor, oidx: torch.Tensor,
                  iou_thresh: float = NMS_IOU_THRESH,
                  score_thresh: float = SCORE_THRESH_VIS) -> torch.Tensor:

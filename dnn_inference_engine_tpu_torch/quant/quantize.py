@@ -17,16 +17,39 @@ import numpy as np
 import torch
 
 from dnn_inference_engine_tpu_torch.config import QMAX
+from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
 Scale = Union[float, torch.Tensor]
 
 
-def f32_scalar(v: Scale, device) -> torch.Tensor:
-    """A 0-d float32 tensor on ``device`` (rounds a Python float to f32
-    exactly as ``jnp.float32`` does)."""
+def _on_card(device) -> bool:
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    return device.type == "cuda"
+
+
+def _f32(v: Scale, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=torch.float32)
     return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def f32_scalar(v: Scale, device) -> torch.Tensor:
+    """A 0-d float32 tensor on ``device`` (rounds a Python float to f32
+    exactly as ``jnp.float32`` does); of a sequence (the decode's anchor
+    table), its float32 tensor. A host value going to the card is a
+    pageable copy that waits for the stream: each such upload counts in
+    ``f32_scalar.uploads`` and runs in the span ``host.upload``."""
+    if (not isinstance(v, torch.Tensor) or v.device.type == "cpu") \
+            and _on_card(device):
+        f32_scalar.uploads += 1
+        with scope("host.upload"):
+            return _f32(v, device)
+    return _f32(v, device)
+
+
+# uploads to the card since the last ``profiling.reset_counts()``
+f32_scalar.uploads = 0
 
 
 def quantize_weights_per_channel(w: torch.Tensor):

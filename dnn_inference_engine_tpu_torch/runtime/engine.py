@@ -69,6 +69,7 @@ from dnn_inference_engine_tpu_torch.runtime.plan import (
     plan_input_uint8_ok, plan_or_reason, prepare_plan_params,
 )
 from dnn_inference_engine_tpu_torch.runtime.plan_sweep import load_strategy
+from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
 
 def resolve_device(device=None) -> torch.device:
@@ -279,20 +280,21 @@ class Engine:
         """The f32 head, or the tuple of heads (YOLOv3-tiny), of a batch
         on one device; on a mesh, of this rank's rows (its sharded
         forward, ``forward_fn``), as the JAX engine's ``_fwd`` runs over
-        the sharded params."""
+        the sharded params. Runs in the span ``engine.forward``."""
         if self.mesh is not None:
             return self.forward_fn()(x)
-        mode = self.config.mode
-        x = self._input(x)
-        if self._plan is None:
-            return self.model.forward(self.params, x, mode=mode,
-                                      act_scales=self.act_scales,
-                                      kernel=self.config.kernel)
-        if mode == "w8":
-            return plan_forward_w8(self.model, self._plan, self._plan_params,
-                                   x)
-        return plan_forward_w8a8(self.model, self._plan, self._plan_params,
-                                 self.act_scales, x)
+        with scope("engine.forward"):
+            mode = self.config.mode
+            x = self._input(x)
+            if self._plan is None:
+                return self.model.forward(self.params, x, mode=mode,
+                                          act_scales=self.act_scales,
+                                          kernel=self.config.kernel)
+            if mode == "w8":
+                return plan_forward_w8(self.model, self._plan,
+                                       self._plan_params, x)
+            return plan_forward_w8a8(self.model, self._plan,
+                                     self._plan_params, self.act_scales, x)
 
     @torch.no_grad()
     def postprocess(self, heads):
@@ -300,26 +302,28 @@ class Engine:
         YOLOv3-tiny's two heads decode with their anchor halves and
         concatenate along the candidate axis, 13x13 head first (the
         order sets the NMS tie-breaks). A classifier (ResNet-18) is not a
-        detector and raises ``ValueError``, as in the JAX engine."""
+        detector and raises ``ValueError``, as in the JAX engine. Runs in
+        the span ``engine.postprocess``."""
         c = self.config
-        if self.model.name == "yolov2-tiny":
-            boxes, scores = decode_yolov2_cols(
-                heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
-        elif self.model.name == "yolov3-tiny":
-            h1, h2 = heads
-            b1, s1 = decode_yolov3_cols(h1, YOLOV3_TINY_ANCHORS[3:],
-                                        c.num_classes, c.input_size)
-            b2, s2 = decode_yolov3_cols(h2, YOLOV3_TINY_ANCHORS[:3],
-                                        c.num_classes, c.input_size)
-            boxes = torch.cat([b1, b2], dim=-1)
-            scores = torch.cat([s1, s2], dim=-1)
-        else:
-            raise ValueError(f"{self.model.name} is not a detector")
-        return device_nms_cols(boxes, scores,
-                               iou_thresh=c.nms_iou_thresh,
-                               score_thresh=c.score_thresh,
-                               topk=c.resolved_nms_topk(),
-                               max_det=c.max_detections)
+        with scope("engine.postprocess"):
+            if self.model.name == "yolov2-tiny":
+                boxes, scores = decode_yolov2_cols(
+                    heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
+            elif self.model.name == "yolov3-tiny":
+                h1, h2 = heads
+                b1, s1 = decode_yolov3_cols(h1, YOLOV3_TINY_ANCHORS[3:],
+                                            c.num_classes, c.input_size)
+                b2, s2 = decode_yolov3_cols(h2, YOLOV3_TINY_ANCHORS[:3],
+                                            c.num_classes, c.input_size)
+                boxes = torch.cat([b1, b2], dim=-1)
+                scores = torch.cat([s1, s2], dim=-1)
+            else:
+                raise ValueError(f"{self.model.name} is not a detector")
+            return device_nms_cols(boxes, scores,
+                                   iou_thresh=c.nms_iou_thresh,
+                                   score_thresh=c.score_thresh,
+                                   topk=c.resolved_nms_topk(),
+                                   max_det=c.max_detections)
 
     def forward_fn(self):
         """The device forward: image batch tensor -> the f32 head(s) on

@@ -3,14 +3,22 @@
 Counterpart of ``dnn_inference_engine_tpu/runtime/profiling.py``, in
 PyTorch's idiom:
 
-- ``scope`` and ``layer_scope``: the named scopes of the JAX package.
-  The plans open ``stage{si}_{kind}_L{li}`` around each stage
-  (runtime/plan.py), the generic forwards ``L{li}_conv`` around each
-  conv (models/model.py), the decode and NMS ``post_decode`` and
-  ``nms_*`` (postprocess.py). A scope is a
-  ``torch.profiler.record_function`` range while a profiler runs and
-  nothing otherwise: a range costs a few microseconds of host time, and
-  the W8A8 forwards are short of host time already;
+- ``scope`` and ``layer_scope``: the port's spans. The plans open
+  ``stage{si}_{kind}_L{li}`` around each stage (runtime/plan.py), the
+  generic forwards ``L{li}_conv`` around each conv (models/model.py), the
+  decode and NMS ``post_decode`` and ``nms_*`` (postprocess.py): the
+  named scopes of the JAX package. The model step's host side adds
+  ``engine.forward`` and ``engine.postprocess`` (``Engine._fwd``,
+  ``Engine.postprocess``), ``host.upload`` around each blocking scale
+  upload (``quant.quantize.f32_scalar``, counted in
+  ``f32_scalar.uploads``) and ``host.launch.<kernel>`` around each port
+  kernel's wrapper (``launch_span``). A span records while a profiler
+  runs or inside ``recording()``, and is nothing otherwise: it costs a
+  few microseconds of host time, and the W8A8 forwards are short of host
+  time already. Under a profiler it is also a
+  ``torch.profiler.record_function`` range of its name, on the device
+  events' clock; ``read_spans`` gives each name's count, host time and
+  self time;
 - ``trace``: a ``torch.profiler`` trace (CPU and CUDA) around any
   callable, written as a Chrome trace JSON (``chrome://tracing``,
   Perfetto);
@@ -18,8 +26,8 @@ PyTorch's idiom:
   op inside the context, as the JAX package's ``jax_debug_nans`` /
   ``jax_debug_infs``;
 - ``trace_attribution``: the device time of a forward per stage scope,
-  each kernel held to its launch counter (``device_breakdown`` does the
-  same by kernel group);
+  each kernel held to its launch counter, and the host time per span
+  (``device_breakdown`` does the same by kernel group);
 - the launch counters of the port's kernels (``kernel_counters``,
   ``reset_counts``, ``read_counts``) and ``KERNEL_GROUPS``, which names
   the kernel group of a traced device event.
@@ -34,10 +42,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import os
 import re
+import threading
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 from torch.utils import _pytree
@@ -46,17 +57,109 @@ from torch.utils._python_dispatch import TorchDispatchMode
 _NULL = contextlib.nullcontext()
 
 
+class SpanStat(NamedTuple):
+    """A span name's record: how often it closed, its host nanoseconds
+    and its self nanoseconds (the host time less its child spans')."""
+    count: int
+    total_ns: int
+    self_ns: int
+
+
+class _Open(threading.local):
+    def __init__(self):
+        self.spans: List["_Span"] = []
+
+
+# name -> [count, total ns, self ns]; the spans open in each thread (a
+# ContinuousBatcher runs the engine in a worker thread)
+_SPANS: Dict[str, List[int]] = {}
+_SPANS_LOCK = threading.Lock()
+_OPEN = _Open()
+_recording = 0
+
+
+class _Span:
+    """One span: under a profiler it enters its ``record_function`` range;
+    on exit it adds its host time to ``_SPANS`` and to its parent's
+    children. Its own range's cost counts in its time, not its parent's
+    self time."""
+    __slots__ = ("name", "range", "t0", "child_ns")
+
+    def __init__(self, name: str):
+        self.name, self.child_ns = name, 0
+        self.range = (torch.profiler.record_function(name)
+                      if torch.autograd._profiler_enabled() else None)
+
+    def __enter__(self):
+        _OPEN.spans.append(self)
+        self.t0 = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        dt = time.perf_counter_ns() - self.t0
+        spans = _OPEN.spans
+        spans.pop()
+        if spans:
+            spans[-1].child_ns += dt
+        with _SPANS_LOCK:
+            row = _SPANS.setdefault(self.name, [0, 0, 0])
+            row[0] += 1
+            row[1] += dt
+            row[2] += dt - self.child_ns
+        return False
+
+
 def scope(name: str):
-    """A ``torch.profiler.record_function`` range named ``name`` while a
-    profiler runs; otherwise a context that does nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
+    """The span ``name`` while a profiler runs or inside ``recording()``
+    (under a profiler also a ``torch.profiler.record_function`` range of
+    that name); otherwise a context that does nothing."""
+    if _recording or torch.autograd._profiler_enabled():
+        return _Span(name)
     return _NULL
 
 
 def layer_scope(li: int, layer):
     """The scope of layer ``li``: ``L{li}_{type name, lower case}``."""
     return scope(f"L{li}_{type(layer).__name__.lower()}")
+
+
+def launch_span(name: str):
+    """Decorates a port kernel's wrapper (the function that launches it):
+    its body runs in the span ``host.launch.<name>``, ``name`` being the
+    kernel's ``kernel_counters`` key."""
+    span = f"host.launch.{name}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            with scope(span):
+                return fn(*args, **kw)
+        return wrapper
+    return wrap
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the context every span records (``read_spans``) with no
+    profiler running, in every thread, and enters no profiler range."""
+    global _recording
+    with _SPANS_LOCK:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _SPANS_LOCK:
+            _recording -= 1
+
+
+def read_spans() -> Dict[str, SpanStat]:
+    """Each span name's record since the last ``reset_counts()``."""
+    with _SPANS_LOCK:
+        return {k: SpanStat(*v) for k, v in _SPANS.items()}
 
 
 def _activities():
@@ -149,9 +252,12 @@ def kernel_counters() -> Dict[str, Callable]:
 
 
 def reset_counts() -> None:
-    """Sets every launch counter (and the wrappers' form counters) to 0."""
+    """Sets every launch counter (and the wrappers' form counters) and the
+    upload counter (``f32_scalar.uploads``) to 0, and empties the span
+    table (``read_spans``)."""
     from dnn_inference_engine_tpu_torch.ops import conv as cv
     from dnn_inference_engine_tpu_torch.ops import gemm as gm
+    from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
     for fn in kernel_counters().values():
         fn.launches = 0
     cv.conv2d_w8a8.im2col_launches = 0
@@ -159,9 +265,14 @@ def reset_counts() -> None:
     gm.gemm_fused.folded_launches = 0
     gm.gemm_fused.ragged_launches = 0
     gm.gemm_f32.ragged_launches = 0
+    f32_scalar.uploads = 0
+    with _SPANS_LOCK:
+        _SPANS.clear()
 
 
 def read_counts() -> Dict[str, int]:
+    """Each port kernel's launches (``kernel_counters``): only kernels,
+    each compared with its traced group by ``_lost_events``."""
     return {k: fn.launches for k, fn in kernel_counters().items()}
 
 
@@ -391,8 +502,10 @@ def trace_attribution(fn: Callable, x: torch.Tensor, runs: int = 30,
     trace that lost kernel events is reported and taken again, at most 3
     times, then the function raises; with ``agree_ranks`` (on a mesh,
     where ``fn`` is this rank's shard and may hold collectives) every rank
-    traces the same ``runs`` and retakes when any rank lost events. Needs
-    the card (the CPU has no device timeline)."""
+    traces the same ``runs`` and retakes when any rank lost events.
+    ``host_by_scope_us``: the host microseconds per run inside each span
+    (``read_spans``) over the same runs, largest first. Needs the card
+    (the CPU has no device timeline)."""
     if x.device.type != "cuda":
         raise RuntimeError(
             "trace_attribution needs the CUDA card: the profiler times "
@@ -407,5 +520,8 @@ def trace_attribution(fn: Callable, x: torch.Tensor, runs: int = 30,
         art = attribute(records, runs)
         art["runs_traced"] = runs
         art["module_device_us_per_run"] = round(_busy_us(spans) / runs, 2)
+        host = sorted(read_spans().items(), key=lambda kv: -kv[1].total_ns)
+        art["host_by_scope_us"] = {k: round(v.total_ns / 1e3 / runs, 2)
+                                   for k, v in host}
         return art, traced, launched
     return _retaking(take, f"{runs} runs", agree_ranks=agree_ranks)

@@ -32,6 +32,7 @@ import torch
 
 from dnn_inference_engine_tpu_torch.ops import _build
 from dnn_inference_engine_tpu_torch.runtime.engine import resolve_device
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 MAX_BOX = 256                   # elements of a box, in each dimension
 SMEM_LIMIT = 232_448            # bytes of shared memory a block can use
@@ -153,6 +154,7 @@ def _inner(seq, ctype):
     return (ctype * 5)(*reversed(seq))
 
 
+@launch_span("tma_probe")
 def probe(src: torch.Tensor, start: Sequence[int],
           box: Sequence[int]) -> Verdict:
     """Encode a TMA tensor map of ``src`` with ``box``; if the encode

@@ -41,6 +41,7 @@ from dnn_inference_engine_tpu_torch.ops.fused_conv import (
 from dnn_inference_engine_tpu_torch.ops.gemm import H100_SMS, int32_acc_plain
 from dnn_inference_engine_tpu_torch.runtime.benchlib import per_iter_time
 from dnn_inference_engine_tpu_torch.runtime.engine import resolve_device
+from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 from dnn_inference_engine_tpu_torch.tools.probe_dma_rules import (
     MAX_BOX, tma_box_legal)
 
@@ -154,6 +155,7 @@ def conv_dma_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return y.reshape(n, h, wd, go)
 
 
+@launch_span("conv_dma")
 def conv_dma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
              bias: torch.Tensor, ht: int = 13) -> torch.Tensor:
     """3x3/s1/SAME int8 conv + pool-major group-max + leaky + requant.

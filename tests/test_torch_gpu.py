@@ -1661,7 +1661,8 @@ def _w8a8_pin_engine(batch):
 def test_trace_attribution_rows_sum_to_the_module_time(cuda, deadline):
     """The W8A8 pin's b2 forward: the scope rows sum to the device busy
     time within 2%, every stage has device time, and every port kernel's
-    traced count equals its launch counter (checked inside)."""
+    traced count equals its launch counter (checked inside); every stage
+    has host time too, and the forward's span holds it."""
     from dnn_inference_engine_tpu_torch.runtime.profiling import (
         trace_attribution)
     eng = _w8a8_pin_engine(2)
@@ -1670,6 +1671,64 @@ def test_trace_attribution_rows_sum_to_the_module_time(cuda, deadline):
     assert abs(sum(art["by_scope_us"].values()) - module) < 0.02 * module
     stages = [k for k in art["by_scope_us"] if k.startswith("stage")]
     assert len(stages) == len(eng._plan)
+    host = art["host_by_scope_us"]
+    assert all(host[k] > 0 for k in stages)
+    assert sum(host[k] for k in stages) <= host["engine.forward"]
+
+
+# uploads a call: YOLOv2's 10 scales and its decode's anchor table;
+# ResNet-18's 39 scales
+@pytest.mark.parametrize("model,uploads", [("yolov2-tiny", 11),
+                                           ("resnet18", 39)])
+def test_host_spans_enclose_their_launches_and_uploads(cuda, deadline, model,
+                                                       uploads):
+    """The YOLOv2 W8A8 pin's b32 detect and ResNet-18 W8A8's b32 forward:
+    the upload counter equals the trace's host-to-device copies a call,
+    each copy inside a ``host.upload`` span; every port kernel's device
+    event has ``host.launch.<its kernel>`` among its enclosing ranges (the
+    spans are the profiler's ranges, on its clock); and the new spans
+    leave every event's stage scope as it was."""
+    import collections
+    from dnn_inference_engine_tpu_torch.config import EngineConfig
+    from dnn_inference_engine_tpu_torch.quant import quantize
+    from dnn_inference_engine_tpu_torch.runtime import profiling as prof
+    from dnn_inference_engine_tpu_torch.runtime.engine import Engine
+    if model == "yolov2-tiny":
+        eng = _w8a8_pin_engine(32)
+        fn = eng.detect_fn()
+    else:
+        calib = np.random.default_rng(7).uniform(
+            0, 1, (4, 224, 224, 3)).astype(np.float32)
+        eng = Engine(EngineConfig(model=model, mode="w8a8", batch=32,
+                                  input_size=224, num_classes=1000)
+                     ).load_weights(seed=0).prepare(calib)
+        fn = eng._fwd
+    x = eng._bench_input(32)
+    fn(x)
+    torch.cuda.synchronize()
+    runs = 3
+
+    def take():
+        records, _, launched = prof._window(lambda: fn(x), runs)
+        traced = collections.Counter(prof.kernel_group(r[0])
+                                     for r in records)
+        return (records, quantize.f32_scalar.uploads), traced, launched
+    records, counted = prof._retaking(take, f"{runs} calls")
+    copies = [r for r in records if "Memcpy HtoD" in r[0]]
+    assert counted == len(copies) == uploads * runs
+    assert all("host.upload" in chain for _, chain, _ in copies)
+    kernels = prof.kernel_counters()
+    launched = [(name, chain) for name, chain, _ in records
+                if prof.kernel_group(name) in kernels]
+    assert launched
+    for name, chain in launched:
+        assert f"host.launch.{prof.kernel_group(name)}" in chain, (name,
+                                                                    chain)
+    bare = [(name, tuple(c for c in chain
+                         if not c.startswith(("engine.", "host."))), us)
+            for name, chain, us in records]
+    assert (prof.attribute(records, runs)["by_scope_us"]
+            == prof.attribute(bare, runs)["by_scope_us"])
 
 
 def test_stage_times_on_card_stay_under_the_roofline(cuda, deadline):

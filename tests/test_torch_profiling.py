@@ -16,11 +16,14 @@ exists only on the card, where ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py`` take real traces.
 """
 
+import collections
 import contextlib
 import functools
 import glob
 import json
 import re
+import sys
+import threading
 import time
 import types
 
@@ -229,6 +232,166 @@ def test_scope_enters_no_range_without_a_profiler(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         with pytest.raises(RuntimeError, match="entered"):
             prof.scope("stage0_xla_L0")
+
+
+# ---------------------------------------------------------------------------
+# host spans and the upload counter
+# ---------------------------------------------------------------------------
+
+# every span name the model step's host side adds
+HOST_SPANS = (["engine.forward", "engine.postprocess", "host.upload"]
+              + [f"host.launch.{k}" for k in prof.kernel_counters()])
+
+
+@pytest.fixture
+def fresh_counts():
+    prof.reset_counts()
+    yield
+    prof.reset_counts()
+
+
+def test_nested_spans_count_their_time_and_self_time(monkeypatch,
+                                                     fresh_counts):
+    """Under ``recording()`` a span adds its count, its host time and its
+    time less its children's; a clock that steps 10 ns a reading makes
+    each number exact."""
+    ticks = iter(range(0, 10_000, 10))
+    monkeypatch.setattr(prof, "time", types.SimpleNamespace(
+        perf_counter_ns=lambda: next(ticks)))
+    with prof.recording():
+        with prof.scope("outer"):             # 0
+            for _ in range(2):
+                with prof.scope("inner"):     # 10, 20 | 30, 40
+                    pass
+        with prof.scope("inner"):             # 60, 70
+            pass
+    assert prof.read_spans() == {"outer": (1, 50, 30), "inner": (3, 30, 30)}
+
+
+def test_children_lie_inside_their_parents(fresh_counts):
+    with prof.recording():
+        with prof.scope("outer"):
+            time.sleep(0.002)
+            with prof.scope("inner"):
+                time.sleep(0.003)
+    spans = prof.read_spans()
+    outer, inner = spans["outer"], spans["inner"]
+    assert inner.total_ns >= 3e6 and outer.self_ns >= 2e6
+    assert outer.total_ns == outer.self_ns + inner.total_ns
+    assert inner.self_ns == inner.total_ns
+
+
+def test_recording_enters_no_range(monkeypatch, fresh_counts):
+    """``recording()`` records the spans of a W8A8 detect with no profiler
+    running, and enters no ``record_function`` either."""
+    eng = _engine("yolov2-tiny", "w8a8", 2)
+
+    def boom(name):
+        raise RuntimeError(f"record_function({name!r}) entered")
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    with prof.recording():
+        eng.detect(np.zeros((2, 64, 64, 3), np.uint8))
+    assert prof.read_spans()["engine.forward"].count == 1
+
+
+def test_spans_are_the_profilers_ranges(fresh_counts):
+    """Under a CPU profiler every span recorded is a range of its name,
+    as often."""
+    eng = _engine("yolov2-tiny", "w8a8", 2)
+    x = eng._bench_input(2)
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        eng.detect_fn()(x)
+    spans = prof.read_spans()
+    names = collections.Counter(e.name for e in p.events())
+    assert {"engine.forward", "engine.postprocess",
+            "host.launch.nms_suppress"} <= set(spans)
+    assert all(names[k] == v.count for k, v in spans.items()), spans
+
+
+@pytest.mark.parametrize("model", ["yolov2-tiny", "resnet18"])
+def test_a_recorded_call_records_each_stage_once(model, fresh_counts):
+    """A W8A8 call at 64 px under ``recording()``: each stage's span once,
+    ``engine.forward`` once, and for the detector ``engine.postprocess``
+    once around the decode and NMS scopes; each span within the call's
+    own ``engine.*`` time."""
+    eng = _engine(model, "w8a8", 2)
+    x = eng._bench_input(2)
+    fn = eng.detect_fn() if model == "yolov2-tiny" else eng._fwd
+    with prof.recording():
+        fn(x)
+    spans = prof.read_spans()
+    stages = sorted((k for k in spans if re.match(r"stage\d+_", k)),
+                    key=_scope_index)
+    assert len(stages) == len(eng._plan)
+    assert all(spans[k].count == 1 for k in stages)
+    assert spans["engine.forward"].count == 1
+    whole = spans["engine.forward"].total_ns
+    if model == "yolov2-tiny":
+        assert spans["engine.postprocess"].count == 1
+        assert all(spans[k].count == 1 for k in POST_SCOPES)
+        whole += spans["engine.postprocess"].total_ns
+    else:
+        assert "engine.postprocess" not in spans
+    assert all(v.total_ns <= whole for v in spans.values())
+
+
+def test_reset_clears_the_spans_and_uploads(fresh_counts):
+    from dnn_inference_engine_tpu_torch.quant import quantize
+    with prof.recording():
+        with prof.scope("host.upload"):
+            pass
+    quantize.f32_scalar.uploads = 3
+    assert prof.read_spans()
+    prof.reset_counts()
+    assert prof.read_spans() == {} and quantize.f32_scalar.uploads == 0
+    # a CPU scale is no upload; the launch counters alone are read
+    quantize.f32_scalar(0.5, torch.device("cpu"))
+    quantize.f32_scalar(torch.tensor(2.0), "cpu")
+    assert quantize.f32_scalar.uploads == 0
+    assert list(prof.read_counts()) == list(prof.kernel_counters())
+    assert len(prof.read_counts()) == 15
+
+
+@pytest.mark.parametrize("name", HOST_SPANS)
+def test_host_span_names_are_no_stage_scope(name):
+    """The harness's anchored scope pattern takes no host span as a stage
+    or postprocess scope; the program's unanchored one finds in
+    ``host.launch.nms_suppress`` only ``nms_suppress``, the scope that
+    launch already sits in."""
+    from benchmark import trace as btrace
+    assert btrace.SCOPE_RE.match(name) is None
+    m = prof._STAGE_RE.search(name)
+    if name == "host.launch.nms_suppress":
+        assert m.group(1) == "nms_suppress"
+    else:
+        assert m is None
+
+
+def test_spans_from_many_threads_lose_no_update(fresh_counts):
+    """Threads recording the same names at once (a batcher's worker beside
+    the caller): every count and nanosecond lands in the table."""
+    threads, reps = 12, 400
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(reps):
+                with prof.scope("outer"):
+                    with prof.scope("inner"):
+                        pass
+        with prof.recording():
+            pool = [threading.Thread(target=work) for _ in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    spans = prof.read_spans()
+    assert spans["outer"].count == spans["inner"].count == threads * reps
+    assert spans["outer"].total_ns == (spans["outer"].self_ns
+                                       + spans["inner"].total_ns)
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +671,33 @@ def test_cli_layer_times_generic_forward(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert sum(ln.startswith("layer") for ln in out) == 9
     assert out[-1].startswith("TOTAL conv")
+
+
+def test_cli_trace_prints_host_time_beside_device_time(tmp_path, capsys,
+                                                      monkeypatch):
+    """``trace`` prints each scope's device and host microseconds, then the
+    spans the device rows lack (the attribution stands in for the card's:
+    its numbers come only from a trace there)."""
+    art = {"module_device_us_per_run": 30.0, "runs_traced": 2,
+           "sum_of_ops_us_per_run": 30.0,
+           "by_scope_us": {"stage0_xla_L0": 20.0,
+                           "unattributed/other": 10.0},
+           "host_by_scope_us": {"engine.forward": 50.0,
+                                "stage0_xla_L0": 40.0,
+                                "host.upload": 25.0}}
+    monkeypatch.setattr(prof, "trace_attribution", lambda *a, **kw: art)
+    path = tmp_path / "c.json"
+    EngineConfig(input_size=64).to_json(str(path))
+    with pytest.warns(UserWarning, match="uniform noise"):
+        assert cli.main(["trace", "--device", "cpu", "--mode", "w8a8",
+                         "--batch", "1", "--runs", "2", "--config",
+                         str(path)]) == 0
+    rows = [ln.split() for ln in capsys.readouterr().out.splitlines()
+            if not ln.startswith("#")]
+    assert rows == [["20.00", "us", "40.00", "us", "stage0_xla_L0"],
+                    ["10.00", "us", "-", "us", "unattributed/other"],
+                    ["-", "us", "50.00", "us", "engine.forward"],
+                    ["-", "us", "25.00", "us", "host.upload"]]
 
 
 def test_cli_trace_on_the_cpu_names_the_card(tmp_path):
