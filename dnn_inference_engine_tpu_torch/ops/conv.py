@@ -50,7 +50,7 @@ from dnn_inference_engine_tpu_torch.ops.gemm import (
     H100_SMS, WG_BK, WG_BM, WG_BN, GemmForm, epilogue_plain, gemm_fused,
     int32_acc_plain, k_splits, kmajor_weights, ptr_or_none, split_buffers)
 from dnn_inference_engine_tpu_torch.quant.quantize import (
-    Scale, f32_scalar, quantize_act)
+    Scale, f32_scalar, f32_tensor, quantize_act)
 from dnn_inference_engine_tpu_torch.runtime.profiling import launch_span
 
 
@@ -578,8 +578,9 @@ def conv2d_w8a8_u8(xu: torch.Tensor, e: EntryCodes, wq: torch.Tensor,
     then ``quantize_act``) for a conv the small-Cin kernel takes
     (``rows_takes``). On the card one ``conv_w8a8_rows`` launch reads the
     bytes and their codes from ``e.codes``, with ``e.scale``: no
-    normalise, quantize or scale pass runs before it. On a CPU tensor the
-    plain version, ``conv2d_w8a8_u8_plain``."""
+    normalise, quantize or scale pass runs before it. On a CPU tensor
+    ``conv2d_w8a8_plain`` on the codes read from the same table
+    (``conv2d_w8a8_u8_plain``'s codes by construction)."""
     kh, kw, cin, cout = (int(d) for d in wq.shape)
     if (xu.dtype != torch.uint8 or xu.ndim != 4 or xu.shape[3] != cin
             or not rows_takes(cin, cout, kh, kw, stride, padding)):
@@ -587,8 +588,9 @@ def conv2d_w8a8_u8(xu: torch.Tensor, e: EntryCodes, wq: torch.Tensor,
                          f"w {tuple(wq.shape)}, stride {stride}, {padding}: "
                          f"not the small-Cin kernel's uint8 form")
     if xu.device.type == "cpu":
-        return conv2d_w8a8_u8_plain(xu, e.s_in, wq, s_w, b, act, stride,
-                                    padding, s_out)
+        return conv2d_w8a8_plain(e.codes[xu.to(torch.long)], e.s_in, wq, s_w,
+                                 b, act, stride, padding, s_out,
+                                 scale=e.scale)
     n, h, w, _ = (int(d) for d in xu.shape)
     return conv_w8a8_rows(xu, rows_tile_matrix(wq), e.scale, b, s_out, kh,
                           stride, act,
@@ -608,7 +610,7 @@ def _patches(xq, kh, kw, stride, padding, out_hw):
 
 
 def _im2col_conv(xq, s_in, wq, s_w, b, act, stride, padding, s_out, wt,
-                 out_hw, gmax):
+                 out_hw, gmax, scale=None):
     """``_patches``, then ``gemm_fused`` in the conv order, then the
     group-max."""
     kh, kw, _, cout = wq.shape
@@ -616,7 +618,8 @@ def _im2col_conv(xq, s_in, wq, s_w, b, act, stride, padding, s_out, wt,
     n, ho, wo, k = patches.shape
     if wt is None:
         wt = gemm_weights(wq)
-    scale = f32_scalar(s_in, xq.device) * s_w
+    if scale is None:
+        scale = f32_tensor(s_in, xq.device) * s_w
     out = gemm_fused(patches.reshape(n * ho * wo, k), wt, scale, b, act=act,
                      s_out=s_out)
     out = out.reshape(n, ho, wo, cout)
@@ -642,7 +645,8 @@ def conv_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
 def conv_epilogue(acc: torch.Tensor, s_in: Scale, s_w: torch.Tensor,
                   b: torch.Tensor, act: str = "leaky",
                   s_out: Optional[Scale] = None,
-                  folded: bool = False) -> torch.Tensor:
+                  folded: bool = False,
+                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A W8A8 conv's epilogue on its int32 accumulator, in PyTorch
     passes: scale = s_in * s_w, y = act(acc*scale + b), then with
     ``s_out`` the codes in the conv order, ``clip(rint(y / s_out))``
@@ -651,11 +655,13 @@ def conv_epilogue(acc: torch.Tensor, s_in: Scale, s_w: torch.Tensor,
     and b divided by s_out first); without ``s_out`` the f32 y.
     ``conv2d_w8a8_plain`` and the row-parallel conv both end in it, so a
     conv whose accumulator was summed across ranks rounds as the
-    unsharded conv does."""
+    unsharded conv does. ``scale``: s_in * s_w made already (a prepared
+    plan's)."""
     dev = acc.device
-    scale = f32_scalar(s_in, dev) * s_w
+    if scale is None:
+        scale = f32_tensor(s_in, dev) * s_w
     if folded and s_out is not None:
-        inv = 1.0 / f32_scalar(s_out, dev)
+        inv = 1.0 / f32_tensor(s_out, dev)
         return epilogue_plain(acc, scale * inv, b * inv, act,
                               quantize_out=True)
     return epilogue_plain(acc, scale, b, act, s_out=s_out)
@@ -666,12 +672,13 @@ def conv2d_w8a8_plain(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
                       stride: int = 1, padding="SAME",
                       s_out: Optional[Scale] = None,
                       wt: Optional[torch.Tensor] = None, out_hw=None,
-                      gmax: bool = False):
+                      gmax: bool = False,
+                      scale: Optional[torch.Tensor] = None):
     """Plain PyTorch version of ``conv2d_w8a8`` (same arguments): the
     exact int32 product (``conv_acc_plain``), the epilogue in the conv
     order (``conv_epilogue``) and the group-max."""
     acc = conv_acc_plain(xq, wq, stride, padding, wt, out_hw)
-    out = conv_epilogue(acc, s_in, s_w, b, act, s_out)
+    out = conv_epilogue(acc, s_in, s_w, b, act, s_out, scale=scale)
     return group_max4(out) if gmax else out
 
 
@@ -680,11 +687,14 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
                 stride: int = 1, padding="SAME",
                 s_out: Optional[Scale] = None,
                 wt: Optional[torch.Tensor] = None, out_hw=None,
-                gmax: bool = False):
+                gmax: bool = False,
+                scale: Optional[torch.Tensor] = None):
     """Full W8A8 conv: int8 x int8 -> int32, then acc * (s_in * s_w) + b,
     the activation, and (with ``s_out``) requantization to int8 —
     otherwise the f32 output. ``wt`` is the precomputed
-    ``gemm_weights(wq)``; ``out_hw`` trims the output (see
+    ``gemm_weights(wq)``, ``scale`` the precomputed f32(s_in) * s_w on
+    the data's device (a prepared plan's ``StageScales``; made here when
+    None); ``out_hw`` trims the output (see
     extract_patches). ``gmax``: the pool-major group-max of the codes
     (the max over the four channel quarters), (N, Ho, Wo, Cout/4), for
     the four groups sharing their ``s_w`` and ``b`` (a fold stage repeats
@@ -717,11 +727,12 @@ def conv2d_w8a8(xq: torch.Tensor, s_in: Scale, wq: torch.Tensor,
         if not cpu:
             conv2d_w8a8.im2col_launches += f.route == "im2col"
         return _im2col_conv(xq, s_in, wq, s_w, b, act, stride, padding,
-                            s_out, wt, out_hw, gmax)
+                            s_out, wt, out_hw, gmax, scale)
     if cpu:
         return conv2d_w8a8_plain(xq, s_in, wq, s_w, b, act, stride, padding,
-                                 s_out, wt, out_hw, gmax)
-    scale = f32_scalar(s_in, xq.device) * s_w
+                                 s_out, wt, out_hw, gmax, scale)
+    if scale is None:
+        scale = f32_tensor(s_in, xq.device) * s_w
     if f.route == "rows":
         return conv_w8a8_rows(xq, rows_tile_matrix(wq), scale, b, s_out, kh,
                               stride, act,

@@ -46,7 +46,7 @@ from dnn_inference_engine_tpu_torch.config import (
     SCORE_THRESH_VIS, YOLOV2_TINY_ANCHORS,
 )
 from dnn_inference_engine_tpu_torch.ops.gemm import H100_SMS
-from dnn_inference_engine_tpu_torch.quant.quantize import f32_scalar
+from dnn_inference_engine_tpu_torch.quant.quantize import f32_tensor
 from dnn_inference_engine_tpu_torch.runtime.profiling import (
     launch_span, scope)
 
@@ -72,7 +72,7 @@ def _decode_rows(head, anchors, num_classes: int, input_size: int,
     mi = torch.arange(s * s * a, device=head.device)
     col = ((mi // a) % s).to(torch.float32)
     row = (mi // (a * s)).to(torch.float32)
-    anc = f32_scalar(anchors, head.device)                  # (A, 2)
+    anc = f32_tensor(anchors, head.device)                  # (A, 2)
     anc_w, anc_h = anc[:, 0].repeat(s * s), anc[:, 1].repeat(s * s)
     with scope("post_decode"):
         bx = (col + torch.sigmoid(x[..., 0])) * cell_px
@@ -124,7 +124,7 @@ def _decode_cols(head, anchors, num_classes: int, input_size: int,
     cell = torch.arange(s2, device=head.device)
     col = (cell % s).to(torch.float32)
     row = (cell // s).to(torch.float32)
-    anc = f32_scalar(anchors, head.device)                  # (A, 2)
+    anc = f32_tensor(anchors, head.device)                  # (A, 2)
     with scope("post_decode"):
         bx = (col + torch.sigmoid(x[:, :, 0, :])) * cell_px    # (N,A,S2)
         by = (row + torch.sigmoid(x[:, :, 1, :])) * cell_px
@@ -145,7 +145,10 @@ def _decode_cols(head, anchors, num_classes: int, input_size: int,
 def decode_yolov2_cols(head, anchors=YOLOV2_TINY_ANCHORS,
                        num_classes: int = NUM_CLASSES,
                        input_size: int = INPUT_SIZE):
-    """Columnar decode: (N,4,M) cxcywh + (N,C,M), anchor-major order."""
+    """Columnar decode: (N,4,M) cxcywh + (N,C,M), anchor-major order.
+    ``anchors``: (w, h) pairs, or their (A, 2) float32 tensor on the
+    head's device, which the decode reads with no copy (an engine makes
+    it once)."""
     return _decode_cols(head, anchors, num_classes, input_size,
                         anchors_in_cells=True, softmax_cls=True)
 

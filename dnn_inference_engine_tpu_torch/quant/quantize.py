@@ -19,7 +19,24 @@ import torch
 from dnn_inference_engine_tpu_torch.config import QMAX
 from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
-Scale = Union[float, torch.Tensor]
+
+class PlanScale:
+    """An activation scale made once a plan (``runtime.plan.StageScales``):
+    ``v`` the Python float, which a kernel takes by value (``float(s)``),
+    and ``t`` its float32 0-d tensor on ``device`` (``f32_scalar(v)``),
+    which the PyTorch passes read (``f32_tensor``), so that a step using
+    it copies nothing to the card."""
+    __slots__ = ("v", "t")
+
+    def __init__(self, v: float, device):
+        self.v = float(v)
+        self.t = f32_scalar(self.v, device)
+
+    def __float__(self) -> float:
+        return self.v
+
+
+Scale = Union[float, torch.Tensor, PlanScale]
 
 
 def _on_card(device) -> bool:
@@ -52,6 +69,18 @@ def f32_scalar(v: Scale, device) -> torch.Tensor:
 f32_scalar.uploads = 0
 
 
+def f32_tensor(v, device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``: ``v`` itself where it is
+    one there already, a ``PlanScale``'s tensor where that is, else
+    ``f32_scalar(v, device)`` (a host value's upload)."""
+    if isinstance(v, PlanScale):
+        v = v.t
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32
+            and v.device == torch.device(device)):
+        return v
+    return f32_scalar(v, device)
+
+
 def quantize_weights_per_channel(w: torch.Tensor):
     """(..., Cout) f32 -> int8 codes + (Cout,) f32 scales (HWIO or dense)."""
     absmax = torch.amax(torch.abs(w), dim=tuple(range(w.ndim - 1)))
@@ -63,12 +92,12 @@ def quantize_weights_per_channel(w: torch.Tensor):
 def quantize_act(x: torch.Tensor, scale: Scale) -> torch.Tensor:
     """f32 -> int8 with a per-tensor scale: divide, round half to even,
     clip to +-127."""
-    s = f32_scalar(scale, x.device)
+    s = f32_tensor(scale, x.device)
     return torch.clamp(torch.round(x / s), -QMAX, QMAX).to(torch.int8)
 
 
 def dequantize(q: torch.Tensor, scale: Scale) -> torch.Tensor:
-    return q.to(torch.float32) * f32_scalar(scale, q.device)
+    return q.to(torch.float32) * f32_tensor(scale, q.device)
 
 
 @torch.no_grad()

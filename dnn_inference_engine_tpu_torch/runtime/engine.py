@@ -111,6 +111,7 @@ class Engine:
         self._plan = None
         self._plan_params = None
         self._prepared = False
+        self._anchor_tables: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
         self._weights_from_file = False
         self._detect_fn = self._forward_fn = None
 
@@ -227,8 +228,22 @@ class Engine:
         self._local_params = self.params
         if self.mesh is not None:
             shard_engine_params(self, self.mesh)
+        self.anchor_tables(self.device)
         self._prepared = True
         return self
+
+    def anchor_tables(self, device) -> Tuple[torch.Tensor, ...]:
+        """The decode's anchor tables as float32 tensors on ``device``,
+        made once an engine and device: YOLOv2-tiny's, YOLOv3-tiny's
+        13x13 and 26x26 halves in that order, none for a classifier."""
+        device = torch.device(device)
+        if device not in self._anchor_tables:
+            sets = {"yolov2-tiny": (YOLOV2_TINY_ANCHORS,),
+                    "yolov3-tiny": (YOLOV3_TINY_ANCHORS[3:],
+                                    YOLOV3_TINY_ANCHORS[:3])}
+            self._anchor_tables[device] = tuple(
+                f32_scalar(a, device) for a in sets.get(self.model.name, ()))
+        return self._anchor_tables[device]
 
     def _build_plan(self) -> None:
         """The fused plan of ``config.mode``, or None and a warning."""
@@ -307,14 +322,16 @@ class Engine:
         c = self.config
         with scope("engine.postprocess"):
             if self.model.name == "yolov2-tiny":
+                anc, = self.anchor_tables(heads.device)
                 boxes, scores = decode_yolov2_cols(
-                    heads, YOLOV2_TINY_ANCHORS, c.num_classes, c.input_size)
+                    heads, anc, c.num_classes, c.input_size)
             elif self.model.name == "yolov3-tiny":
                 h1, h2 = heads
-                b1, s1 = decode_yolov3_cols(h1, YOLOV3_TINY_ANCHORS[3:],
-                                            c.num_classes, c.input_size)
-                b2, s2 = decode_yolov3_cols(h2, YOLOV3_TINY_ANCHORS[:3],
-                                            c.num_classes, c.input_size)
+                a1, a2 = self.anchor_tables(h1.device)
+                b1, s1 = decode_yolov3_cols(h1, a1, c.num_classes,
+                                            c.input_size)
+                b2, s2 = decode_yolov3_cols(h2, a2, c.num_classes,
+                                            c.input_size)
                 boxes = torch.cat([b1, b2], dim=-1)
                 scores = torch.cat([s1, s2], dim=-1)
             else:
@@ -362,9 +379,10 @@ class Engine:
     def detect_device(self, images):
         """Dispatch detection without waiting for the device: returns
         device tensors (boxes, scores, classes), on a mesh the whole
-        batch's (gathered over the data group). On the card nothing in it
-        reads the device but the forward's scale uploads (the NMS
-        fixpoint is one kernel, postprocess.py)."""
+        batch's (gathered over the data group). On the card the W8A8
+        plan's detect neither reads the device nor waits for it: its
+        scales and the decode's anchor tables are made at ``prepare``, and
+        the NMS fixpoint is one kernel (postprocess.py)."""
         out = self.detect_fn()(self._device_batch(images))
         return gather_rows(out, self.mesh)
 

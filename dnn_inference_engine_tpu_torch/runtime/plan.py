@@ -67,7 +67,7 @@ the port's sweep (runtime/plan_sweep.py) replaces them through
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -97,7 +97,7 @@ from dnn_inference_engine_tpu_torch.ops.fused_conv import (
 )
 from dnn_inference_engine_tpu_torch.ops.pool import maxpool
 from dnn_inference_engine_tpu_torch.quant.quantize import (
-    f32_scalar, quantize_act,
+    PlanScale, f32_scalar, quantize_act,
 )
 from dnn_inference_engine_tpu_torch.runtime.profiling import scope
 
@@ -346,6 +346,101 @@ def plan_or_reason(model, strategy: Optional[Dict] = None,
     return stages, ""
 
 
+class StageScales(NamedTuple):
+    """What a W8A8 stage makes of host values, by the float32 ops and in
+    the order the stage uses them: made once a plan by
+    ``prepare_plan_params`` (a plan prepared without act_scales makes them
+    each call). ``s_in``: the input scale they were made for (an entry
+    stage's own ``act_scales[li]``); ``s_out``: the scale the stage emits
+    (None: an f32 output); ``scale`` and ``bias``: its conv's epilogue
+    operands, f32(s_in) * s_w, or in the folded order of the rs, s0 and
+    stem kernels both over f32(s_out); ``u8``: a stem's (f32(1/255),
+    scale, bias) for the uint8 wire, 128 times the weight row sums folded
+    into the bias."""
+    s_in: Optional[PlanScale] = None
+    s_out: Optional[PlanScale] = None
+    scale: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    u8: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+
+
+def stage_scales(st: Stage, pp: Dict, s_in: Optional[float],
+                 s_out: Optional[float], dev) -> StageScales:
+    """``StageScales`` of stage ``st`` (its params ``pp``) for input scale
+    ``s_in`` and output scale ``s_out``, on ``dev``."""
+    si = None if s_in is None else PlanScale(s_in, dev)
+    so = None if s_out is None else PlanScale(s_out, dev)
+    if st.kind in ("stem_rs", "stem_dg"):
+        s_w = pp["s_w"]
+        s255 = f32_scalar(1.0 / 255.0, dev)
+        w1 = pp["wq"].reshape(-1, s_w.shape[0]).to(torch.float32).sum(0)
+        u8 = (s255, (s255 * s_w) / so.t,
+              (pp["b"] + 128.0 * s255 * s_w * w1) / so.t)
+        return StageScales(si, so, (si.t * s_w) / so.t, pp["b"] / so.t, u8)
+    if st.kind == "s0":
+        # the JAX s0 branch's op order (the f32 s_in/s_next first)
+        return StageScales(si, so, pp["s_w"].repeat(4) * (si.t / so.t),
+                           pp["b"].repeat(4) / so.t)
+    if st.kind == "rs":
+        return StageScales(si, so, (si.t * pp["s_w"]) / so.t,
+                           pp["b"] / so.t)
+    if st.kind in ("xla", "fold_xla", "fold_xla_s2", "fold_xla_k2"):
+        return StageScales(si, so, si.t * pp["s_w"])
+    return StageScales(si, so)
+
+
+def _scale_keys(stages: Sequence[Stage], act_scales
+                ) -> List[Optional[Tuple[Optional[float], Optional[float]]]]:
+    """Each stage's (s_in, s_out) as ``_run_stage`` reads them, following
+    the scale a forward carries from stage to stage; None for a stage
+    that reads no scale of its own (pool, upsample, gap, dense)."""
+    keys: List = []
+    cur = None
+    for st in stages:
+        li = st.conv_li
+        s_next = act_scales[li + 1]
+        if st.kind in ("pool", "upsample"):
+            keys.append(None)
+            continue
+        if st.kind in ("gap", "dense"):
+            keys.append(None)
+            cur = None
+            continue
+        if st.kind in ("route", "shortcut"):
+            key = (None, s_next)
+        elif st.kind in ("stem_rs", "stem_dg", "s0"):
+            key = (act_scales[li], s_next)
+        else:
+            s_in = act_scales[li] if cur is None else cur
+            key = (s_in, None if (st.s_out_is_final
+                                  and st.kind != "fold_xla_k2") else s_next)
+        keys.append(key)
+        cur = key[1]
+    return keys
+
+
+def _stage_scales_of(st: Stage, pp: Dict, s_in: Optional[float],
+                     s_out: Optional[float], dev) -> StageScales:
+    """The plan's ``StageScales`` of the stage, checked against the scales
+    this forward reads (a plan prepared for other act_scales raises), or
+    made now for a plan prepared without them."""
+    sc = pp.get("scales")
+    if sc is None:
+        return stage_scales(st, pp, s_in, s_out, dev)
+    made = tuple(None if s is None else s.v for s in (sc.s_in, sc.s_out))
+    if made != (s_in, s_out):
+        raise ValueError(
+            f"layer {st.conv_li}: the plan's {st.kind} scales were made for "
+            f"(s_in, s_out) {made}, this forward reads {(s_in, s_out)}: "
+            "prepare_plan_params with the act_scales the forward runs")
+    return sc
+
+
+def _v(s) -> Optional[float]:
+    """A scale's float (None stays None)."""
+    return None if s is None else float(s)
+
+
 def prepare_plan_params(model, qparams: Sequence[Dict],
                         stages: Sequence[Stage],
                         act_scales: Optional[Sequence[float]] = None
@@ -359,7 +454,9 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
     dense stage keeps its params and gains its f32 weights ``w``. Given
     the W8A8 ``act_scales``, an entry stage that reads the uint8 wire on
     the small-Cin kernel (``plan_entry_u8_rows``) gains its
-    ``entry_codes``: the byte-to-code table and s_in * s_w."""
+    ``entry_codes``: the byte-to-code table and s_in * s_w, and every stage
+    that reads a scale its ``scales`` (``StageScales``, on the weights'
+    device): so the forward copies no host value to the card."""
     out: List[Dict] = []
     for st in stages:
         p = qparams[st.conv_li]
@@ -406,9 +503,14 @@ def prepare_plan_params(model, qparams: Sequence[Dict],
                 # group-max, cached on the folded weights
                 rs_tile_matrix(q["wq"], q["wq"].shape[3] // 4)
         out.append(q)
-    if act_scales is not None and plan_entry_u8_rows(model, stages):
-        out[0]["entry_codes"] = entry_codes(
-            act_scales[stages[0].conv_li], out[0]["s_w"])
+    if act_scales is not None:
+        if plan_entry_u8_rows(model, stages):
+            out[0]["entry_codes"] = entry_codes(
+                act_scales[stages[0].conv_li], out[0]["s_w"])
+        dev = next(p["wq"].device for p in qparams if p and "wq" in p)
+        for st, q, key in zip(stages, out, _scale_keys(stages, act_scales)):
+            if key is not None:
+                q["scales"] = stage_scales(st, q, *key, dev)
     return out
 
 
@@ -661,9 +763,10 @@ def _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales):
     conv's real rows and columns (out_hw), then the pool-major
     group-max."""
     li, f = st.conv_li, st.fold
-    s_next = act_scales[li + 1]
     if st.s_out_is_final:
         raise ValueError(f"fold_xla_k2 cannot emit the head: {st}")
+    sc = _stage_scales_of(st, pp, act_scales[li] if cur_scale is None
+                          else _v(cur_scale), act_scales[li + 1], x.device)
     if cur_fold > 1:
         x, cur_fold = _defold(x, cur_fold)
     out_hw = None
@@ -687,7 +790,7 @@ def _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales):
             x = quant_space_to_depth4(x, cur_scale, pad_to=st.cin_pad,
                                       pad_hw=pad)
         else:
-            x = quantize_act(_entry_u8_to_f32(x), cur_scale)
+            x = quantize_act(_entry_u8_to_f32(x), sc.s_in)
             x = space_to_depth(_pad_hw(x, *pad), f)
     elif (f == 2 and x.dtype == torch.int8 and x.shape[1] % 2 == 0
           and x.shape[2] % 2 == 0):
@@ -698,19 +801,21 @@ def _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales):
     if st.cin_pad:
         x = _pad_channels(x, st.cin_pad)
     y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
-                    padding="VALID", s_out=s_next, wt=pp["wt"],
+                    padding="VALID", s_out=sc.s_out, wt=pp["wt"],
                     out_hw=out_hw or (x.shape[1] - 2, x.shape[2] - 2),
-                    gmax=True)
-    return y, s_next, f // 2
+                    gmax=True, scale=sc.scale)
+    return y, sc.s_out, f // 2
 
 
 def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
                saved=None, pair=None, group=None):
-    """One plan stage; returns (x, cur_scale, cur_fold). Scales are
-    Python floats (f32-rounded where used), as the JAX plan's
-    ``jnp.float32(act_scales[i])``. ``saved``: the de-folded outputs a
-    route or shortcut stage reads; ``pair`` and ``group``: the channel
-    pair's row-parallel conv (plan_forward_w8a8)."""
+    """One plan stage; returns (x, cur_scale, cur_fold). ``act_scales``
+    are Python floats (f32-rounded where used), as the JAX plan's
+    ``jnp.float32(act_scales[i])``; the scale a stage emits is its
+    ``StageScales.s_out`` (a ``PlanScale``), and ``cur_scale`` may be one
+    or a float. ``saved``: the de-folded outputs a route or shortcut stage
+    reads; ``pair`` and ``group``: the channel pair's row-parallel conv
+    (plan_forward_w8a8)."""
     li = st.conv_li
     s_next = act_scales[li + 1]
     dev = x.device
@@ -720,18 +825,20 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
         x = maxpool(x, lay.size, lay.stride, lay.padding)  # scale-preserving
         return x, cur_scale, cur_fold
     if st.kind == "route":
+        sc = _stage_scales_of(st, pp, None, s_next, dev)
         x = torch.cat([_to_f32(*saved[j]) for j in layers[li].layers],
                       dim=-1)
-        return quantize_act(x, s_next), s_next, 1
+        return quantize_act(x, sc.s_out), sc.s_out, 1
     if st.kind == "upsample":
         x, cur_fold = _defold(x, cur_fold)
         x = _upsample_nearest(x, layers[li].stride)        # scale-preserving
         return x, cur_scale, cur_fold
     if st.kind == "shortcut":
+        sc = _stage_scales_of(st, pp, None, s_next, dev)
         x, cur_fold = _defold(x, cur_fold)
         x = _to_f32(x, cur_scale) + _to_f32(*saved[layers[li].frm])
         x = apply_activation(x, st.act)
-        return quantize_act(x, s_next), s_next, 1
+        return quantize_act(x, sc.s_out), sc.s_out, 1
     if st.kind == "gap":
         x, cur_fold = _defold(x, cur_fold)
         return torch.mean(_to_f32(x, cur_scale), dim=(1, 2)), None, cur_fold
@@ -748,42 +855,37 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
         if not (cur_fold == 1 and cur_scale is None and st.fold == 4
                 and not st.s_out_is_final):
             raise ValueError(f"{st.kind} must be the entry stage: {st}")
-        s_out = f32_scalar(s_next, dev)
-        s_w = pp["s_w"]
+        sc = _stage_scales_of(st, pp, act_scales[li], s_next, dev)
         if x.dtype == torch.uint8:
             # exact uint8 ingestion: layer-0 input scale 1/255, codes
             # v = u - 128; the offset contributes 128 * (per-channel
             # weight row-sums), folded into the bias (same op order as
             # the JAX plan)
-            s_in = f32_scalar(1.0 / 255.0, dev)
-            w1 = pp["wq"].reshape(-1, s_w.shape[0]).to(torch.float32).sum(0)
-            scale = (s_in * s_w) / s_out
-            bias = (pp["b"] + 128.0 * s_in * s_w * w1) / s_out
+            s_in, scale, bias = sc.u8
             x = stem(x, pp["wq"], scale, bias, s_in, act=st.act,
                      exact_u8=True)
         else:
-            s_in = f32_scalar(act_scales[li], dev)
-            scale = (s_in * s_w) / s_out
-            bias = pp["b"] / s_out
-            x = stem(x, pp["wq"], scale, bias, act_scales[li], act=st.act)
-        return x, s_next, st.fold // 2
+            x = stem(x, pp["wq"], sc.scale, sc.bias, act_scales[li],
+                     act=st.act)
+        return x, sc.s_out, st.fold // 2
 
     if st.kind == "s0":
         # quantize + conv1 + pool + fold-2 emit in one kernel; the JAX s0
         # branch's op order (the f32 s_in/s_next first), not the stems'
         if not (cur_scale is None and cur_fold == 1):
             raise ValueError(f"s0 must be the entry stage: {st}")
-        s_in = f32_scalar(act_scales[li], dev)
-        s_out = f32_scalar(s_next, dev)
-        scale = pp["s_w"].repeat(4) * (s_in / s_out)
-        bias = pp["b"].repeat(4) / s_out
-        x = stage0_fused_v2(x, pp["wv"], scale, bias, act_scales[li],
+        sc = _stage_scales_of(st, pp, act_scales[li], s_next, dev)
+        x = stage0_fused_v2(x, pp["wv"], sc.scale, sc.bias, act_scales[li],
                             act=st.act)
-        return x, s_next, 2
+        return x, sc.s_out, 2
 
     if st.kind == "fold_xla_k2":
         return _fold_k2_stage(st, pp, x, cur_scale, cur_fold, act_scales)
 
+    sc = _stage_scales_of(st, pp, act_scales[li] if cur_scale is None
+                          else _v(cur_scale),
+                          None if st.s_out_is_final else s_next, dev)
+    s_out = sc.s_out
     if cur_scale is None:
         # the entry stage quantizes the network input
         cur_scale = act_scales[li]
@@ -803,13 +905,12 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
                     f"layer {li}: a uint8 entry needs the plan's entry_codes "
                     f"at scale {cur_scale} (prepare_plan_params with the "
                     f"act_scales); it has {e and e.s_in}")
-            s_out = None if st.s_out_is_final else s_next
             x = conv2d_w8a8_u8(x, e, pp["wq"], pp["s_w"], pp["b"],
                                act=st.act, stride=st.stride,
                                padding=st.padding, s_out=s_out)
             return x, s_out, cur_fold
         else:
-            x = quantize_act(_entry_u8_to_f32(x), cur_scale)
+            x = quantize_act(_entry_u8_to_f32(x), sc.s_in)
     # layout: folded stages consume s2d(fold) of the plain tensor; the k=2
     # formulation consumes the SHIFTED fold (never chained)
     if st.fold > 1 and st.k == 2:
@@ -821,7 +922,6 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
             x, cur_fold = space_to_depth(x, st.fold), st.fold
     if st.fold > 1 and st.cin_pad:
         x = _pad_channels(x, st.cin_pad)
-    s_out = None if st.s_out_is_final else s_next
 
     if st.kind in ("xla", "gemm", "auto") and pair and li == pair[1]:
         if st.fold != 1 or cur_fold != 1:
@@ -833,11 +933,17 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
             use_pallas_tier=st.kind in ("gemm", "auto"),
             force_pallas=st.kind == "gemm", wt=pp["wt"])
         return x, s_out, cur_fold
-    if st.kind in ("xla", "gemm", "auto"):
-        conv = {"xla": conv2d_w8a8, "gemm": conv2d_w8a8_gemm,
+    if st.kind == "xla":
+        x = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
+                        act=st.act, stride=st.stride, padding=st.padding,
+                        s_out=s_out, wt=pp["wt"], scale=sc.scale)
+        return x, s_out, cur_fold
+    if st.kind in ("gemm", "auto"):
+        # the gemm tier takes its scales as floats (conv_lowering)
+        conv = {"gemm": conv2d_w8a8_gemm,
                 "auto": conv2d_w8a8_dispatch}[st.kind]
-        x = conv(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
-                 stride=st.stride, padding=st.padding, s_out=s_out,
+        x = conv(x, _v(cur_scale), pp["wq"], pp["s_w"], pp["b"], act=st.act,
+                 stride=st.stride, padding=st.padding, s_out=_v(s_out),
                  wt=pp["wt"])
         return x, s_out, cur_fold
     if st.kind not in ("fold_xla", "fold_xla_s2", "rs"):
@@ -848,9 +954,7 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
     cout = pp["s_w"].shape[0] // (f * f)
     if st.kind == "rs":
         # the kernel's folded order: 1/s_out is folded into scale and bias
-        so = f32_scalar(s_out, dev)
-        scale = (f32_scalar(cur_scale, dev) * pp["s_w"]) / so
-        x = conv3x3_rs(x, pp["wq"], scale, pp["b"] / so, act=st.act,
+        x = conv3x3_rs(x, pp["wq"], sc.scale, sc.bias, act=st.act,
                        quantize_out=True, pool=("gmaxm", f, cout),
                        ksize=st.k, s2d_out=st.s2d_out)
         return x, s_out, f // 2 * (2 if st.s2d_out else 1)
@@ -858,12 +962,13 @@ def _run_stage(layers, st, pp, x, cur_scale, cur_fold, act_scales,
         if f != 2:
             raise ValueError(f"fold_xla_s2 is a fold-2 stage: {st}")
         y = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"],
-                        act=st.act, s_out=s_out, wt=pp["wt"])
+                        act=st.act, s_out=s_out, wt=pp["wt"],
+                        scale=sc.scale)
         # group-max + shifted s2d(2) in one kernel, for the fold_xla_k2
         # consumer; the sentinel carries the true row count H/2
         return gmax_shift_s2d2(y, go=cout), s_out, -(y.shape[1] // 2)
     # the conv with the pool-major group-max of its requantized codes; the
     # surviving group order IS the fold-(f/2) layout
     x = conv2d_w8a8(x, cur_scale, pp["wq"], pp["s_w"], pp["b"], act=st.act,
-                    s_out=s_out, wt=pp["wt"], gmax=True)
+                    s_out=s_out, wt=pp["wt"], gmax=True, scale=sc.scale)
     return x, s_out, f // 2

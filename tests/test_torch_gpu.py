@@ -1676,18 +1676,22 @@ def test_trace_attribution_rows_sum_to_the_module_time(cuda, deadline):
     assert sum(host[k] for k in stages) <= host["engine.forward"]
 
 
-# uploads a call: YOLOv2's 10 scales and its decode's anchor table;
-# ResNet-18's 39 scales
-@pytest.mark.parametrize("model,uploads", [("yolov2-tiny", 11),
-                                           ("resnet18", 39)])
+# uploads a call after the first: none, since the W8A8 plan's scales and
+# the decode's anchor tables are made at prepare; with a direct
+# f32_scalar of a Python float in the call, that one (the counter is not
+# blind)
+@pytest.mark.parametrize("model,direct,uploads", [
+    ("yolov2-tiny", False, 0), ("resnet18", False, 0),
+    ("yolov2-tiny", True, 1)])
 def test_host_spans_enclose_their_launches_and_uploads(cuda, deadline, model,
-                                                       uploads):
+                                                       direct, uploads):
     """The YOLOv2 W8A8 pin's b32 detect and ResNet-18 W8A8's b32 forward:
     the upload counter equals the trace's host-to-device copies a call,
-    each copy inside a ``host.upload`` span; every port kernel's device
-    event has ``host.launch.<its kernel>`` among its enclosing ranges (the
-    spans are the profiler's ranges, on its clock); and the new spans
-    leave every event's stage scope as it was."""
+    each copy inside a ``host.upload`` span (none at all from the step
+    itself); every port kernel's device event has ``host.launch.<its
+    kernel>`` among its enclosing ranges (the spans are the profiler's
+    ranges, on its clock); and the new spans leave every event's stage
+    scope as it was."""
     import collections
     from dnn_inference_engine_tpu_torch.config import EngineConfig
     from dnn_inference_engine_tpu_torch.quant import quantize
@@ -1695,14 +1699,20 @@ def test_host_spans_enclose_their_launches_and_uploads(cuda, deadline, model,
     from dnn_inference_engine_tpu_torch.runtime.engine import Engine
     if model == "yolov2-tiny":
         eng = _w8a8_pin_engine(32)
-        fn = eng.detect_fn()
+        step = eng.detect_fn()
     else:
         calib = np.random.default_rng(7).uniform(
             0, 1, (4, 224, 224, 3)).astype(np.float32)
         eng = Engine(EngineConfig(model=model, mode="w8a8", batch=32,
                                   input_size=224, num_classes=1000)
                      ).load_weights(seed=0).prepare(calib)
-        fn = eng._fwd
+        step = eng._fwd
+
+    def fn(x):
+        out = step(x)
+        if direct:
+            quantize.f32_scalar(0.5, x.device)
+        return out
     x = eng._bench_input(32)
     fn(x)
     torch.cuda.synchronize()
