@@ -26,8 +26,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark import inputs, judge, metrics, spec, trace
-from benchmark.reference.int8_net import Reference
+from benchmark import families, inputs, judge, metrics, spec, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "dnn_inference_engine_tpu")
 SAMPLE = 3                      # the reservoir's stream of the seed
@@ -154,9 +153,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
                                 if on_card else 0)
 
     # -- the judgement ------------------------------------------------------
-    prog_params = [{k2: p[k2].cpu() for k2 in ("wq", "s_w")} if p else {}
-                   for p in engine.params]
-    prog_scales = list(engine.act_scales)
+    prog_params, prog_scales = families.of(cfg).program_codes(engine)
     del engine, call
     torch.set_num_threads(threads)
     gc.unfreeze()
@@ -200,11 +197,13 @@ def window_line(lat: List[float], window_s: float) -> str:
 @torch.no_grad()
 def judge_outputs(cell, task, given, device, size, pool, sample, last,
                   prog_params, prog_scales) -> Dict[str, float]:
-    """The reference on what the program was given (the float32 weights
-    and calibration images, on the host), and every number compared."""
+    """The reference of the configuration's family on what the program
+    was given (the float32 weights and calibration images, on the host),
+    and every number compared."""
     cfg, traffic = cell.config, cell.traffic
     params, calib = given
-    ref = Reference(cfg, inputs.to_torch(params, device))
+    ref = families.of(cfg).reference(cfg, inputs.to_torch(params, device),
+                                     judge.INT8)
     ref.calibrate(torch.as_tensor(calib, device=device))
     numbers = judge.weight_numbers(prog_params, ref.qparams, prog_scales,
                                    ref.scales)

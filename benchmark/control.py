@@ -30,10 +30,9 @@ from typing import Dict, Optional
 
 import torch
 
-from benchmark import inputs, judge, spec
-from benchmark.reference.int8_net import Reference
+from benchmark import families, inputs, judge, spec
 
-INT4, INT8 = 7.0, 127.0          # qmax of the control and of the cell
+INT4 = 7.0                       # qmax of the control
 
 
 @torch.no_grad()
@@ -51,11 +50,12 @@ def readings(cell: spec.Cell, seed: int, device,
                        sz["pool_batches"])
     calib = inputs.calib_images(cfg, seed, device, size)
     params = inputs.weights(cfg, seed, device, calib)
-    ref = Reference(cfg, params, INT8)
+    family = families.of(cfg)
+    ref = family.reference(cfg, params, judge.INT8)
     ref.calibrate(calib)
     low, decode = ref, torch.float16
     if side == "control":
-        low, decode = Reference(cfg, params, INT4), torch.float32
+        low, decode = family.reference(cfg, params, INT4), torch.float32
         low.calibrate(calib)
     numbers = judge.weight_numbers(low.qparams, ref.qparams, low.scales,
                                    ref.scales)

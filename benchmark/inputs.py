@@ -1,6 +1,8 @@
 """Everything a run feeds both sides, made from ``--seed`` on the device.
 
-- the float32 weights, He-normal (std sqrt(2 / fan_in)) with biases of
+- the float32 weights, as the configuration's family makes them
+  (``families/<family>.py`` ``weights``). A layer list's
+  (``fp32_weights``) are He-normal (std sqrt(2 / fan_in)) with biases of
   0.01 x normal, as the engine's own seeded init draws them but in one
   ``randn`` over every layer, on the device, in the served dtype; where the
   configuration says ``"head": "standardized"``, the last layer's weights
@@ -20,10 +22,12 @@ inputs every time.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List
 
 import numpy as np
 import torch
+
+from benchmark import families
 
 WEIGHTS, CALIB, POOL = 0, 1, 2
 CALIB_IMAGES = 8
@@ -100,14 +104,9 @@ def standardize_head(cfg: Dict, params: List[Dict],
     return params[:-1] + [{"w": w, "b": b}]
 
 
-def weights(cfg: Dict, seed: int, device, calib: torch.Tensor
-            ) -> List[Dict]:
-    """The weights both sides get: ``fp32_weights``, standardized where
-    the configuration says so."""
-    params = fp32_weights(cfg, seed, device)
-    if cfg.get("head") == "standardized":
-        params = standardize_head(cfg, params, calib)
-    return params
+def weights(cfg: Dict, seed: int, device, calib: torch.Tensor):
+    """The weights both sides get, from the configuration's family."""
+    return families.of(cfg).weights(cfg, seed, device, calib)
 
 
 def uint8_images(n: int, size: int, channels: int, gen: torch.Generator,
@@ -131,10 +130,19 @@ def pool(cfg: Dict, seed: int, device, size: int, batch: int,
             for _ in range(batches)]
 
 
-def to_numpy(params: Sequence[Dict]) -> List[Dict]:
-    return [{k: v.cpu().numpy() for k, v in p.items()} for p in params]
+def _tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of lists, tuples and dicts."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
-def to_torch(params: Sequence[Dict], device) -> List[Dict]:
-    return [{k: torch.as_tensor(v, device=device) for k, v in p.items()}
-            for p in params]
+def to_numpy(params):
+    """A tree of tensors (the weights) as numpy arrays on the host."""
+    return _tree_map(lambda v: v.cpu().numpy(), params)
+
+
+def to_torch(params, device):
+    return _tree_map(lambda v: torch.as_tensor(v, device=device), params)

@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
+INT8 = 127.0            # qmax of the int8 codes every configuration states
+
 
 def weight_numbers(prog: Sequence[Dict], ref: Sequence[Dict],
                    prog_scales: Sequence[float],

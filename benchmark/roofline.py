@@ -1,5 +1,7 @@
-"""Operations and bytes of a configuration's layers, from its layer list
-alone, and the card's peaks from NVIDIA's data sheets.
+"""Operations and bytes of a configuration's layers, and the card's peaks
+from NVIDIA's data sheets. A model's operations an image are its family's
+count (``ops_per_image``); the rest here is a layer list's geometry, from
+the list alone.
 
 A conv layer, with the max pool that directly follows it where one does,
 is one unit of work, whatever kernel (fused or not) runs it:
@@ -19,6 +21,8 @@ of its operations over the int8 peak and its bytes over the bandwidth.
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+from benchmark import families
 
 # (name substring, dense int8 ops/s, HBM bytes/s), NVIDIA's H100 data
 # sheets; the first match wins, the SXM part where none does
@@ -66,8 +70,9 @@ def layer_geometry(cfg: Dict) -> List[Dict]:
 
 
 def ops_per_image(cfg: Dict) -> float:
-    """2 x the multiply-accumulates of every conv and dense layer."""
-    return 2.0 * sum(g["macs"] for g in layer_geometry(cfg))
+    """The model's useful operations an image (2 a multiply-accumulate),
+    as the configuration's family counts them."""
+    return families.of(cfg).ops_per_image(cfg)
 
 
 def conv_units(cfg: Dict) -> List[Dict]:

@@ -2,11 +2,13 @@
 lists, the decode and NMS, and whole runs of each cell, which agree bit
 for bit there (the port's plain versions round as the reference does)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from benchmark import cell, spec
+from benchmark import cell, families, spec
 from benchmark.reference import detect_post
 from benchmark.reference.int8_net import Reference
 from dnn_inference_engine_tpu_torch.models import build_model
@@ -47,7 +49,15 @@ def as_json(layer):
     return {"type": "dense", "units": layer.out, "act": layer.act}
 
 
-@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def _family(conf):
+    with open(spec.ROOT / conf["file"]) as f:
+        return families.name(json.load(f))
+
+
+LAYER_LISTS = [c for c in BENCH["configs"] if _family(c) == "layer_list"]
+
+
+@pytest.mark.parametrize("conf", LAYER_LISTS, ids=lambda c: c["name"])
 def test_config_layers_are_the_programs_model(conf):
     c = spec.cell(BENCH, next(w["name"] for w in BENCH["workloads"]
                               if w["config"] == conf["name"]))
